@@ -1,0 +1,47 @@
+"""Weight carrier: sessions fitted by the JAX package, read into the port.
+
+``state_from_reference`` reads a checkpoint directory written by the
+reference's ``SessionState.save`` with numpy alone (an .npz of arrays plus
+a JSON manifest, the format both packages share) and returns the port's
+``SessionState``, so the port can resume or predict with a session the
+reference fitted.  ``params_from_numpy`` converts one learner's fitted
+params the same way.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import SessionState
+from repro_torch.device import resolve_device
+from repro_torch.learners.base import Learner
+
+
+def params_from_numpy(learner: Learner, params: Mapping) -> dict:
+    """One learner's params as tensors on the learner's device, in the
+    dtypes it fits them in (``learner.param_dtypes``)."""
+    want = learner.param_dtypes
+    if set(params) != set(want):
+        raise ValueError(f"{type(learner).__name__} params are {sorted(want)}, "
+                         f"got {sorted(params)}")
+    return {k: torch.as_tensor(np.asarray(v), dtype=want[k],
+                               device=learner.torch_device)
+            for k, v in params.items()}
+
+
+def state_from_reference(directory: str, step: int | None = None, *,
+                         device: str | torch.device = "cuda") -> SessionState:
+    """The reference checkpoint in ``directory`` (latest step unless
+    ``step``) as the port's SessionState on ``device``.  Learner params keep
+    the reference's dtypes, which are the port's."""
+    state = SessionState.restore(directory, step=step,
+                                 device=resolve_device(device))
+    if state.key.shape != (2,):
+        raise ValueError(f"expected threefry key data of shape (2,), got "
+                         f"{state.key.shape}")
+    if state.w.dtype != torch.float32 or state.w.dim() != 1:
+        raise ValueError(f"expected a float32 ignorance vector, got "
+                         f"{state.w.dtype} {tuple(state.w.shape)}")
+    return state

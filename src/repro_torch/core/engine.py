@@ -1,0 +1,768 @@
+"""Agent-session engine for the ASCII interchange protocol (eager, main path).
+
+Counterpart of ``repro/core/engine.py``, its main-path subset: endpoints
+exchange typed messages through a pluggable Transport, the round order is a
+pluggable Scheduler, and the protocol state is an explicit checkpointable
+SessionState.  The wire channel (codecs, DP, controllers), telemetry,
+scenarios, the async variant and the compiled backend belong to later
+slices of the port; their arguments raise ``NotImplementedError``.
+
+One rule differs from the reference, and it is deliberate: every standard
+hop (``Transport._execute_update``) goes through
+``kernels.ops.ignorance_update``, the CUDA kernel for CUDA tensors and its
+plain version for CPU tensors, on every transport and at any n.  The
+reference runs its Pallas kernel on ``MeshRingTransport`` only and when n
+tiles its grid; the function is the same within float32 rounding.
+
+The session's PRNG key is carried as opaque uint32 key data (the
+reference's ``jax.random.key_data``), saved and restored with the state.
+This slice's learners are deterministic and never read it, so it is not
+advanced.
+
+Quickstart::
+
+    endpoints = [AgentEndpoint(0, DecisionTree(depth=3), X_a),
+                 AgentEndpoint(1, DecisionTree(depth=3), X_b)]
+    engine = Protocol(SessionConfig(num_classes=10, max_rounds=6),
+                      transport=MeteredTransport())
+    session = engine.start(0, endpoints, classes)
+    session.run()
+    preds = session.fitted().predict([Xte_a, Xte_b])
+"""
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass, field
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import scores
+from repro_torch.core.encoding import encode_labels
+from repro_torch.core.transport import TransportLog
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.learners.base import Learner
+
+Params = Any
+
+VARIANTS = ("ascii", "simple", "random")
+
+
+def _later_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (see ROADMAP.md)")
+
+
+def key_data(key) -> np.ndarray:
+    """Opaque uint32 key data: an int seed becomes the data of the
+    reference's ``jax.random.key(seed)``, i.e. ``[0, seed]``; an array of
+    key data is taken as it is."""
+    if isinstance(key, (int, np.integer)):
+        return np.array([0, int(key) & 0xFFFFFFFF], dtype=np.uint32)
+    if isinstance(key, torch.Tensor):
+        key = key.cpu().numpy()
+    return np.asarray(key).astype(np.uint32)
+
+
+# ===================================================================== messages
+@dataclass(frozen=True)
+class Message:
+    """Base class for everything that crosses an agent boundary; its size
+    lets transports meter without reading the payload."""
+    src: str
+    dst: str
+
+    kind = "message"
+    bits_per_element = 32
+
+    @property
+    def num_elements(self) -> int:
+        return 0
+
+
+@dataclass(frozen=True)
+class IgnoranceMsg(Message):
+    """The length-n ignorance score shipped on every interchange hop."""
+    w: torch.Tensor = None
+
+    kind = "ignorance"
+
+    @property
+    def num_elements(self) -> int:
+        return int(self.w.numel())
+
+
+@dataclass(frozen=True)
+class ModelWeightMsg(Message):
+    """The scalar model weight alpha accompanying each hop."""
+    alpha: float = 0.0
+
+    kind = "model_weight"
+
+    @property
+    def num_elements(self) -> int:
+        return 1
+
+
+@dataclass(frozen=True)
+class ScoreBlockMsg(Message):
+    """An [n, K] coded score block: an agent's alpha-weighted votes, the
+    prediction-time traffic of Algorithm 1 line 12."""
+    scores: torch.Tensor = None
+
+    kind = "score_block"
+
+    @property
+    def num_elements(self) -> int:
+        return int(self.scores.numel())
+
+
+@dataclass(frozen=True)
+class LabelsMsg(Message):
+    """One-time setup: the head agent shares the numeric labels."""
+    num_samples: int = 0
+
+    kind = "labels"
+
+    @property
+    def num_elements(self) -> int:
+        return self.num_samples
+
+
+@dataclass(frozen=True)
+class SampleIdsMsg(Message):
+    """One-time setup: collation IDs aligning rows across agents."""
+    num_samples: int = 0
+
+    kind = "sample_ids"
+
+    @property
+    def num_elements(self) -> int:
+        return self.num_samples
+
+
+# =================================================================== transports
+class Transport(abc.ABC):
+    """How messages move between endpoints and where the interchange update
+    runs.  ``bind`` gives the transport the endpoint registry, ``send``
+    routes a message into the destination inbox (``_on_send`` is the
+    metering hook), and ``interchange`` executes one hop of eqs. (10)/(12).
+    """
+
+    def __init__(self, codec=None, privacy=None, serve_codec=None,
+                 controller=None, accountant=None,
+                 serve_controller=None) -> None:
+        for name, value in (("codec", codec), ("privacy", privacy),
+                            ("serve_codec", serve_codec),
+                            ("controller", controller),
+                            ("accountant", accountant),
+                            ("serve_controller", serve_controller)):
+            if value is not None:
+                raise _later_slice(f"the wire channel ({name}=)")
+        self._endpoints: dict[str, AgentEndpoint] = {}
+
+    def bind(self, endpoints: Sequence["AgentEndpoint"]) -> None:
+        self._endpoints = {ep.name: ep for ep in endpoints}
+
+    def send(self, msg: Message) -> None:
+        self._on_send(msg)
+        ep = self._endpoints.get(msg.dst)
+        if ep is not None:
+            ep.receive(msg)
+
+    def _on_send(self, msg: Message) -> None:  # metering hook
+        pass
+
+    def _execute_update(self, w: torch.Tensor, r: torch.Tensor,
+                        alpha: torch.Tensor, reweight: Callable,
+                        standard: bool) -> torch.Tensor:
+        """A standard hop runs the ignorance kernel (plain version on the
+        CPU); the exact-reweight surrogate has no kernel in either package
+        and stays plain torch."""
+        if not standard:
+            return reweight(w, r, alpha)
+        return ops.ignorance_update(w, r, alpha.to(w.dtype))
+
+    def interchange(self, src: "AgentEndpoint", dst: "AgentEndpoint",
+                    w: torch.Tensor, r: torch.Tensor, alpha: torch.Tensor,
+                    reweight: Callable, standard: bool = True
+                    ) -> torch.Tensor:
+        """One hop: w' = reweight(w, r, alpha), shipped src -> dst with
+        its model weight.  Returns w'."""
+        w_next = self._execute_update(w, r, alpha, reweight, standard)
+        self.send(IgnoranceMsg(src.name, dst.name, w_next))
+        self.send(ModelWeightMsg(src.name, dst.name, float(alpha)))
+        return w_next
+
+    def serve_block(self, src: "AgentEndpoint", dst: "AgentEndpoint",
+                    block: torch.Tensor) -> torch.Tensor:
+        """One prediction-time hop: ship ``src``'s [n, K] score block to
+        ``dst`` (the head agent); returns the block the head sums."""
+        self.send(ScoreBlockMsg(src.name, dst.name, block))
+        return block
+
+
+class InProcessTransport(Transport):
+    """Direct in-memory delivery; the plain single-host path."""
+
+
+class MeteredTransport(Transport):
+    """In-process delivery that books every bit into a
+    :class:`~repro_torch.core.transport.TransportLog` (Fig. 4)."""
+
+    def __init__(self, log: TransportLog | None = None, **channel) -> None:
+        super().__init__(**channel)
+        self.log = log if log is not None else TransportLog()
+
+    def _on_send(self, msg: Message) -> None:
+        self.log.send(msg.src, msg.dst, msg.kind, msg.num_elements,
+                      msg.bits_per_element)
+
+    @property
+    def total_bits(self) -> int:
+        return self.log.total_bits
+
+    def bits_by_kind(self) -> dict:
+        return self.log.bits_by_kind()
+
+
+class MeshRingTransport(Transport):
+    """Device-resident interchange.  Without a mesh it runs each hop
+    through the ignorance kernel, as every transport of the port does; the
+    multi-device ring (``mesh=``) is a later slice."""
+
+    def __init__(self, mesh=None, **channel) -> None:
+        if mesh is not None:
+            raise _later_slice("the multi-device ring (mesh=)")
+        super().__init__(**channel)
+
+
+# =================================================================== schedulers
+class Scheduler(abc.ABC):
+    """Round-order policy: which active agents act, in what order."""
+
+    stale = False
+
+    def reset(self) -> None:
+        """Called at session start; clears any per-run RNG state."""
+
+    @abc.abstractmethod
+    def round_order(self, round_idx: int, active: list[int]) -> list[int]:
+        """Agent ids (a permutation of ``active``) for round ``round_idx``."""
+
+    def skip_to(self, order_sizes: Sequence[int]) -> None:
+        """Fast-forward RNG state past already-executed rounds (resume);
+        ``order_sizes`` holds each completed round's active-agent count."""
+        for t, size in enumerate(order_sizes):
+            self.round_order(t, list(range(size)))
+
+
+class SequentialScheduler(Scheduler):
+    """The paper's chain 1 -> 2 -> ... -> M, every round."""
+
+    def round_order(self, round_idx: int, active: list[int]) -> list[int]:
+        return list(active)
+
+
+class RandomScheduler(Scheduler):
+    """ASCII-Random: a fresh random agent order each round (numpy's
+    generator, so the orders equal the reference's)."""
+
+    def __init__(self, seed: int = 0) -> None:
+        self.seed = seed
+        self._rng = np.random.default_rng(seed)
+
+    def reset(self) -> None:
+        self._rng = np.random.default_rng(self.seed)
+
+    def round_order(self, round_idx: int, active: list[int]) -> list[int]:
+        perm = self._rng.permutation(len(active))
+        return [active[i] for i in perm]
+
+
+# ======================================================================= agents
+@dataclass
+class AgentEndpoint:
+    """One protocol participant: a private learner plus its local feature
+    block.  Raw features never leave the endpoint; only messages do.
+    ``active`` gates participation round by round (dropout)."""
+
+    agent_id: int
+    learner: Learner
+    X: torch.Tensor
+    name: str = ""
+    active: bool = True
+    inbox: list[Message] = field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        if not self.name:
+            self.name = f"agent{self.agent_id}"
+
+    def receive(self, msg: Message) -> None:
+        # keep only the freshest message per kind
+        self.inbox = [m for m in self.inbox if m.kind != msg.kind]
+        self.inbox.append(msg)
+
+    def fit_local(self, key, classes: torch.Tensor, w: torch.Tensor,
+                  num_classes: int) -> Params:
+        return self.learner.fit(key, self.X, classes, w, num_classes)
+
+    def reward(self, params: Params, classes: torch.Tensor) -> torch.Tensor:
+        return self.learner.reward(params, self.X, classes)
+
+    def score_block(self, components: Sequence["Component"], num_classes: int,
+                    X: torch.Tensor | None = None,
+                    max_round: int | None = None) -> torch.Tensor:
+        """This agent's [n, K] alpha-weighted coded votes over its own
+        components (the prediction-time ScoreBlockMsg payload)."""
+        X = self.X if X is None else X
+        total = torch.zeros((X.shape[0], num_classes), dtype=torch.float32,
+                            device=self.learner.torch_device)
+        for comp in components:
+            if comp.agent != self.agent_id:
+                continue
+            if max_round is not None and comp.round > max_round:
+                continue
+            total = total + _component_score(comp, self.learner, X,
+                                             num_classes)
+        return total
+
+
+# ================================================================ fitted result
+@dataclass
+class Component:
+    """One boosting component: (agent, round, alpha, fitted params)."""
+    agent: int
+    round: int
+    alpha: float
+    params: Params
+
+
+def _component_score(comp: Component, learner: Learner, X: torch.Tensor,
+                     num_classes: int) -> torch.Tensor:
+    """One component's [n, K] contribution: alpha * coded votes."""
+    pred = learner.predict(comp.params, X)
+    return comp.alpha * encode_labels(pred, num_classes)
+
+
+@dataclass
+class FittedASCII:
+    """The trained ensemble: Algorithm 1's output, usable for prediction."""
+    components: list[Component]
+    learners: Sequence[Learner]
+    num_classes: int
+    history: list[dict] = field(default_factory=list)
+
+    def decision_scores(self, Xs: Sequence[torch.Tensor],
+                        max_round: int | None = None) -> torch.Tensor:
+        """Line 12 of Algorithm 1: sum_t sum_m alpha * g (coded scores),
+        summed in component order (not grouped per agent): the float
+        addition order, and so the predictions, match the reference."""
+        n = Xs[0].shape[0]
+        total = torch.zeros((n, self.num_classes), dtype=torch.float32,
+                            device=self.learners[0].torch_device)
+        for comp in self.components:
+            if max_round is not None and comp.round > max_round:
+                continue
+            total = total + _component_score(comp, self.learners[comp.agent],
+                                             Xs[comp.agent], self.num_classes)
+        return total
+
+    def predict(self, Xs: Sequence[torch.Tensor],
+                max_round: int | None = None) -> torch.Tensor:
+        return torch.argmax(self.decision_scores(Xs, max_round), dim=-1)
+
+    @property
+    def num_rounds(self) -> int:
+        return max((c.round for c in self.components), default=-1) + 1
+
+
+# ============================================================ protocol variant
+class ASCIIVariant:
+    """The paper's protocol: ignorance-score interchange around the chain
+    (Algorithm 1 lines 3-11)."""
+
+    name = "ascii"
+
+    def run_round(self, session: "Session", order: list[int],
+                  rec: dict) -> bool:
+        """One round over ``order``; True when the alpha <= 0 stop fired."""
+        st, cfg = session.state, session.cfg
+        eps = {ep.agent_id: ep for ep in session.endpoints}
+        rec.setdefault("alphas", [])
+        rec.setdefault("accs", [])
+        reweight, standard = session._reweight()
+        k = cfg.num_classes
+        u = torch.ones_like(st.w)
+        for j, m in enumerate(order):
+            dst = eps[order[(j + 1) % len(order)]]
+            params = eps[m].fit_local(st.key, session.classes, st.w, k)
+            r = eps[m].reward(params, session.classes)
+            a, rbar = scores.model_weight(
+                st.w, r, k, u=u if cfg.upstream and j > 0 else None,
+                alpha_cap=cfg.alpha_cap)
+            alpha = float(a)
+            rec["alphas"].append(alpha)
+            rec["accs"].append(float(rbar))
+            if cfg.stop_on_negative_alpha and alpha <= 0:
+                return True        # Algorithm 1, line 8
+            st.components.append(Component(m, st.round, alpha, params))
+            u = scores.upstream_factor_update(u, a, r, k)
+            st.w = session.transport.interchange(eps[m], dst, st.w, r, a,
+                                                 reweight, standard)
+        return False
+
+    def fitted(self, session: "Session") -> FittedASCII:
+        return FittedASCII(session.state.components,
+                           [ep.learner for ep in session.endpoints],
+                           session.cfg.num_classes, session.state.history)
+
+
+# ================================================================ session state
+@dataclass
+class SessionState:
+    """Explicit, checkpointable protocol state, in the reference's
+    checkpoint format (``train/checkpoint.py``): saving mid-run and resuming
+    reproduces the exact trajectory."""
+
+    w: torch.Tensor
+    key: np.ndarray              # opaque uint32 key data
+    round: int = 0
+    components: list[Component] = field(default_factory=list)
+    history: list[dict] = field(default_factory=list)
+    stopped: bool = False
+    best_val: float = -1.0
+    cv_stale: int = 0
+    # per-round active-agent counts (scheduler-RNG replay on resume) and
+    # the endpoint active flags at checkpoint time
+    order_sizes: list[int] = field(default_factory=list)
+    active: list[bool] | None = None
+
+    def to_tree(self) -> tuple[dict, dict]:
+        """Split into (array tree, JSON-able metadata).  The wire-channel,
+        channel-bookkeeping and protocol-variant slots of the format are
+        always empty in this slice."""
+        tree = {"w": self.w,
+                "key": self.key,
+                "params": [c.params for c in self.components],
+                "codec_state": None,
+                "proto": None}
+        meta = {"round": self.round,
+                "stopped": self.stopped,
+                "best_val": self.best_val,
+                "cv_stale": self.cv_stale,
+                "history": self.history,
+                "order_sizes": self.order_sizes,
+                "active": self.active,
+                "comm": None,
+                "components": [{"agent": c.agent, "round": c.round,
+                                "alpha": c.alpha} for c in self.components]}
+        return tree, meta
+
+    @classmethod
+    def from_tree(cls, tree: dict, meta: dict) -> "SessionState":
+        for slot, value in (("codec_state", tree.get("codec_state")),
+                            ("proto", tree.get("proto")),
+                            ("comm", meta.get("comm"))):
+            if value is not None:
+                raise _later_slice(f"a checkpoint with {slot} state")
+        components = [
+            Component(int(c["agent"]), int(c["round"]), float(c["alpha"]), p)
+            for c, p in zip(meta["components"], tree["params"])]
+        return cls(w=tree["w"],
+                   key=key_data(tree["key"]),
+                   round=int(meta["round"]),
+                   components=components,
+                   history=list(meta["history"]),
+                   stopped=bool(meta["stopped"]),
+                   best_val=float(meta["best_val"]),
+                   cv_stale=int(meta["cv_stale"]),
+                   order_sizes=[int(s) for s in meta.get("order_sizes", [])],
+                   active=meta.get("active"))
+
+    def save(self, directory: str, step: int | None = None) -> str:
+        from repro_torch.train import checkpoint
+        tree, meta = self.to_tree()
+        return checkpoint.save_structured(
+            directory, self.round if step is None else step, tree, meta=meta)
+
+    @classmethod
+    def restore(cls, directory: str, step: int | None = None,
+                device: str | torch.device = "cuda") -> "SessionState":
+        from repro_torch.train import checkpoint
+        tree, meta, _ = checkpoint.restore_structured(
+            directory, step=step, device=resolve_device(device))
+        return cls.from_tree(tree, meta)
+
+
+# ======================================================================= config
+@dataclass(frozen=True)
+class SessionConfig:
+    """Engine knobs."""
+    num_classes: int
+    max_rounds: int = 20
+    upstream: bool = True             # eqs. 11/13 side info (False = -Simple)
+    stop_on_negative_alpha: bool = True
+    cv_patience: int = 2
+    alpha_cap: float = 20.0
+    exact_reweight: bool = False      # beyond-paper exact exp-loss reweight
+
+
+def holdout_split(Xs: Sequence[torch.Tensor], classes: torch.Tensor,
+                  fraction: float):
+    """The paper's CV stop criterion split (Section III-C): reserve the
+    trailing rows (aligned by sample ID) for validation."""
+    cut = int(round((1.0 - fraction) * Xs[0].shape[0]))
+    return ([x[:cut] for x in Xs], classes[:cut],
+            [x[cut:] for x in Xs], classes[cut:])
+
+
+# ====================================================================== session
+class Session:
+    """A live protocol run: endpoints + scheduler + transport + state.
+
+    ``step()`` executes one interchange round and returns whether the
+    session should continue; ``run()`` loops to completion.  Between steps
+    callers may drop endpoints (``active = False``) or checkpoint.  Feature
+    blocks, labels and validation data are placed on ``device``; every
+    endpoint's learner must live on the same device type.
+    """
+
+    def __init__(self, cfg: SessionConfig, scheduler: Scheduler,
+                 transport: Transport, endpoints: Sequence[AgentEndpoint],
+                 classes: torch.Tensor, state: SessionState,
+                 validation=None, variant: ASCIIVariant | None = None,
+                 scenario=None, telemetry=None,
+                 device: str | torch.device = "cuda",
+                 _send_setup: bool = True) -> None:
+        if variant is not None and not isinstance(variant, ASCIIVariant):
+            raise _later_slice(f"protocol variant {variant.name!r}")
+        if scenario is not None:
+            raise _later_slice("scenarios (scenario=)")
+        if telemetry is not None:
+            raise _later_slice("telemetry (telemetry=)")
+        if scheduler.stale:
+            raise _later_slice("the stale-read async variant")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.scheduler = scheduler
+        self.transport = transport
+        self.endpoints = list(endpoints)
+        for i, ep in enumerate(self.endpoints):
+            if ep.agent_id != i:
+                raise ValueError("endpoint agent_ids must be 0..M-1")
+            if ep.learner.torch_device.type != self.device.type:
+                raise ValueError(f"{ep.name}'s learner lives on "
+                                 f"{ep.learner.device}, the session on "
+                                 f"{self.device}")
+            ep.X = self._place(ep.X)
+        self.classes = self._place(classes)
+        self.state = state
+        self.state.w = self._place(state.w)
+        self.validation = None
+        if validation is not None:
+            Xs_val, c_val = validation
+            self.validation = ([self._place(x) for x in Xs_val],
+                               self._place(c_val))
+        self.variant = variant if variant is not None else ASCIIVariant()
+        transport.bind(self.endpoints)
+        if _send_setup:
+            self._send_setup()
+
+    def _place(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def _send_setup(self) -> None:
+        """Collation setup: the head agent shares labels and sample IDs
+        with every other agent (metered under Fig. 4)."""
+        n = int(self.classes.shape[0])
+        head = self.endpoints[0].name
+        for ep in self.endpoints[1:]:
+            self.transport.send(LabelsMsg(head, ep.name, n))
+            self.transport.send(SampleIdsMsg(head, ep.name, n))
+
+    def _reweight(self):
+        cfg = self.cfg
+        if cfg.exact_reweight:
+            return (lambda w, r, a: scores.ignorance_update_exact(
+                w, r, a, cfg.num_classes)), False
+        return scores.ignorance_update, True
+
+    # ---- the round loop -----------------------------------------------------
+    def step(self) -> bool:
+        """One interchange round (Algorithm 1 lines 3-11 / the Section-IV
+        chain).  Returns False once the session stopped."""
+        st, cfg = self.state, self.cfg
+        if st.stopped or st.round >= cfg.max_rounds:
+            return False
+        t = st.round
+        active = [ep.agent_id for ep in self.endpoints if ep.active]
+        if not active:
+            st.stopped = True          # everyone dropped out
+            return False
+        order = self.scheduler.round_order(t, active)
+        st.order_sizes.append(len(order))
+        rec: dict = {"round": t}
+        stop = self.variant.run_round(self, order, rec)
+        if self.validation is not None:
+            Xs_val, c_val = self.validation
+            hits = (self.fitted().predict(Xs_val) == c_val).to(torch.float32)
+            # sum * (1/n) in float32: the reference's mean, whose compiler
+            # turns the division by a constant into this product
+            val_acc = float(torch.sum(hits) * (1.0 / hits.numel()))
+            rec["val_acc"] = val_acc
+            if val_acc > st.best_val + 1e-9:
+                st.best_val, st.cv_stale = val_acc, 0
+            else:
+                st.cv_stale += 1
+                if st.cv_stale >= cfg.cv_patience:
+                    stop = True        # out-sample error no longer decreasing
+        st.history.append(rec)
+        st.round += 1
+        if stop:
+            st.stopped = True
+        return not st.stopped and st.round < cfg.max_rounds
+
+    def run(self, max_rounds: int | None = None) -> SessionState:
+        """Drive ``step()`` to completion (or for ``max_rounds`` more)."""
+        budget = float("inf") if max_rounds is None else max_rounds
+        while budget > 0:
+            budget -= 1
+            if not self.step():
+                break
+        return self.state
+
+    # ---- results ------------------------------------------------------------
+    def fitted(self) -> FittedASCII:
+        return self.variant.fitted(self)
+
+    def predict_distributed(self, Xs: Sequence[torch.Tensor] | None = None,
+                            max_round: int | None = None) -> torch.Tensor:
+        """Prediction as the protocol runs it: every endpoint ships its
+        [n, K] ScoreBlockMsg to the head agent, which sums and argmaxes."""
+        head = self.endpoints[0]
+        total = None
+        for i, ep in enumerate(self.endpoints):
+            X = None if Xs is None else self._place(Xs[i])
+            block = ep.score_block(self.state.components,
+                                   self.cfg.num_classes, X=X,
+                                   max_round=max_round)
+            if ep is not head:
+                block = self.transport.serve_block(ep, head, block)
+            total = block if total is None else total + block
+        return torch.argmax(total, dim=-1)
+
+    def checkpoint(self, directory: str, step: int | None = None) -> str:
+        """Save the live SessionState mid-run (resumable via
+        ``Protocol.resume``)."""
+        self.state.active = [ep.active for ep in self.endpoints]
+        return self.state.save(directory, step)
+
+
+# ======================================================================= engine
+class Protocol:
+    """The ASCII engine: config + scheduler + transport, driving endpoints
+    on ``device``.  ``start`` opens a fresh session, ``resume`` restores
+    one from a checkpoint directory (fast-forwarding the scheduler RNG), and
+    ``fit`` runs a session to completion.  Only the eager backend is ported.
+    """
+
+    def __init__(self, cfg: SessionConfig, scheduler: Scheduler | None = None,
+                 transport: Transport | None = None, backend: str = "eager",
+                 variant: ASCIIVariant | None = None, scenario=None,
+                 telemetry=None, device: str | torch.device = "cuda") -> None:
+        if backend != "eager":
+            raise _later_slice(f"backend={backend!r}")
+        if variant is not None and not isinstance(variant, ASCIIVariant):
+            raise _later_slice(f"protocol variant {variant.name!r}")
+        if scenario is not None:
+            raise _later_slice("scenarios (scenario=)")
+        if telemetry is not None:
+            raise _later_slice("telemetry (telemetry=)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.scheduler = (scheduler if scheduler is not None
+                          else SequentialScheduler())
+        self.transport = (transport if transport is not None
+                          else InProcessTransport())
+        self.variant = variant
+        self._session: Session | None = None
+
+    def start(self, key, endpoints: Sequence[AgentEndpoint],
+              classes: torch.Tensor, validation=None) -> Session:
+        """A fresh session; ``key`` is an int seed or uint32 key data."""
+        n = endpoints[0].X.shape[0]
+        state = SessionState(w=scores.init_ignorance(n, device=self.device),
+                             key=key_data(key))
+        self.scheduler.reset()
+        return Session(self.cfg, self.scheduler, self.transport, endpoints,
+                       classes, state, validation=validation,
+                       variant=self.variant, device=self.device)
+
+    def resume(self, directory: str, endpoints: Sequence[AgentEndpoint],
+               classes: torch.Tensor, validation=None,
+               step: int | None = None) -> Session:
+        """Restore a checkpointed session and continue where it left off."""
+        state = SessionState.restore(directory, step=step, device=self.device)
+        return self.resume_state(state, endpoints, classes, validation)
+
+    def resume_state(self, state: SessionState,
+                     endpoints: Sequence[AgentEndpoint],
+                     classes: torch.Tensor, validation=None) -> Session:
+        """Continue from a restored (or converted) SessionState."""
+        self.scheduler.reset()
+        self.scheduler.skip_to(state.order_sizes)
+        if state.active is not None:
+            if len(endpoints) != len(state.active):
+                raise ValueError(
+                    f"resume expects {len(state.active)} endpoints (the "
+                    f"checkpointed session's roster), got {len(endpoints)}")
+            for ep, flag in zip(endpoints, state.active):
+                ep.active = bool(flag)
+        return Session(self.cfg, self.scheduler, self.transport, endpoints,
+                       classes, state, validation=validation,
+                       variant=self.variant, device=self.device,
+                       _send_setup=False)
+
+    def fit(self, key, endpoints: Sequence[AgentEndpoint],
+            classes: torch.Tensor, validation=None) -> FittedASCII:
+        session = self.start(key, endpoints, classes, validation=validation)
+        session.run()
+        self._session = session
+        return session.fitted()
+
+    def predict_distributed(self, Xs: Sequence[torch.Tensor] | None = None,
+                            max_round: int | None = None) -> torch.Tensor:
+        """Distributed prediction after :meth:`fit` (no wire channel)."""
+        if self._session is None:
+            raise RuntimeError("predict_distributed needs a completed fit() "
+                               "on this Protocol (or use "
+                               "Session.predict_distributed directly)")
+        return self._session.predict_distributed(Xs, max_round)
+
+
+def variant_setup(variant: str, seed: int = 0) -> tuple[Scheduler, bool]:
+    """Map a ``variant`` string to (scheduler, upstream flag):
+
+      ascii  -> sequential chain, upstream side info (eqs. 11/13)
+      simple -> sequential chain, own-loss alphas only
+      random -> random order per round, upstream side info
+    """
+    if variant == "async":
+        raise _later_slice("the stale-read async variant")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected {VARIANTS}")
+    if variant == "random":
+        return RandomScheduler(seed), True
+    return SequentialScheduler(), variant != "simple"
+
+
+def endpoints_for(learners: Sequence[Learner],
+                  Xs: Sequence[torch.Tensor]) -> list[AgentEndpoint]:
+    """Build the endpoint list for aligned (learner, feature-block) pairs."""
+    if len(learners) != len(Xs):
+        raise ValueError(f"{len(learners)} learners for {len(Xs)} blocks")
+    return [AgentEndpoint(m, lr, X) for m, (lr, X) in
+            enumerate(zip(learners, Xs))]

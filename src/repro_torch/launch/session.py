@@ -1,0 +1,184 @@
+"""Session driver: run an ASCII engine session of the port from the command
+line, on the card by default.
+
+Counterpart of ``repro/launch/session.py``, its main-path subset: wires a
+dataset, a scheduler (via the variant name), a transport and a learner into
+``core.engine.Protocol``, with optional mid-run checkpointing and resume.
+
+  PYTHONPATH=src python -m repro_torch.launch.session --dataset blob3 \
+      --variant ascii --rounds 6 --transport metered
+  PYTHONPATH=src python -m repro_torch.launch.session --ckpt-dir runs/sess \
+      --stop-after 2                       # save mid-run ...
+  PYTHONPATH=src python -m repro_torch.launch.session --ckpt-dir runs/sess \
+      --resume                             # ... and pick the run back up
+  PYTHONPATH=src python -m repro_torch.launch.session --device cpu
+
+It prints the reference's ``dataset,variant,transport,rounds=..,
+components=..,acc=..[,bits=..]`` line.  The data are drawn from a
+``torch.Generator`` seeded with ``--seed``, so the numbers differ from the
+reference CLI's.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.engine import (InProcessTransport, MeshRingTransport,
+                                     MeteredTransport, Protocol, Session,
+                                     SessionConfig, Transport, endpoints_for,
+                                     variant_setup)
+from repro_torch.data import synthetic
+from repro_torch.data.partition import train_test_split, vertical_split
+from repro_torch.device import resolve_device
+from repro_torch.learners.logistic import LogisticRegression
+from repro_torch.learners.tree import DecisionTree
+
+DATASETS = {
+    "blob3": lambda gen, n, dev: synthetic.blob_fig3(gen, n=n, device=dev),
+    "blob4": lambda gen, n, dev: synthetic.blob_fig4(gen, n=n, device=dev),
+    "blob6": lambda gen, n, dev: synthetic.blob_fig6(gen, n=n, device=dev),
+    "wine": lambda gen, n, dev: synthetic.wine_surrogate(gen, device=dev),
+}
+
+TRANSPORTS = {
+    "inprocess": InProcessTransport,
+    "metered": MeteredTransport,
+    "meshring": MeshRingTransport,
+}
+
+LEARNERS = {
+    "tree": lambda args: DecisionTree(depth=args.depth, num_thresholds=8,
+                                      device=args.device),
+    "logistic": lambda args: LogisticRegression(steps=args.steps,
+                                                device=args.device),
+}
+
+# the run config that must match across pause/resume
+RUN_KEYS = ("dataset", "n", "variant", "learner", "depth", "steps", "seed")
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dataset", default="blob3", choices=sorted(DATASETS))
+    ap.add_argument("--n", type=int, default=600)
+    ap.add_argument("--variant", default="ascii",
+                    choices=["ascii", "simple", "random"])
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--transport", default="metered",
+                    choices=sorted(TRANSPORTS))
+    ap.add_argument("--learner", default="tree", choices=sorted(LEARNERS))
+    ap.add_argument("--depth", type=int, default=3,
+                    help="tree depth (tree learner only)")
+    ap.add_argument("--steps", type=int, default=150,
+                    help="optimizer steps (logistic learner)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint SessionState here after the run "
+                         "(or after --stop-after rounds)")
+    ap.add_argument("--stop-after", type=int, default=0,
+                    help="pause after this many rounds (with --ckpt-dir: "
+                         "save a resumable checkpoint and exit)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --ckpt-dir instead of starting fresh")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the whole session (default cuda; "
+                         "raises when no card is present)")
+    return ap
+
+
+@dataclass
+class Run:
+    """What one CLI run produced (for callers that drive it in-process)."""
+    session: Session
+    transport: Transport
+    line: str
+    paused: bool
+
+
+def run(args: argparse.Namespace) -> Run:
+    """Run (or resume) one session as the CLI does, printing its lines."""
+    device = resolve_device(args.device)
+    gen = torch.Generator().manual_seed(args.seed)
+    ds = DATASETS[args.dataset](gen, args.n, device)
+    tr, te = train_test_split(args.seed, ds.X.shape[0])
+    tr, te = torch.as_tensor(tr, device=device), torch.as_tensor(te,
+                                                                 device=device)
+    Xs = vertical_split(ds.X, ds.splits)
+    Xtr, Xte = [x[tr] for x in Xs], [x[te] for x in Xs]
+    ctr, cte = ds.classes[tr], ds.classes[te]
+
+    scheduler, upstream = variant_setup(args.variant, args.seed)
+    transport = TRANSPORTS[args.transport]()
+    engine = Protocol(SessionConfig(num_classes=ds.num_classes,
+                                    max_rounds=args.rounds,
+                                    upstream=upstream),
+                      scheduler=scheduler, transport=transport, device=device)
+    endpoints = endpoints_for([LEARNERS[args.learner](args) for _ in Xs], Xtr)
+
+    run_cfg = {k: getattr(args, k) for k in RUN_KEYS}
+    cfg_path = os.path.join(args.ckpt_dir or ".", "cli_config.json")
+    if args.resume:
+        if not args.ckpt_dir:
+            raise SystemExit("--resume needs --ckpt-dir")
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                saved = json.load(f)
+            if saved != run_cfg:
+                raise SystemExit(f"--resume config mismatch: checkpoint was "
+                                 f"written with {saved}, this run is "
+                                 f"{run_cfg}")
+        else:
+            print(f"warning: no {cfg_path} manifest; cannot verify that "
+                  f"dataset/variant/seed match the saved session")
+        session = engine.resume(args.ckpt_dir, endpoints, ctr)
+        print(f"resumed {args.ckpt_dir} at round {session.state.round}")
+    else:
+        session = engine.start(args.seed, endpoints, ctr)
+
+    session.run(max_rounds=args.stop_after or None)
+    paused = bool(args.stop_after and not session.state.stopped
+                  and session.state.round < args.rounds)
+    if args.ckpt_dir:
+        path = session.checkpoint(args.ckpt_dir)
+        with open(cfg_path, "w") as f:
+            json.dump(run_cfg, f)
+        print(f"checkpointed round {session.state.round} -> {path}")
+
+    fitted = session.fitted()
+    acc = float(torch.mean((fitted.predict(Xte) == cte).to(torch.float32)))
+    line = (f"{args.dataset},{args.variant},{args.transport},"
+            f"rounds={fitted.num_rounds},components={len(fitted.components)},"
+            f"acc={acc:.3f}")
+    if isinstance(transport, MeteredTransport):
+        line += f",bits={transport.total_bits}"
+    print(line)
+    if not paused:
+        before = (transport.bits_by_kind().get("score_block", 0)
+                  if isinstance(transport, MeteredTransport) else 0)
+        preds = session.predict_distributed(Xte)
+        serve = (f"serve: acc="
+                 f"{float(torch.mean((preds == cte).to(torch.float32))):.3f}")
+        if isinstance(transport, MeteredTransport):
+            serve += (f",score_block_bits="
+                      f"{transport.bits_by_kind().get('score_block', 0) - before}")
+        print(serve)
+    else:
+        print(f"paused after {session.state.round} rounds"
+              + ("; rerun with --resume to continue" if args.ckpt_dir
+                 else "; nothing was saved (pass --ckpt-dir)"))
+    return Run(session, transport, line, paused)
+
+
+def main(argv: list[str] | None = None) -> None:
+    # float32 products in full float32 on the card, as the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run(parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()
