@@ -6,7 +6,10 @@
 1. Prints the card's name and power limit; builds the CUDA kernels from
    src/repro_torch/csrc with nvcc (all sources at once) and times the build.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's sizes and beyond, and times kernel, plain version and bound.
+   main path's sizes and beyond, and times kernel, plain version and bound:
+   the ignorance update, and the wire channel's quantize-dequant (vectors
+   and score blocks), int4 pack and unpack (integers and scales exact, two
+   runs identical); times the copy of a hop's channel draws to the card.
 3. Runs the session CLI path (blob3, tree agents) with the metered and the
    mesh-ring transport: the kernels' launch counts equal the hop count, the
    ledger equals the Fig.-4 formula, and a session paused after 2 rounds
@@ -18,6 +21,17 @@
 5. Full size, Fashion-MNIST surrogate halves (paper Fig. 5): 60000 images
    (42000 train), 2 agents of 392 pixels, 300-step logistic regression, 5
    rounds; ASCII must beat the single agent.
+6. MIMIC size through the wire channel, the session CLI's transports
+   (--codec int8; --codec int4 --serve-codec int8; --codec topk;
+   --dp-epsilon 1 --accountant rdp; a --byte-budget that walks the ladder
+   to int4 and ends exhausted), each on the card and on the CPU with the
+   same channel draws: ledgers equal and equal to the wire_bits formulas,
+   stop rounds and predictions equal, alphas within rtol 1e-5, quantize
+   launches = int-codec hops and score blocks.
+7. Fashion at full width with --codec int8 --serve-codec int4 on the card:
+   ledger = wire_bits, the first alpha = phase 5's, the int4 and int8
+   codecs' encode -> decode (quantize, pack, unpack) of a real hop's w
+   equal their roundtrip within one step; accuracy beside phase 5's.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints one JSON
@@ -58,10 +72,35 @@ def _cuda_time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _counters() -> dict:
+    """Each kernel of the main path by its JSON name: the wrapper that
+    counts its launches."""
+    from repro_torch.kernels import ignorance as ig
+    from repro_torch.kernels import quantize as q
+    return {"ignorance_update_unnormalized": ig.ignorance_update_unnormalized,
+            "ignorance_normalize": ig.normalize_,
+            "quantize_dequant_tiles": q.quantize_dequant_tiles,
+            "quantize_dequant_block": q.quantize_dequant_block,
+            "pack_int4": q.pack_int4,
+            "unpack_int4": q.unpack_int4}
+
+
 def _bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _host_time_ms(fn, reps: int = 50) -> float:
+    """Host clock around ``reps`` calls that end in a synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def _max_rel(a, b) -> float:
@@ -77,8 +116,8 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.failed: list[str] = []
         self.kernels: dict[str, dict] = {}
-        self.launches = {"ignorance_update_unnormalized": 0,
-                         "ignorance_normalize": 0}
+        self.launches = {name: 0 for name in _counters()}
+        self.fashion_fp32 = None       # phase 5's data and accuracy
 
     def phase(self, num: int, fn) -> None:
         try:
@@ -95,20 +134,23 @@ class Smoke:
 
     # ------------------------------------------------------------ counters
     def reset_counts(self) -> None:
-        from repro_torch.kernels import ignorance as ig
-        ig.ignorance_update_unnormalized.launches = 0
-        ig.normalize_.launches = 0
+        for fn in _counters().values():
+            fn.launches = 0
 
-    def read_counts(self, hops: int, where: str) -> None:
-        """The main path's launches since reset_counts: one of each pass per
-        hop, added to the run's totals."""
-        from repro_torch.kernels import ignorance as ig
-        got = (ig.ignorance_update_unnormalized.launches,
-               ig.normalize_.launches)
-        self.require(got == (hops, hops),
-                     f"{where}: kernel launches {got} != hops {hops}")
-        self.launches["ignorance_update_unnormalized"] += got[0]
-        self.launches["ignorance_normalize"] += got[1]
+    def read_counts(self, hops: int, where: str, **channel: int) -> None:
+        """The main path's launches since reset_counts: one of each
+        ignorance pass per shipped hop, and the wire channel's kernels as
+        ``channel`` names them (0 where not named), added to the run's
+        totals."""
+        want = {name: 0 for name in _counters()}
+        want["ignorance_update_unnormalized"] = hops
+        want["ignorance_normalize"] = hops
+        want.update(channel)
+        got = {name: fn.launches for name, fn in _counters().items()}
+        self.require(got == want,
+                     f"{where}: kernel launches {got} != expected {want}")
+        for name, count in got.items():
+            self.launches[name] += count
 
     # -------------------------------------------------------------- phases
     def build(self) -> str:
@@ -160,9 +202,132 @@ class Smoke:
             [{k: v for k, v in r.items() if k != "rel_err"} for r in rows
              if "kernel_ms" in r]), flush=True)
         worst = [max(r["rel_err"][i] for r in rows) for i in range(3)]
-        return (f"n in {[r['n'] for r in rows]}: max rel err w_new "
+        return (f"ignorance n in {[r['n'] for r in rows]}: max rel err w_new "
                 f"{worst[0]:.3g}, partials {worst[1]:.3g}, normalized w "
-                f"{worst[2]:.3g} (tolerance {tol})")
+                f"{worst[2]:.3g} (tolerance {tol}); "
+                + self._quantize_vs_plain())
+
+    def _quantize_vs_plain(self) -> str:
+        """The wire channel's kernels against their plain versions on one
+        generator on the card: q, scales and packed bytes exact, xhat equal
+        by value, two runs the same bits."""
+        torch = self.torch
+        from repro_torch.comm.draws import ChannelDraws
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import quantize as q
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        checked, timed = 0, []
+        shapes = [(n,) for n in (1, 420, 1000, 1024, 10500, 42000, 2 ** 20,
+                                 2 ** 20 + 3)]
+        # MIMIC's and Fashion's score blocks, global tiles, and the ragged
+        # 1020- and 1023-element row tiles
+        shapes += [(4500, 2), (18000, 10), (1024, 3), (2048, 10), (2040, 10),
+                   (3069, 3)]
+        for shape in shapes:
+            block = len(shape) == 2
+            kern = ops.quantize_dequant_block if block else ops.quantize_dequant
+            plain = (q.quantize_dequant_block_plain if block
+                     else q.quantize_dequant_plain)
+            x = torch.rand(shape, generator=gen, device=self.dev) - 0.3
+            for qmax in (127.0, 7.0):
+                for u in (torch.rand(shape, generator=gen, device=self.dev),
+                          torch.full(shape, 0.5, device=self.dev)):
+                    got, want = kern(x, u, qmax), plain(x, u, qmax)
+                    torch.cuda.synchronize()
+                    self.require(torch.equal(got[1], want[1])
+                                 and torch.equal(got[2], want[2]),
+                                 f"quantize {shape} qmax={qmax}: q or "
+                                 f"scales differ from the plain version")
+                    self.require(torch.equal(got[0], want[0]),
+                                 f"quantize {shape} qmax={qmax}: xhat "
+                                 f"differs from the plain version")
+                    again = kern(x, u, qmax)
+                    self.require(all(torch.equal(a, b)
+                                     for a, b in zip(again, got)),
+                                 f"quantize {shape}: two runs differ")
+                    checked += 1
+            if shape in ((10500,), (42000,), (2 ** 20,), (4500, 2),
+                         (18000, 10)):
+                row = {"shape": list(shape),
+                       "kernel_ms": _cuda_time_ms(lambda: kern(x, u, 127.0)),
+                       "plain_ms": _cuda_time_ms(lambda: plain(x, u, 127.0)),
+                       "bound_ms": _bound_ms(13 * x.numel() + 4,
+                                             8 * x.numel())[0]}
+                timed.append(row)
+            if shape == (42000,):
+                self._quantize_row("quantize_dequant_tiles", x, u, kern,
+                                   plain, "src/repro/kernels/quantize.py:73")
+            if shape == (18000, 10):
+                self._quantize_row("quantize_dequant_block", x, u, kern,
+                                   plain, "src/repro/kernels/quantize.py:178")
+        for m in (1, 2, 21001, 42000, 2 ** 20 + 1):
+            qv = torch.randint(-8, 8, (m,), generator=gen, device=self.dev,
+                               dtype=torch.int8)
+            packed = ops.pack_int4(qv)
+            torch.cuda.synchronize()
+            self.require(torch.equal(packed, q.pack_int4_plain(qv)),
+                         f"pack_int4 m={m}: bytes differ from the plain "
+                         f"version")
+            self.require(torch.equal(ops.pack_int4(qv), packed),
+                         f"pack_int4 m={m}: two runs differ")
+            back = ops.unpack_int4(packed, m)
+            self.require(torch.equal(back, qv)
+                         and torch.equal(q.unpack_int4_plain(packed, m), qv),
+                         f"unpack_int4 m={m}: the round trip is not exact")
+            checked += 1
+            if m == 42000:          # a Fashion hop's int4 wire
+                self._pack_rows(qv, packed)
+        # the channel draws of a Fashion hop and score block, drawn on the
+        # host and copied to the card
+        key = [0, 0]
+        draws = ChannelDraws()
+        hop_ms = _host_time_ms(lambda: draws.hop(key, 0, 0).uniform(
+            (42000,), self.dev))
+        block_ms = _host_time_ms(lambda: draws.serve(key, 1).uniform(
+            (18000, 10), self.dev))
+        print("quantize_table " + json.dumps(timed), flush=True)
+        print(f"draws_ms hop[42000]={hop_ms:.4f} block[18000,10]="
+              f"{block_ms:.4f}", flush=True)
+        return (f"quantize/pack/unpack: {checked} cases equal to the plain "
+                f"versions (q, scales, bytes exact), two runs identical; "
+                f"draws to the card {hop_ms:.3f} ms a hop, {block_ms:.3f} ms "
+                f"a score block")
+
+    def _quantize_row(self, name, x, u, kern, plain, replaces) -> None:
+        got, want = kern(x, u, 127.0), plain(x, u, 127.0)
+        nbytes, ops_ = 13 * x.numel() + 4 * got[2].numel(), 8 * x.numel()
+        bound, by = _bound_ms(nbytes, ops_)
+        self.kernels[name] = {
+            "source": "src/repro_torch/csrc/quantize.cu",
+            "replaces": replaces,
+            "max_abs_err": float((got[0] - want[0]).abs().max()),
+            "ms": _cuda_time_ms(lambda: kern(x, u, 127.0)),
+            "plain_ms": _cuda_time_ms(lambda: plain(x, u, 127.0)),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+    def _pack_rows(self, qv, packed) -> None:
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import quantize as q
+        m = qv.numel()
+        bound, by = _bound_ms(m + packed.numel(), 4 * m)
+        self.kernels["pack_int4"] = {
+            "source": "src/repro_torch/csrc/quantize.cu",
+            "replaces": "src/repro/kernels/quantize.py:131",
+            "max_abs_err": float((ops.pack_int4(qv).int()
+                                  - q.pack_int4_plain(qv).int()).abs().max()),
+            "ms": _cuda_time_ms(lambda: ops.pack_int4(qv)),
+            "plain_ms": _cuda_time_ms(lambda: q.pack_int4_plain(qv)),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+        self.kernels["unpack_int4"] = {
+            "source": "src/repro_torch/csrc/quantize.cu",
+            "replaces": "src/repro/kernels/quantize.py:150",
+            "max_abs_err": float((ops.unpack_int4(packed, m).int()
+                                  - q.unpack_int4_plain(packed, m).int()
+                                  ).abs().max()),
+            "ms": _cuda_time_ms(lambda: ops.unpack_int4(packed, m)),
+            "plain_ms": _cuda_time_ms(
+                lambda: q.unpack_int4_plain(packed, m)),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
 
     def _kernel_rows(self, w, r, a, k_w, p_w, k_n, p_n) -> None:
         torch = self.torch
@@ -326,12 +491,227 @@ class Smoke:
                      "non-finite alpha")
         self.require(a_ascii >= a_single,
                      f"ASCII acc {a_ascii} < single-agent acc {a_single}")
+        self.fashion_fp32 = (Xtr, ctr, Xte, cte, a_ascii,
+                             [c.alpha for c in st.components])
         return (f"fashion n_train=42000 agents=(392,392) logistic steps=300 "
                 f"rounds=5: components={len(st.components)} "
                 f"acc ascii={a_ascii:.4f} single={a_single:.4f} "
                 f"oracle={a_oracle:.4f}; session {secs:.2f} s, "
                 f"peak device memory {peak_gib:.3f} GiB, "
                 f"ledger {session.transport.total_bits} bits")
+
+    # ------------------------------------------------------- wire channel
+    def _channel_session(self, device: str, argv: list, ds_fn, cfg, learner):
+        """One session through the CLI's transport for ``argv`` on
+        ``device``: (session, transport, predict_distributed classes,
+        fitted classes, test classes, seconds)."""
+        torch = self.torch
+        from repro_torch.core import engine as E
+        from repro_torch.launch import session as cli
+        args = cli.parser().parse_args(["--device", device, *argv])
+        cli.check_args(args)
+        transport = cli.make_transport(args)
+        Xtr, ctr, Xte, cte = ds_fn(device)
+        proto = E.Protocol(cfg, transport=transport, device=device)
+        t0 = time.perf_counter()
+        session = proto.start(0, E.endpoints_for(
+            [learner(device) for _ in Xtr], Xtr), ctr)
+        session.run()
+        served = session.predict_distributed(Xte)
+        fitted = session.fitted().predict(Xte)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return (session, transport, served.cpu(), fitted.cpu(), cte.cpu(),
+                time.perf_counter() - t0)
+
+    @staticmethod
+    def _int_codec_counts(transport) -> dict:
+        """Expected quantize launches from the ledger: one per int-coded
+        hop and one per int-coded score block."""
+        from repro_torch.comm.codecs import QuantCodec
+
+        def coded(entry, fixed):
+            if "rung" in entry:
+                return isinstance(transport.budget.ladder[entry["rung"]],
+                                  QuantCodec)
+            return isinstance(fixed, QuantCodec)
+        log = transport.log.entries
+        return {"quantize_dequant_tiles": sum(
+                    coded(e, transport.codec) for e in log
+                    if e["kind"] == "ignorance"),
+                "quantize_dequant_block": sum(
+                    coded(e, transport.effective_serve_codec) for e in log
+                    if e["kind"] == "score_block")}
+
+    @staticmethod
+    def _check_wire_bits(transport, n: int, block: tuple) -> None:
+        """Every wire-priced entry equals its codec's wire_bits formula."""
+        for e in transport.log.entries:
+            if e["kind"] not in ("ignorance", "score_block"):
+                continue
+            shape = n if e["kind"] == "ignorance" else block
+            if "rung" in e:
+                codec = transport.budget.ladder[e["rung"]]
+            elif e["kind"] == "ignorance":
+                codec = transport.codec
+            else:
+                codec = transport.effective_serve_codec
+            want = 32 * (n if e["kind"] == "ignorance" else block[0] *
+                         block[1]) if codec is None else codec.wire_bits(shape)
+            if e["bits"] != want:
+                raise AssertionError(f"ledger entry {e} != wire_bits {want}")
+
+    def mimic_channel(self) -> str:
+        torch = self.torch
+        from repro_torch.comm.budget import BudgetSpec
+        from repro_torch.core import engine as E
+        from repro_torch.data.synthetic import mimic_surrogate
+        from repro_torch.learners.tree import DecisionTree
+
+        def data(device):
+            ds = mimic_surrogate(torch.Generator().manual_seed(0), n=15000,
+                                 device=device)
+            return self._split(ds)
+
+        n, m, n_te = 10500, 2, 4500
+        costs = BudgetSpec().hop_costs(n)
+        # setup, then one hop at each rung fp32, fp16, int8, int4, then
+        # skips: the session ends exhausted
+        budget_bits = (m - 1) * 2 * n * 32 + sum(costs) + 100
+        configs = [["--codec", "int8"],
+                   ["--codec", "int4", "--serve-codec", "int8"],
+                   ["--codec", "topk"],
+                   ["--dp-epsilon", "1.0", "--accountant", "rdp"],
+                   ["--byte-budget", str(-(-budget_bits // 8))]]
+        cfg = E.SessionConfig(num_classes=2, max_rounds=10)
+        out = []
+        for argv in configs:
+            runs = {}
+            for device in ("cuda", "cpu"):
+                if device == "cuda":
+                    self.reset_counts()
+                runs[device] = self._channel_session(
+                    device, argv, data, cfg,
+                    lambda dev: DecisionTree(depth=4, num_thresholds=16,
+                                             device=dev))
+                if device == "cuda":
+                    t = runs[device][1]
+                    self.read_counts(
+                        sum(e["kind"] == "ignorance" for e in t.log.entries),
+                        f"mimic {' '.join(argv)}",
+                        **self._int_codec_counts(t))
+            (gs, gt, gserve, gfit, cte, gsec), (cs, ct, cserve, cfit, _,
+                                                csec) = (runs["cuda"],
+                                                         runs["cpu"])
+            name = " ".join(argv)
+            self.require(gt.log.entries == ct.log.entries,
+                         f"{name}: card and CPU ledgers differ")
+            self._check_wire_bits(gt, n, (n_te, 2))
+            self.require((gs.state.round, gs.state.stopped)
+                         == (cs.state.round, cs.state.stopped),
+                         f"{name}: stop rounds differ")
+            self.require([(c.agent, c.round) for c in gs.state.components]
+                         == [(c.agent, c.round) for c in cs.state.components],
+                         f"{name}: components differ")
+            torch.testing.assert_close(
+                torch.tensor([c.alpha for c in gs.state.components]),
+                torch.tensor([c.alpha for c in cs.state.components]),
+                rtol=1e-5, atol=0)
+            self.require(torch.equal(gserve, cserve)
+                         and torch.equal(gfit, cfit),
+                         f"{name}: predictions differ between card and CPU")
+            if gt.accountant is not None:
+                self.require(gt.accountant.releases == ct.accountant.releases,
+                             f"{name}: DP releases differ")
+            rungs = ""
+            if hasattr(gt, "budget"):
+                self.require((gt.skipped, gt.exhausted)
+                             == (ct.skipped, ct.exhausted) and gt.exhausted,
+                             f"{name}: budget skips/exhaustion differ or the "
+                             f"session did not end exhausted")
+                used = sorted({e["rung"] for e in gt.log.entries
+                               if "rung" in e})
+                self.require(len(used) >= 3, f"{name}: rungs {used} < 3")
+                rungs = f",rungs={used},skipped={len(gt.skipped)}"
+            same_w = torch.equal(gs.state.w.cpu(), cs.state.w)
+            acc = float((gserve == cte).float().mean())
+            kinds = gt.log.bits_by_kind()
+            out.append(f"[{name}] hops={len(gs.state.components)} "
+                       f"ignorance_bits={kinds.get('ignorance', 0)} "
+                       f"score_block_bits={kinds.get('score_block', 0)}"
+                       f"{rungs} serve_acc={acc:.4f} w_bit_equal={same_w} "
+                       f"card {gsec:.2f} s cpu {csec:.2f} s")
+        return ("mimic through the wire channel, card = cpu (ledgers, "
+                "wire_bits, stops, predictions exact; alphas rtol 1e-5): "
+                + "; ".join(out))
+
+    def fashion_channel(self) -> str:
+        torch = self.torch
+        from repro_torch.comm.codecs import QuantCodec
+        from repro_torch.core import engine as E
+        from repro_torch.learners.logistic import LogisticRegression
+        self.require(self.fashion_fp32 is not None,
+                     "phase 5's fp32 session did not run")
+        Xtr, ctr, Xte, cte, a_fp32, alphas_fp32 = self.fashion_fp32
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.reset_counts()
+        session, t, served, fitted, cte, secs = self._channel_session(
+            "cuda", ["--codec", "int8", "--serve-codec", "int4"],
+            lambda device: (Xtr, ctr, Xte, cte),
+            E.SessionConfig(num_classes=10, max_rounds=5),
+            lambda dev: LogisticRegression(steps=300, device=dev))
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the int wires of a real hop's w: encode (quantize, and pack for
+        # int4) then decode (unpack) equals the fused roundtrip, and every
+        # element lies within one quantization step of its input
+        w = session.state.w
+        draws = session.draws.hop(session.state.key, 0, 0)
+        for bits in (4, 8):
+            codec = QuantCodec(bits=bits)
+            wire, _ = codec.encode(w, draws)
+            decoded = codec.decode(wire)
+            fused, _ = codec.roundtrip(w, draws)
+            torch.cuda.synchronize()
+            self.require(torch.equal(decoded, fused),
+                         f"int{bits} encode -> decode != roundtrip on a "
+                         f"hop's w")
+            step = float(wire[1].max())
+            self.require(float((decoded - w).abs().max()) <= step,
+                         f"int{bits}: an element is more than one step "
+                         f"({step}) from its input")
+        counts = self._int_codec_counts(t)
+        counts["quantize_dequant_tiles"] += 4       # encode and roundtrip x2
+        self.read_counts(sum(e["kind"] == "ignorance" for e in t.log.entries),
+                         "fashion int8", pack_int4=1, unpack_int4=1,
+                         **counts)
+        self._check_wire_bits(t, Xtr[0].shape[0], tuple(served.shape) + (10,))
+        alphas = [c.alpha for c in session.state.components]
+        self.require(all(math.isfinite(a) for a in alphas),
+                     "non-finite alpha")
+        # the first fit sees the uniform w, before any hop crossed the wire
+        self.require(alphas[0] == alphas_fp32[0],
+                     f"first alpha {alphas[0]} != the fp32 session's "
+                     f"{alphas_fp32[0]}")
+        a_int8 = float((fitted == cte).float().mean())
+        a_serve = float((served == cte).float().mean())
+        # No accuracy bound against fp32: at this width the int8 global tile
+        # zeroes most easy samples' weights, the next fits score r-bar = 1 on
+        # what is left, and their capped alphas (20) dominate the vote.  The
+        # reference does the same (tests/test_torch_comm_session.py::
+        # test_fashion_int8_session_tracks_reference_on_card holds the
+        # port's accuracy to the reference's on the card).
+        kinds = t.log.bits_by_kind()
+        return (f"fashion n_train=42000 agents=(392,392) rounds=5 --codec int8 "
+                f"--serve-codec int4: acc ascii={a_int8:.4f} (fp32 phase 5 "
+                f"{a_fp32:.4f}), served through int4 "
+                f"{a_serve:.4f}; alphas int8 {[round(a, 3) for a in alphas]} "
+                f"fp32 {[round(a, 3) for a in alphas_fp32]}; "
+                f"ignorance_bits={kinds['ignorance']} score_block_bits="
+                f"{kinds['score_block']} (= wire_bits); session {secs:.2f} s, "
+                f"peak device memory {peak_gib:.3f} GiB; int4/int8 "
+                f"encode->decode of a hop's w = roundtrip, within one step "
+                f"(pack/unpack at n={w.numel()})")
 
 
 def main() -> int:
@@ -354,12 +734,13 @@ def main() -> int:
     s.phase(3, s.cli_path)
     s.phase(4, s.mimic)
     s.phase(5, s.fashion)
+    s.phase(6, s.mimic_channel)
+    s.phase(7, s.fashion_channel)
     if s.failed:
         print(f"chip_smoke: failed {s.failed}", file=sys.stderr)
         return 1
-    kernels = [{"name": name, "route": "cuda", **row,
-                "launches": s.launches[name]}
-               for name, row in s.kernels.items()]
+    kernels = [{"name": name, "route": "cuda", **s.kernels[name],
+                "launches": s.launches[name]} for name in _counters()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,104 @@
+"""Where the wire channel's random draws come from.
+
+No counterpart module in the reference, which derives every channel draw
+from its session key with ``fold_in`` tags (``repro/comm/codecs.py``:
+``channel_apply`` and ``serve_key``).  The port's functions take their
+draws as arguments instead; this module supplies them.
+
+:class:`ChannelDraws` is the source.  For one training hop
+(:meth:`ChannelDraws.hop`) or one prediction-time score block
+(:meth:`ChannelDraws.serve`) it returns a :class:`HopDraws`, which hands the
+channel its uniform ``u`` (stochastic rounding in the int codecs) and its
+normal ``z`` (the Gaussian mechanism) on request.
+
+The default source seeds a CPU ``torch.Generator`` per stream from a fixed
+integer mix of the session's key data, a stream tag (codec, privacy) and
+the hop's coordinates: the round and the hop's position in it, or the
+agent index and the ``request`` tag for a serve block.  It draws on the CPU
+and copies the draws to the payload's device.  The draws are therefore a
+pure function of the saved state: a resumed session draws what the
+uninterrupted one would, with no generator state saved, and a session on
+the card draws what the same session on the CPU draws.  They are not the
+reference's draws (JAX's threefry stream is not reproduced); a test that
+holds a session to the reference passes a source that replays JAX's keys.
+
+A hop's draws are indexed by the hop, never by how often the channel was
+called: a hop that a budget skips still owns its coordinates, so the hops
+after it draw the same numbers whether or not it shipped.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# stream tags: the codec's uniforms and the mechanism's normals of one hop
+# come from separate generators, so drawing one never shifts the other
+CODEC_STREAM = 1
+PRIVACY_STREAM = 2
+# what a draw is for: a training hop or a prediction-time serve block
+HOP_SPACE = 0x484F50        # "HOP"
+SERVE_SPACE = 0x535256      # "SRV"
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def mix_seed(*words: int) -> int:
+    """A 64-bit generator seed from a sequence of integers (each taken
+    modulo 2^64), by chained splitmix64 finalizers."""
+    h = 0
+    for w in words:
+        h = _splitmix64(h ^ (int(w) & _MASK64))
+    return h
+
+
+class HopDraws:
+    """The draws of one hop or one serve block.  ``uniform`` gives floats in
+    [0, 1), ``normal`` standard normals, both float32 of ``shape`` on
+    ``device``.  Each stream is drawn afresh from its own seed on every
+    request, so asking twice gives the same numbers."""
+
+    def __init__(self, seed_words: tuple[int, ...]) -> None:
+        self.seed_words = tuple(int(w) for w in seed_words)
+
+    def _generator(self, stream: int) -> torch.Generator:
+        return torch.Generator().manual_seed(
+            mix_seed(*self.seed_words, stream))
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        u = torch.rand(tuple(shape), generator=self._generator(CODEC_STREAM),
+                       dtype=torch.float32)
+        return u.to(device)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        z = torch.randn(tuple(shape),
+                        generator=self._generator(PRIVACY_STREAM),
+                        dtype=torch.float32)
+        return z.to(device)
+
+
+class ChannelDraws:
+    """The default draw source (see the module note).  ``key`` is the
+    session's uint32 key data."""
+
+    @staticmethod
+    def _key_words(key) -> tuple[int, ...]:
+        return tuple(int(k) for k in np.asarray(key, dtype=np.uint32).ravel())
+
+    def hop(self, key, round_idx: int, position: int) -> HopDraws:
+        """Draws of the hop at ``position`` in round ``round_idx``."""
+        return HopDraws((*self._key_words(key), HOP_SPACE, int(round_idx),
+                         int(position)))
+
+    def serve(self, key, agent_index: int, request=None) -> HopDraws:
+        """Draws of agent ``agent_index``'s score block in the prediction
+        call tagged ``request`` (None: the untagged call)."""
+        tag = (0, 0) if request is None else (1, int(request))
+        return HopDraws((*self._key_words(key), SERVE_SPACE, *tag,
+                         int(agent_index)))

@@ -4,7 +4,10 @@
 reference's ``SessionState.save`` with numpy alone (an .npz of arrays plus
 a JSON manifest, the format both packages share) and returns the port's
 ``SessionState``, so the port can resume or predict with a session the
-reference fitted.  ``params_from_numpy`` converts one learner's fitted
+reference fitted.  A session checkpointed mid-run with a wire channel comes
+with its per-link top-k residuals (``codec_state``) and its budget spend
+and DP release counts (``comm``), which ``Protocol.resume_state`` restores
+onto the port's transport.  ``params_from_numpy`` converts one learner's fitted
 params the same way.
 """
 from __future__ import annotations

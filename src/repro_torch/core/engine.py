@@ -1,11 +1,16 @@
 """Agent-session engine for the ASCII interchange protocol (eager, main path).
 
-Counterpart of ``repro/core/engine.py``, its main-path subset: endpoints
+Counterpart of ``repro/core/engine.py``, its eager subset: endpoints
 exchange typed messages through a pluggable Transport, the round order is a
 pluggable Scheduler, and the protocol state is an explicit checkpointable
-SessionState.  The wire channel (codecs, DP, controllers), telemetry,
-scenarios, the async variant and the compiled backend belong to later
-slices of the port; their arguments raise ``NotImplementedError``.
+SessionState.  Every transport optionally carries a wire channel
+(``repro_torch.comm``): a codec, whose encoded size the ledger books and
+whose decoded tensor the protocol continues from; a Gaussian mechanism with
+its accountant; a serve codec for prediction-time score blocks; and, on
+:class:`~repro_torch.comm.budget.BudgetedTransport`, a bit budget.  Adaptive
+controllers, telemetry, scenarios, the async variant and the compiled
+backend belong to later slices of the port; their arguments raise
+``NotImplementedError``.
 
 One rule differs from the reference, and it is deliberate: every standard
 hop (``Transport._execute_update``) goes through
@@ -16,8 +21,11 @@ tiles its grid; the function is the same within float32 rounding.
 
 The session's PRNG key is carried as opaque uint32 key data (the
 reference's ``jax.random.key_data``), saved and restored with the state.
-This slice's learners are deterministic and never read it, so it is not
-advanced.
+The port's learners are deterministic and never read it, so it is not
+advanced.  The channel's random draws come from a
+:class:`~repro_torch.comm.draws.ChannelDraws` source, indexed by the key
+data and the hop's (round, position) or the serve block's (agent, request),
+so a resumed session draws what the uninterrupted one would.
 
 Quickstart::
 
@@ -38,6 +46,8 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.comm.codecs import channel_apply
+from repro_torch.comm.draws import ChannelDraws
 from repro_torch.core import scores
 from repro_torch.core.encoding import encode_labels
 from repro_torch.core.transport import TransportLog
@@ -70,22 +80,35 @@ def key_data(key) -> np.ndarray:
 @dataclass(frozen=True)
 class Message:
     """Base class for everything that crosses an agent boundary; its size
-    lets transports meter without reading the payload."""
+    lets transports meter without reading the payload.  A message that went
+    through a wire codec carries its *encoded* size in ``wire_bits``, and
+    ``bits`` prefers it: the ledger prices what crossed the wire."""
     src: str
     dst: str
 
     kind = "message"
     bits_per_element = 32
+    # a class attribute, not a field: subclasses with an encoded payload
+    # redeclare it as their trailing field
+    wire_bits = None
 
     @property
     def num_elements(self) -> int:
         return 0
 
+    @property
+    def bits(self) -> int:
+        if self.wire_bits is not None:
+            return self.wire_bits
+        return self.num_elements * self.bits_per_element
+
 
 @dataclass(frozen=True)
 class IgnoranceMsg(Message):
-    """The length-n ignorance score shipped on every interchange hop."""
+    """The length-n ignorance score shipped on every interchange hop: the
+    decoded payload ``w`` and, under a codec, its encoded ``wire_bits``."""
     w: torch.Tensor = None
+    wire_bits: int | None = None
 
     kind = "ignorance"
 
@@ -109,8 +132,11 @@ class ModelWeightMsg(Message):
 @dataclass(frozen=True)
 class ScoreBlockMsg(Message):
     """An [n, K] coded score block: an agent's alpha-weighted votes, the
-    prediction-time traffic of Algorithm 1 line 12."""
+    prediction-time traffic of Algorithm 1 line 12.  ``scores`` is the
+    decoded block the head sums; ``wire_bits`` its encoded size under a
+    serve codec."""
     scores: torch.Tensor = None
+    wire_bits: int | None = None
 
     kind = "score_block"
 
@@ -149,19 +175,47 @@ class Transport(abc.ABC):
     runs.  ``bind`` gives the transport the endpoint registry, ``send``
     routes a message into the destination inbox (``_on_send`` is the
     metering hook), and ``interchange`` executes one hop of eqs. (10)/(12).
+
+    The optional wire channel: ``codec`` (the outgoing score is encoded,
+    priced at its encoded size, and the protocol continues from the decoded
+    tensor), ``privacy`` (a Gaussian mechanism on the outgoing vector, each
+    release tallied per agent in ``accountant``), and ``serve_codec`` (the
+    prediction-time score blocks' codec; ``codec`` when unset).
     """
 
     def __init__(self, codec=None, privacy=None, serve_codec=None,
                  controller=None, accountant=None,
                  serve_controller=None) -> None:
-        for name, value in (("codec", codec), ("privacy", privacy),
-                            ("serve_codec", serve_codec),
-                            ("controller", controller),
-                            ("accountant", accountant),
+        for name, value in (("controller", controller),
                             ("serve_controller", serve_controller)):
             if value is not None:
-                raise _later_slice(f"the wire channel ({name}=)")
+                raise _later_slice(f"adaptive controllers ({name}=)")
         self._endpoints: dict[str, AgentEndpoint] = {}
+        self.codec = codec
+        self.privacy = privacy
+        self.serve_codec = serve_codec
+        if accountant is not None and privacy is None:
+            raise ValueError("an accountant without a privacy mechanism has "
+                             "nothing to account; pass privacy= too")
+        self.accountant = None
+        if privacy is not None:
+            if accountant is None:
+                from repro_torch.comm.privacy import PrivacyAccountant
+                accountant = PrivacyAccountant()
+            self.accountant = accountant
+
+    @property
+    def has_channel(self) -> bool:
+        return self.codec is not None or self.privacy is not None
+
+    @property
+    def effective_serve_codec(self):
+        return self.serve_codec if self.serve_codec is not None else self.codec
+
+    @property
+    def has_serve_channel(self) -> bool:
+        return (self.effective_serve_codec is not None
+                or self.privacy is not None)
 
     def bind(self, endpoints: Sequence["AgentEndpoint"]) -> None:
         self._endpoints = {ep.name: ep for ep in endpoints}
@@ -187,21 +241,57 @@ class Transport(abc.ABC):
 
     def interchange(self, src: "AgentEndpoint", dst: "AgentEndpoint",
                     w: torch.Tensor, r: torch.Tensor, alpha: torch.Tensor,
-                    reweight: Callable, standard: bool = True
-                    ) -> torch.Tensor:
-        """One hop: w' = reweight(w, r, alpha), shipped src -> dst with
-        its model weight.  Returns w'."""
+                    reweight: Callable, standard: bool = True, *,
+                    draws=None, codec_state=None):
+        """One hop: w' = reweight(w, r, alpha), through the wire channel
+        (DP noise, then the codec), shipped src -> dst with its model
+        weight.  Returns ``(w_received, codec_state)``: what the receiver
+        decodes and the link's updated codec state (the top-k residual;
+        None for stateless codecs).  ``draws`` are the hop's channel draws
+        (:class:`~repro_torch.comm.draws.HopDraws`)."""
         w_next = self._execute_update(w, r, alpha, reweight, standard)
-        self.send(IgnoranceMsg(src.name, dst.name, w_next))
+        wire_bits = None
+        if self.has_channel:
+            n = int(w.shape[0])
+            if (self.codec is not None and self.codec.stateful
+                    and codec_state is None):
+                codec_state = self.codec.init_state(n, w.device)
+            w_next, codec_state = channel_apply(self.codec, self.privacy,
+                                                w_next, draws, codec_state)
+            if self.privacy is not None:
+                self.accountant.record(src.name)
+            if self.codec is not None:
+                wire_bits = self.codec.wire_bits(n)
+        self.send(IgnoranceMsg(src.name, dst.name, w_next,
+                               wire_bits=wire_bits))
         self.send(ModelWeightMsg(src.name, dst.name, float(alpha)))
-        return w_next
+        return w_next, codec_state
 
     def serve_block(self, src: "AgentEndpoint", dst: "AgentEndpoint",
-                    block: torch.Tensor) -> torch.Tensor:
+                    block: torch.Tensor, *, draws=None):
         """One prediction-time hop: ship ``src``'s [n, K] score block to
-        ``dst`` (the head agent); returns the block the head sums."""
-        self.send(ScoreBlockMsg(src.name, dst.name, block))
+        ``dst`` (the head agent) through the serve channel (DP noise, then
+        the serve codec), priced at its encoded size.  Returns the decoded
+        block the head sums, or None when a budgeted transport drops it.
+        A stateful codec runs with a fresh residual: serve calls are
+        independent."""
+        codec = self.effective_serve_codec
+        wire_bits = None
+        if codec is not None or self.privacy is not None:
+            block, _ = channel_apply(codec, self.privacy, block, draws, None)
+            if self.privacy is not None:
+                self.accountant.record(src.name)
+            if codec is not None:
+                wire_bits = int(codec.wire_bits(tuple(block.shape)))
+        self.send(ScoreBlockMsg(src.name, dst.name, block,
+                                wire_bits=wire_bits))
         return block
+
+    def ship(self, src, dst, payload, wrap, *, draws=None):
+        raise _later_slice("protocol-variant hops (ship)")
+
+    def barrier_release(self, head, w_bar, *, draws=None, codec_state=None):
+        raise _later_slice("the async barrier's release (barrier_release)")
 
 
 class InProcessTransport(Transport):
@@ -210,15 +300,30 @@ class InProcessTransport(Transport):
 
 class MeteredTransport(Transport):
     """In-process delivery that books every bit into a
-    :class:`~repro_torch.core.transport.TransportLog` (Fig. 4)."""
+    :class:`~repro_torch.core.transport.TransportLog` (Fig. 4).  With a
+    codec attached the ledger books *encoded* bits."""
 
-    def __init__(self, log: TransportLog | None = None, **channel) -> None:
-        super().__init__(**channel)
+    def __init__(self, log: TransportLog | None = None, codec=None,
+                 privacy=None, serve_codec=None, controller=None,
+                 accountant=None, serve_controller=None) -> None:
+        super().__init__(codec=codec, privacy=privacy,
+                         serve_codec=serve_codec, controller=controller,
+                         accountant=accountant,
+                         serve_controller=serve_controller)
         self.log = log if log is not None else TransportLog()
 
     def _on_send(self, msg: Message) -> None:
-        self.log.send(msg.src, msg.dst, msg.kind, msg.num_elements,
-                      msg.bits_per_element)
+        if msg.wire_bits is not None:
+            # a budgeted subclass arms _pending_rung in record_spend; the
+            # wire-priced booking that follows stamps it onto its entry
+            rung = getattr(self, "_pending_rung", None)
+            self.log.send_bits(msg.src, msg.dst, msg.kind, msg.wire_bits,
+                               rung=rung)
+            if rung is not None:
+                self._pending_rung = None
+        else:
+            self.log.send(msg.src, msg.dst, msg.kind, msg.num_elements,
+                          msg.bits_per_element)
 
     @property
     def total_bits(self) -> int:
@@ -395,6 +500,8 @@ class ASCIIVariant:
         rec.setdefault("accs", [])
         reweight, standard = session._reweight()
         k = cfg.num_classes
+        t = st.round
+        channel = session.transport.has_channel
         u = torch.ones_like(st.w)
         for j, m in enumerate(order):
             dst = eps[order[(j + 1) % len(order)]]
@@ -410,8 +517,16 @@ class ASCIIVariant:
                 return True        # Algorithm 1, line 8
             st.components.append(Component(m, st.round, alpha, params))
             u = scores.upstream_factor_update(u, a, r, k)
-            st.w = session.transport.interchange(eps[m], dst, st.w, r, a,
-                                                 reweight, standard)
+            link_state = (None if st.codec_state is None
+                          else st.codec_state.get(eps[m].name))
+            st.w, link_state = session.transport.interchange(
+                eps[m], dst, st.w, r, a, reweight, standard,
+                draws=session.draws.hop(st.key, t, j) if channel else None,
+                codec_state=link_state)
+            if link_state is not None:
+                if st.codec_state is None:
+                    st.codec_state = {}
+                st.codec_state[eps[m].name] = link_state
         return False
 
     def fitted(self, session: "Session") -> FittedASCII:
@@ -421,6 +536,11 @@ class ASCIIVariant:
 
 
 # ================================================================ session state
+#: The channel bookkeeping the port restores (``SessionState.comm``); the
+#: reference's controller EMA and scheduler state belong to later slices.
+COMM_KEYS = ("releases", "ledger_bits", "link_spent", "exhausted")
+
+
 @dataclass
 class SessionState:
     """Explicit, checkpointable protocol state, in the reference's
@@ -439,15 +559,22 @@ class SessionState:
     # the endpoint active flags at checkpoint time
     order_sizes: list[int] = field(default_factory=list)
     active: list[bool] | None = None
+    # per-link wire-codec state (top-k error-feedback residuals, keyed by
+    # sender name): checkpointed, so a lossy channel resumes exactly
+    codec_state: dict | None = None
+    # JSON-able channel bookkeeping captured at checkpoint time (budget
+    # spend, link spend, exhaustion, DP release counts), in the reference's
+    # ``Session._comm_snapshot`` format
+    comm: dict | None = None
 
     def to_tree(self) -> tuple[dict, dict]:
-        """Split into (array tree, JSON-able metadata).  The wire-channel,
-        channel-bookkeeping and protocol-variant slots of the format are
-        always empty in this slice."""
+        """Split into (array tree, JSON-able metadata).  The format's
+        protocol-variant slot (``proto``) is always empty in the port so
+        far."""
         tree = {"w": self.w,
                 "key": self.key,
                 "params": [c.params for c in self.components],
-                "codec_state": None,
+                "codec_state": self.codec_state,
                 "proto": None}
         meta = {"round": self.round,
                 "stopped": self.stopped,
@@ -456,18 +583,19 @@ class SessionState:
                 "history": self.history,
                 "order_sizes": self.order_sizes,
                 "active": self.active,
-                "comm": None,
+                "comm": self.comm,
                 "components": [{"agent": c.agent, "round": c.round,
                                 "alpha": c.alpha} for c in self.components]}
         return tree, meta
 
     @classmethod
     def from_tree(cls, tree: dict, meta: dict) -> "SessionState":
-        for slot, value in (("codec_state", tree.get("codec_state")),
-                            ("proto", tree.get("proto")),
-                            ("comm", meta.get("comm"))):
-            if value is not None:
-                raise _later_slice(f"a checkpoint with {slot} state")
+        if tree.get("proto") is not None:
+            raise _later_slice("a checkpoint with protocol-variant state")
+        comm = meta.get("comm")
+        later = sorted(set(comm or ()) - set(COMM_KEYS))
+        if later:
+            raise _later_slice(f"a checkpoint with {later} channel state")
         components = [
             Component(int(c["agent"]), int(c["round"]), float(c["alpha"]), p)
             for c, p in zip(meta["components"], tree["params"])]
@@ -480,7 +608,9 @@ class SessionState:
                    best_val=float(meta["best_val"]),
                    cv_stale=int(meta["cv_stale"]),
                    order_sizes=[int(s) for s in meta.get("order_sizes", [])],
-                   active=meta.get("active"))
+                   active=meta.get("active"),
+                   codec_state=tree.get("codec_state"),
+                   comm=comm)
 
     def save(self, directory: str, step: int | None = None) -> str:
         from repro_torch.train import checkpoint
@@ -527,7 +657,9 @@ class Session:
     session should continue; ``run()`` loops to completion.  Between steps
     callers may drop endpoints (``active = False``) or checkpoint.  Feature
     blocks, labels and validation data are placed on ``device``; every
-    endpoint's learner must live on the same device type.
+    endpoint's learner must live on the same device type.  ``draws`` is the
+    wire channel's draw source (default :class:`~repro_torch.comm.draws.
+    ChannelDraws`).
     """
 
     def __init__(self, cfg: SessionConfig, scheduler: Scheduler,
@@ -536,6 +668,7 @@ class Session:
                  validation=None, variant: ASCIIVariant | None = None,
                  scenario=None, telemetry=None,
                  device: str | torch.device = "cuda",
+                 draws: ChannelDraws | None = None,
                  _send_setup: bool = True) -> None:
         if variant is not None and not isinstance(variant, ASCIIVariant):
             raise _later_slice(f"protocol variant {variant.name!r}")
@@ -567,6 +700,10 @@ class Session:
             self.validation = ([self._place(x) for x in Xs_val],
                                self._place(c_val))
         self.variant = variant if variant is not None else ASCIIVariant()
+        self.draws = draws if draws is not None else ChannelDraws()
+        if state.codec_state is not None:
+            state.codec_state = {name: self._place(x)
+                                 for name, x in state.codec_state.items()}
         transport.bind(self.endpoints)
         if _send_setup:
             self._send_setup()
@@ -596,6 +733,11 @@ class Session:
         chain).  Returns False once the session stopped."""
         st, cfg = self.state, self.cfg
         if st.stopped or st.round >= cfg.max_rounds:
+            return False
+        if getattr(self.transport, "exhausted", False):
+            # the session bit budget can no longer afford even the cheapest
+            # codec rung: stop scheduling rounds
+            st.stopped = True
             return False
         t = st.round
         active = [ep.agent_id for ep in self.endpoints if ep.active]
@@ -639,10 +781,16 @@ class Session:
         return self.variant.fitted(self)
 
     def predict_distributed(self, Xs: Sequence[torch.Tensor] | None = None,
-                            max_round: int | None = None) -> torch.Tensor:
+                            max_round: int | None = None, *,
+                            request=None) -> torch.Tensor:
         """Prediction as the protocol runs it: every endpoint ships its
-        [n, K] ScoreBlockMsg to the head agent, which sums and argmaxes."""
+        [n, K] ScoreBlockMsg to the head agent, which sums and argmaxes.
+        The blocks cross the transport's serve channel
+        (:meth:`Transport.serve_block`), with the draws of
+        ``draws.serve(key, agent, request)``; a block a budget skips is
+        left out (the answer degrades toward head-only)."""
         head = self.endpoints[0]
+        serve = self.transport.has_serve_channel
         total = None
         for i, ep in enumerate(self.endpoints):
             X = None if Xs is None else self._place(Xs[i])
@@ -650,14 +798,51 @@ class Session:
                                    self.cfg.num_classes, X=X,
                                    max_round=max_round)
             if ep is not head:
-                block = self.transport.serve_block(ep, head, block)
+                draws = (self.draws.serve(self.state.key, i, request)
+                         if serve else None)
+                block = self.transport.serve_block(ep, head, block,
+                                                   draws=draws)
+                if block is None:
+                    continue           # budget skip: head-only fallback
             total = block if total is None else total + block
         return torch.argmax(total, dim=-1)
+
+    # ---- checkpointing ------------------------------------------------------
+    def _comm_snapshot(self) -> dict | None:
+        """JSON-able channel bookkeeping that must survive pause/resume:
+        budget spend (the cap covers the whole session) and DP release
+        counts (epsilon composes across the resume)."""
+        t = self.transport
+        snap: dict = {}
+        if t.accountant is not None:
+            snap["releases"] = dict(t.accountant.releases)
+        if hasattr(t, "budget"):
+            snap["ledger_bits"] = (int(t.log.total_bits)
+                                   + int(t.carryover_bits))
+            snap["link_spent"] = [[s, d, int(b)]
+                                  for (s, d), b in t.link_spent.items()]
+            snap["exhausted"] = bool(t.exhausted)
+        return snap or None
+
+    def _comm_restore(self, snap: dict | None) -> None:
+        t = self.transport
+        if not snap:
+            return
+        if snap.get("releases") and t.accountant is not None:
+            t.accountant.releases.update(snap["releases"])
+        if hasattr(t, "budget"):
+            # the resumed transport's log starts empty; the paused run's
+            # spend counts against the session cap via carryover_bits
+            t.carryover_bits = int(snap.get("ledger_bits", 0))
+            t.link_spent = {(s, d): b
+                            for s, d, b in snap.get("link_spent", [])}
+            t.exhausted = bool(snap.get("exhausted", False))
 
     def checkpoint(self, directory: str, step: int | None = None) -> str:
         """Save the live SessionState mid-run (resumable via
         ``Protocol.resume``)."""
         self.state.active = [ep.active for ep in self.endpoints]
+        self.state.comm = self._comm_snapshot()
         return self.state.save(directory, step)
 
 
@@ -672,7 +857,8 @@ class Protocol:
     def __init__(self, cfg: SessionConfig, scheduler: Scheduler | None = None,
                  transport: Transport | None = None, backend: str = "eager",
                  variant: ASCIIVariant | None = None, scenario=None,
-                 telemetry=None, device: str | torch.device = "cuda") -> None:
+                 telemetry=None, device: str | torch.device = "cuda",
+                 draws: ChannelDraws | None = None) -> None:
         if backend != "eager":
             raise _later_slice(f"backend={backend!r}")
         if variant is not None and not isinstance(variant, ASCIIVariant):
@@ -688,6 +874,7 @@ class Protocol:
         self.transport = (transport if transport is not None
                           else InProcessTransport())
         self.variant = variant
+        self.draws = draws
         self._session: Session | None = None
 
     def start(self, key, endpoints: Sequence[AgentEndpoint],
@@ -699,7 +886,8 @@ class Protocol:
         self.scheduler.reset()
         return Session(self.cfg, self.scheduler, self.transport, endpoints,
                        classes, state, validation=validation,
-                       variant=self.variant, device=self.device)
+                       variant=self.variant, device=self.device,
+                       draws=self.draws)
 
     def resume(self, directory: str, endpoints: Sequence[AgentEndpoint],
                classes: torch.Tensor, validation=None,
@@ -721,10 +909,12 @@ class Protocol:
                     f"checkpointed session's roster), got {len(endpoints)}")
             for ep, flag in zip(endpoints, state.active):
                 ep.active = bool(flag)
-        return Session(self.cfg, self.scheduler, self.transport, endpoints,
-                       classes, state, validation=validation,
-                       variant=self.variant, device=self.device,
-                       _send_setup=False)
+        session = Session(self.cfg, self.scheduler, self.transport,
+                          endpoints, classes, state, validation=validation,
+                          variant=self.variant, device=self.device,
+                          draws=self.draws, _send_setup=False)
+        session._comm_restore(state.comm)
+        return session
 
     def fit(self, key, endpoints: Sequence[AgentEndpoint],
             classes: torch.Tensor, validation=None) -> FittedASCII:
@@ -734,13 +924,16 @@ class Protocol:
         return session.fitted()
 
     def predict_distributed(self, Xs: Sequence[torch.Tensor] | None = None,
-                            max_round: int | None = None) -> torch.Tensor:
-        """Distributed prediction after :meth:`fit` (no wire channel)."""
+                            max_round: int | None = None, *,
+                            request=None) -> torch.Tensor:
+        """Distributed prediction after :meth:`fit`, through the
+        transport's serve channel."""
         if self._session is None:
             raise RuntimeError("predict_distributed needs a completed fit() "
                                "on this Protocol (or use "
                                "Session.predict_distributed directly)")
-        return self._session.predict_distributed(Xs, max_round)
+        return self._session.predict_distributed(Xs, max_round,
+                                                 request=request)
 
 
 def variant_setup(variant: str, seed: int = 0) -> tuple[Scheduler, bool]:

@@ -5,6 +5,16 @@ there.  Rewards ``r`` and ignorance scores ``w`` are float32 tensors of
 length n; ``r_i = I{g(x_i) == y_i}``.  Scalars come back as 0-d float32
 tensors on the inputs' device, so a hop needs no host sync until a caller
 asks for ``float(alpha)``.
+
+The model weight's sums and logarithms, and the upstream factor's
+exponentials, are taken in float64 and rounded to float32 (the reference
+works in float32).  A float32 sum's rounding depends on its order, and a
+float32 ``exp``/``log`` on the library, both of which differ between the
+card and the CPU; an ulp in alpha then moves every later element of w, and
+a quantizing wire codec turns that ulp into a whole step wherever an
+element sits on a floor boundary.  Rounded from float64, alpha and the
+factors are the same on both devices, within float32 rounding of the
+reference's.
 """
 from __future__ import annotations
 
@@ -22,10 +32,16 @@ class AlphaResult(NamedTuple):
 
 def _where_correct(r: torch.Tensor, alpha: torch.Tensor,
                    num_classes: int) -> torch.Tensor:
-    """exp(-alpha/(K-1)) where r = 1, exp(+alpha/(K-1)^2) where r = 0."""
+    """exp(-alpha/(K-1)) where r = 1, exp(+alpha/(K-1)^2) where r = 0
+    (each exponential rounded from float64)."""
     k = num_classes
-    return torch.where(r > 0, torch.exp(-alpha / (k - 1)),
-                       torch.exp(alpha / (k - 1) ** 2))
+    return torch.where(r > 0, _exp(-alpha / (k - 1)),
+                       _exp(alpha / (k - 1) ** 2))
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor, taken in float64 and rounded to float32."""
+    return torch.exp(x.to(torch.float64)).to(torch.float32)
 
 
 def upstream_factor_update(u: torch.Tensor, alpha: torch.Tensor,
@@ -43,16 +59,18 @@ def model_weight(w: torch.Tensor, r: torch.Tensor, num_classes: int,
     k = num_classes
     if u is None:
         u = torch.ones_like(w)
-    s_correct = torch.sum(w * u * r)
-    s_wrong = torch.sum(w * u * (1.0 - r))
+    f64 = torch.float64
+    s_correct = torch.sum((w * u * r).to(f64))
+    s_wrong = torch.sum((w * u * (1.0 - r)).to(f64))
     rbar = s_correct / torch.clamp(s_correct + s_wrong, min=_EPS)
     alpha = (torch.log(torch.clamp(s_correct, min=_EPS))
              - torch.log(torch.clamp(s_wrong, min=_EPS))
-             + torch.log(torch.tensor(float(k - 1), device=w.device)))
+             + torch.log(torch.tensor(float(k - 1), dtype=f64,
+                                      device=w.device)))
     if exact_scale:
         alpha = alpha * (k - 1) ** 2 / k
-    alpha = torch.clamp(alpha, -alpha_cap, alpha_cap)
-    return AlphaResult(alpha=alpha, weighted_acc=rbar)
+    alpha = torch.clamp(alpha.to(torch.float32), -alpha_cap, alpha_cap)
+    return AlphaResult(alpha=alpha, weighted_acc=rbar.to(torch.float32))
 
 
 def ignorance_update(w: torch.Tensor, r: torch.Tensor,

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/core/transport.py`` (main-path subset): ASCII
 transmits per hop the length-n ignorance score plus one scalar model
-weight, and once at setup the numeric labels and sample IDs.  Every booking
+weight, and once at setup the numeric labels and sample IDs; under a wire
+codec the score is booked at its encoded size.  Every booking
 passes through :meth:`TransportLog.send_bits`, which appends the entry and
 updates the (kind, src, dst) accumulator the aggregate views derive from.
 """
@@ -38,16 +39,21 @@ class TransportLog:
             raise ValueError(f"num_elements must be >= 0, got {num_elements}")
         self.send_bits(src, dst, kind, int(num_elements) * bits_per_element)
 
-    def send_bits(self, src: str, dst: str, kind: str, bits: int) -> None:
-        """Book an exact size in bits."""
+    def send_bits(self, src: str, dst: str, kind: str, bits: int,
+                  rung: int | None = None) -> None:
+        """Book an exact size in bits (a codec's wire format is not a clean
+        elements x width).  ``rung`` records the budget ladder rung that
+        priced the payload; entries without one carry no ``rung`` key."""
         if isinstance(bits, bool) or not isinstance(bits, (int, np.integer)):
             raise TypeError(f"bits must be an integer, got "
                             f"{type(bits).__name__} ({bits!r})")
         if bits < 0:
             raise ValueError(f"bits must be >= 0, got {bits}")
         bits = int(bits)
-        self.entries.append({"src": src, "dst": dst, "kind": kind,
-                             "bits": bits})
+        entry = {"src": src, "dst": dst, "kind": kind, "bits": bits}
+        if rung is not None:
+            entry["rung"] = int(rung)
+        self.entries.append(entry)
         self._accumulate(src, dst, kind, bits)
 
     @property

@@ -7,9 +7,10 @@
 //     w_new = w * exp(alpha * (1 - r));   w <- w_new / max(sum(w_new), 1e-12)
 //
 // Bound: the function reads w and r and writes w once, 12 * n bytes, at the
-// H100's 3.35 TB/s; its arithmetic (one expf per element) is far below the
-// card's float32 rate.  So it is memory- and launch-bound: at the main path's
-// sizes (n of 10^4 .. 10^5) the two launches cost more than the bytes.
+// H100's 3.35 TB/s; its arithmetic (one double-precision exp per element)
+// stays below the card's float64 rate.  So it is memory- and launch-bound: at
+// the main path's sizes (n of 10^4 .. 10^5) the two launches cost more than
+// the bytes.
 // This first version is simple and deterministic; making it fast (one
 // launch, a CUDA graph around the hop) is work for later changes.
 //
@@ -22,8 +23,11 @@
 // Every block therefore divides by the same total, and a run gives the same
 // bits every time, which bit-exact checkpoint resume rests on.  The ragged
 // last tile is masked: lanes past n contribute 0.  alpha is read from device
-// memory, so a launch needs no host sync.  expf, not __expf, and no fast-math:
-// the plain PyTorch version in kernels/ignorance.py mirrors this order.
+// memory, so a launch needs no host sync.  The exponential is taken in double
+// and rounded to float (no fast-math): a float expf differs by an ulp between
+// CUDA's and the CPU's libraries, and the rounded double is the same on both,
+// so the card's hop equals the plain version's on the CPU.  The plain PyTorch
+// version in kernels/ignorance.py mirrors this arithmetic and order.
 //
 // Plain C interface for ctypes: each function returns the cudaError_t of its
 // launch (0 on success).
@@ -53,7 +57,7 @@ ignorance_pass1(const float* __restrict__ w, const float* __restrict__ r,
   const float a = __ldg(alpha);
   float v = 0.0f;
   if (i < n) {
-    v = w[i] * expf(a * (1.0f - r[i]));
+    v = w[i] * static_cast<float>(exp(static_cast<double>(a * (1.0f - r[i]))));
     out[i] = v;
   }
   sm[threadIdx.x] = v;
@@ -82,7 +86,7 @@ int num_tiles_of(int64_t n) { return static_cast<int>((n + kTile - 1) / kTile); 
 
 extern "C" {
 
-// out[n] = w * expf(alpha * (1 - r)); partials[ceil(n/1024)] = tile sums.
+// out[n] = w * exp(alpha * (1 - r)); partials[ceil(n/1024)] = tile sums.
 int ignorance_update_unnormalized(const float* w, const float* r,
                                   const float* alpha, float* out,
                                   float* partials, int64_t n,

@@ -47,8 +47,10 @@ def _tiles(x: torch.Tensor) -> torch.Tensor:
 
 def ignorance_update_unnormalized_plain(w: torch.Tensor, r: torch.Tensor,
                                         alpha: torch.Tensor):
-    """Pass 1 in PyTorch ops: (w * exp(alpha(1-r)) [n], tile sums)."""
-    w_new = w * torch.exp(alpha * (1.0 - r))
+    """Pass 1 in PyTorch ops: (w * exp(alpha(1-r)) [n], tile sums); the
+    exponential is taken in float64 and rounded, as the kernel does."""
+    w_new = w * torch.exp((alpha * (1.0 - r)).to(torch.float64)).to(
+        torch.float32)
     return w_new, _tree_sum(_tiles(w_new))
 
 

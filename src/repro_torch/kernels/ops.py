@@ -1,14 +1,17 @@
 """Public wrappers for the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py``.  This slice ports the ignorance
-update only; the quantize, weighted-CE and flash kernels are still to be
-ported (see ROADMAP.md).
+Counterpart of ``repro/kernels/ops.py``.  Ported so far: the ignorance
+update and the four wire-codec kernels (quantize-dequant for vectors and
+score blocks, int4 pack and unpack); the weighted-CE and flash kernels are
+still to be ported (see ROADMAP.md).  Each runs its CUDA kernel for CUDA
+tensors and its plain version for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ignorance as _ig
+from repro_torch.kernels import quantize as _q
 
 
 def ignorance_update(w: torch.Tensor, r: torch.Tensor,
@@ -17,3 +20,28 @@ def ignorance_update(w: torch.Tensor, r: torch.Tensor,
     CUDA tensors, their plain version for CPU tensors."""
     w_new, partials = _ig.ignorance_update_unnormalized(w, r, alpha)
     return _ig.normalize_(w_new, partials)
+
+
+def quantize_dequant(x: torch.Tensor, u: torch.Tensor, qmax, *,
+                     bn: int = 1024):
+    """Fused per-tile quantize-dequant for the wire codecs: returns
+    (dequantized [n], int8 wire values [n], per-tile scales)."""
+    return _q.quantize_dequant_tiles(x, u, qmax, bn=bn)
+
+
+def quantize_dequant_block(x: torch.Tensor, u: torch.Tensor, qmax, *,
+                           bn: int = 1024):
+    """Row-tiled quantize-dequant for [n, k] score blocks: returns
+    (dequantized [n, k], int8 wire values [n, k], per-row-tile scales)."""
+    return _q.quantize_dequant_block(x, u, qmax, bn=bn)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Two sign-extended int4 nibbles per int8 wire byte (flat,
+    ceil(numel / 2) long): the int4 codec's wire array."""
+    return _q.pack_int4(q)
+
+
+def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: n int8-carried int4 values (flat)."""
+    return _q.unpack_int4(packed, n)

@@ -1,9 +1,10 @@
 """Session driver: run an ASCII engine session of the port from the command
 line, on the card by default.
 
-Counterpart of ``repro/launch/session.py``, its main-path subset: wires a
-dataset, a scheduler (via the variant name), a transport and a learner into
-``core.engine.Protocol``, with optional mid-run checkpointing and resume.
+Counterpart of ``repro/launch/session.py``, its eager subset: wires a
+dataset, a scheduler (via the variant name), a transport with its wire
+channel and a learner into ``core.engine.Protocol``, with optional mid-run
+checkpointing and resume.
 
   PYTHONPATH=src python -m repro_torch.launch.session --dataset blob3 \
       --variant ascii --rounds 6 --transport metered
@@ -11,12 +12,16 @@ dataset, a scheduler (via the variant name), a transport and a learner into
       --stop-after 2                       # save mid-run ...
   PYTHONPATH=src python -m repro_torch.launch.session --ckpt-dir runs/sess \
       --resume                             # ... and pick the run back up
+  PYTHONPATH=src python -m repro_torch.launch.session --codec int4 \
+      --serve-codec int8 --dp-epsilon 1 --accountant rdp   # a wire channel
+  PYTHONPATH=src python -m repro_torch.launch.session --byte-budget 20000
   PYTHONPATH=src python -m repro_torch.launch.session --device cpu
 
 It prints the reference's ``dataset,variant,transport,rounds=..,
-components=..,acc=..[,bits=..]`` line.  The data are drawn from a
-``torch.Generator`` seeded with ``--seed``, so the numbers differ from the
-reference CLI's.
+components=..,acc=..[,bits=..]`` line, its ``serve:`` line and its channel
+lines (``codec=..``, ``serve_codec=..``, ``budget: ..``, ``dp: ..``).  The
+data are drawn from a ``torch.Generator`` seeded with ``--seed``, so the
+numbers differ from the reference CLI's.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.comm import (BudgetSpec, BudgetedTransport,
+                              GaussianMechanism, make_codec)
+from repro_torch.control import make_accountant
 from repro_torch.core.engine import (InProcessTransport, MeshRingTransport,
                                      MeteredTransport, Protocol, Session,
                                      SessionConfig, Transport, endpoints_for,
@@ -57,8 +65,13 @@ LEARNERS = {
                                                 device=args.device),
 }
 
-# the run config that must match across pause/resume
-RUN_KEYS = ("dataset", "n", "variant", "learner", "depth", "steps", "seed")
+# the run config that must match across pause/resume, with the defaults a
+# manifest written before a key existed implies
+RUN_KEYS = ("dataset", "n", "variant", "learner", "depth", "steps", "seed",
+            "codec", "serve_codec", "byte_budget", "dp_epsilon", "accountant")
+RUN_DEFAULTS = {"codec": "", "serve_codec": "", "byte_budget": 0,
+                "dp_epsilon": 0.0, "accountant": "basic"}
+CODEC_NAMES = ["", "fp32", "fp16", "int8", "int4", "topk"]
 
 
 def parser() -> argparse.ArgumentParser:
@@ -75,6 +88,26 @@ def parser() -> argparse.ArgumentParser:
                     help="tree depth (tree learner only)")
     ap.add_argument("--steps", type=int, default=150,
                     help="optimizer steps (logistic learner)")
+    ap.add_argument("--codec", default="", choices=CODEC_NAMES,
+                    help="wire codec for outgoing ignorance scores (the "
+                         "ledger books encoded bits; empty = raw fp32)")
+    ap.add_argument("--serve-codec", default="", choices=CODEC_NAMES,
+                    help="wire codec for prediction-time score blocks "
+                         "(defaults to --codec)")
+    ap.add_argument("--byte-budget", type=int, default=0,
+                    help="session byte budget: degrade down the "
+                         "fp32>fp16>int8>int4 ladder, then skip hops and "
+                         "stop scheduling rounds (the budgeted metered "
+                         "transport; excludes --transport and the codecs)")
+    ap.add_argument("--dp-epsilon", type=float, default=0.0,
+                    help="per-release DP epsilon: Gaussian-mechanism noise "
+                         "on every outgoing vector, accounted per agent")
+    ap.add_argument("--accountant", default="basic",
+                    choices=["basic", "rdp", "subsampled-rdp"],
+                    help="privacy accountant for --dp-epsilon releases: "
+                         "basic additive or Renyi-DP composition "
+                         "(subsampled-rdp needs a scenario's --subsample, "
+                         "not ported yet)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint SessionState here after the run "
@@ -99,8 +132,80 @@ class Run:
     paused: bool
 
 
+def check_args(args: argparse.Namespace) -> None:
+    """The reference CLI's argument rules for the wire channel; a broken
+    rule exits with its message."""
+    if args.byte_budget > 0:
+        if args.codec:
+            raise SystemExit("--byte-budget drives codec choice through its "
+                             "degradation ladder; drop --codec")
+        if args.serve_codec:
+            raise SystemExit("--byte-budget drives the serve codec through "
+                             "the same degradation ladder; drop "
+                             "--serve-codec")
+        if args.transport != "metered":
+            raise SystemExit("--byte-budget needs the (budgeted) metered "
+                             "transport; drop --transport")
+    if args.accountant != "basic" and args.dp_epsilon <= 0:
+        raise SystemExit(f"--accountant {args.accountant} accounts "
+                         f"--dp-epsilon releases; set --dp-epsilon too")
+    if args.accountant == "subsampled-rdp":
+        raise SystemExit("--accountant subsampled-rdp amplifies privacy by a "
+                         "scenario's --subsample rate; scenarios are not "
+                         "ported yet (use basic or rdp)")
+
+
+def make_transport(args: argparse.Namespace) -> Transport:
+    """The CLI's transport with its wire channel."""
+    privacy = (GaussianMechanism(epsilon=args.dp_epsilon)
+               if args.dp_epsilon > 0 else None)
+    accountant = (make_accountant(args.accountant)
+                  if privacy is not None else None)
+    if args.byte_budget > 0:
+        return BudgetedTransport(BudgetSpec(session_bits=args.byte_budget * 8),
+                                 privacy=privacy, accountant=accountant)
+    return TRANSPORTS[args.transport](
+        codec=make_codec(args.codec) if args.codec else None,
+        privacy=privacy,
+        serve_codec=make_codec(args.serve_codec) if args.serve_codec else None,
+        accountant=accountant)
+
+
+def _print_comm(transport: Transport) -> None:
+    """Wire-channel summary lines (codec ledger, budget state, DP spend)."""
+    if transport.codec is not None:
+        line = f"codec={type(transport.codec).__name__}"
+        if isinstance(transport, MeteredTransport):
+            line += (f",ignorance_bits="
+                     f"{transport.bits_by_kind().get('ignorance', 0)}")
+        print(line)
+    if transport.serve_codec is not None:
+        print(f"serve_codec={type(transport.serve_codec).__name__}")
+    if isinstance(transport, BudgetedTransport):
+        print(f"budget: spent={transport.total_bits}b,"
+              f"skipped_hops={len(transport.skipped)},"
+              f"exhausted={transport.exhausted}")
+    if transport.privacy is not None:
+        print(f"dp: {json.dumps(transport.accountant.report(transport.privacy))}")
+
+
+def _print_serve(transport: Transport, preds: torch.Tensor,
+                 cte: torch.Tensor, before_bits: int) -> None:
+    """Serve-path summary: distributed-prediction accuracy and the encoded
+    score-block bits this predict call booked."""
+    line = (f"serve: acc="
+            f"{float(torch.mean((preds == cte).to(torch.float32))):.3f}")
+    if isinstance(transport, MeteredTransport):
+        bits = transport.bits_by_kind().get("score_block", 0) - before_bits
+        line += f",score_block_bits={bits}"
+    if isinstance(transport, BudgetedTransport):
+        line += f",skipped_hops={len(transport.skipped)}"
+    print(line)
+
+
 def run(args: argparse.Namespace) -> Run:
     """Run (or resume) one session as the CLI does, printing its lines."""
+    check_args(args)
     device = resolve_device(args.device)
     gen = torch.Generator().manual_seed(args.seed)
     ds = DATASETS[args.dataset](gen, args.n, device)
@@ -112,7 +217,7 @@ def run(args: argparse.Namespace) -> Run:
     ctr, cte = ds.classes[tr], ds.classes[te]
 
     scheduler, upstream = variant_setup(args.variant, args.seed)
-    transport = TRANSPORTS[args.transport]()
+    transport = make_transport(args)
     engine = Protocol(SessionConfig(num_classes=ds.num_classes,
                                     max_rounds=args.rounds,
                                     upstream=upstream),
@@ -126,7 +231,7 @@ def run(args: argparse.Namespace) -> Run:
             raise SystemExit("--resume needs --ckpt-dir")
         if os.path.exists(cfg_path):
             with open(cfg_path) as f:
-                saved = json.load(f)
+                saved = {**RUN_DEFAULTS, **json.load(f)}
             if saved != run_cfg:
                 raise SystemExit(f"--resume config mismatch: checkpoint was "
                                  f"written with {saved}, this run is "
@@ -157,16 +262,15 @@ def run(args: argparse.Namespace) -> Run:
         line += f",bits={transport.total_bits}"
     print(line)
     if not paused:
+        # serve only on the terminal run: the checkpoint above snapshots the
+        # channel's spend first, so serving from a paused run would book
+        # bits and DP releases the snapshot misses
         before = (transport.bits_by_kind().get("score_block", 0)
                   if isinstance(transport, MeteredTransport) else 0)
         preds = session.predict_distributed(Xte)
-        serve = (f"serve: acc="
-                 f"{float(torch.mean((preds == cte).to(torch.float32))):.3f}")
-        if isinstance(transport, MeteredTransport):
-            serve += (f",score_block_bits="
-                      f"{transport.bits_by_kind().get('score_block', 0) - before}")
-        print(serve)
-    else:
+        _print_serve(transport, preds, cte, before)
+    _print_comm(transport)
+    if paused:
         print(f"paused after {session.state.round} rounds"
               + ("; rerun with --resume to continue" if args.ckpt_dir
                  else "; nothing was saved (pass --ckpt-dir)"))

@@ -409,16 +409,30 @@ def test_entry_points_raise_without_card(blob):
 
 
 def test_later_slice_arguments_raise(blob):
+    """What later slices of the port bring raises NotImplementedError (the
+    wire channel's codec/privacy/serve_codec arguments are ported, see
+    tests/test_torch_comm_session.py)."""
+    from repro_torch.comm import BudgetedTransport, BudgetSpec
     Xtr, ctr, _, _, k = blob
     cfg = T.SessionConfig(num_classes=k)
     for kwargs in ({"backend": "compiled"}, {"telemetry": object()},
                    {"scenario": object()}):
         with pytest.raises(NotImplementedError):
             T.Protocol(cfg, device=CPU, **kwargs)
-    for kwargs in ({"codec": object()}, {"privacy": object()},
-                   {"controller": object()}, {"serve_codec": object()}):
+    for kwargs in ({"controller": object()}, {"serve_controller": object()}):
         with pytest.raises(NotImplementedError):
             T.MeteredTransport(**kwargs)
+        with pytest.raises(NotImplementedError):
+            BudgetedTransport(BudgetSpec(), **kwargs)
+    for transport in (T.MeteredTransport(), BudgetedTransport(BudgetSpec())):
+        with pytest.raises(NotImplementedError):
+            transport.barrier_release(None, torch.zeros(3))
+        with pytest.raises(NotImplementedError):
+            transport.ship(None, None, torch.zeros(3), T.IgnoranceMsg)
+    with pytest.raises(SystemExit):
+        cli.run(cli.parser().parse_args(["--device", CPU, "--dp-epsilon",
+                                         "1", "--accountant",
+                                         "subsampled-rdp"]))
     with pytest.raises(NotImplementedError):
         T.variant_setup("async")
     with pytest.raises(NotImplementedError):
