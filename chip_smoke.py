@@ -32,6 +32,25 @@
    ledger = wire_bits, the first alpha = phase 5's, the int4 and int8
    codecs' encode -> decode (quantize, pack, unpack) of a real hop's w
    equal their roundtrip within one step; accuracy beside phase 5's.
+8. The model zoo's kernels against their plain versions on the card at
+   qwen3-0.6b's shapes (B 4, H 16, KV 8, D 128), float32 (within 2e-5
+   max|v|) and bfloat16 (within 2^-7 max|v|), with the model's strided
+   layouts: flash attention at S = T = 512, a ragged S = T = 500, a window
+   of 128, right-aligned S 500 < T 512; flash decode against a cache of
+   576 at pos 0, 511, 575, fp and int8, with and without a window.  Times
+   kernel, plain version, bound and F.scaled_dot_product_attention (the
+   library yardstick; a boolean mask for decode).
+9. Full-width serve, qwen3-0.6b (28 layers, bf16, random weights) through
+   ``repro_torch.launch.serve --no-reduced --use_flash``: batch 4, prompt
+   512, 64 tokens, once plain and once with --kv_quant; one flash_attention
+   launch per layer per prefill and one flash_decode launch per layer per
+   decode step.  Then, on the same weights and tokens, teacher-forced
+   against use_flash=False (the einsum attention) with the weights in
+   float32: the float32 flash path within 1e-4 max|logits| (1e-3 with the
+   int8 cache) at every step, and the bf16 flash path no further from it
+   than 1.25 x the bf16 einsum path (two bf16 evaluations of 28 random
+   layers differ by ~4 % of max|logits|, see PERF.md).  Prints prefill ms,
+   decode ms per step, tokens/s and peak device memory.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints one JSON
@@ -55,6 +74,7 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core rate
 SMOKE_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
 
@@ -75,6 +95,8 @@ def _cuda_time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
 def _counters() -> dict:
     """Each kernel of the main path by its JSON name: the wrapper that
     counts its launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ignorance as ig
     from repro_torch.kernels import quantize as q
     return {"ignorance_update_unnormalized": ig.ignorance_update_unnormalized,
@@ -82,13 +104,28 @@ def _counters() -> dict:
             "quantize_dequant_tiles": q.quantize_dequant_tiles,
             "quantize_dequant_block": q.quantize_dequant_block,
             "pack_int4": q.pack_int4,
-            "unpack_int4": q.unpack_int4}
+            "unpack_int4": q.unpack_int4,
+            "flash_attention": fa.flash_attention,
+            "flash_decode": fd.flash_decode}
 
 
-def _bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def _bound_ms(nbytes: int, ops: int,
+              ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _attention_pairs(s: int, t: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of right-aligned attention: the work
+    this input needs."""
+    pairs = 0
+    for i in range(s):
+        row = i + t - s
+        hi = row if causal else t - 1
+        lo = 0 if window is None else max(0, row - window + 1)
+        pairs += max(0, hi - lo + 1)
+    return pairs
 
 
 def _host_time_ms(fn, reps: int = 50) -> float:
@@ -713,6 +750,315 @@ class Smoke:
                 f"encode->decode of a hop's w = roundtrip, within one step "
                 f"(pack/unpack at n={w.numel()})")
 
+    # ------------------------------------------------------- model zoo
+    def flash_vs_plain(self) -> str:
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_decode as fd
+        gen = torch.Generator(device=self.dev).manual_seed(2)
+        b, h, kv, d = 4, 16, 8, 128       # qwen3-0.6b's attention
+        tols = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+        worst, table = {}, []
+
+        def randn(*shape, dtype):
+            return torch.randn(*shape, generator=gen, device=self.dev).to(
+                dtype)
+
+        for dtype, tol in tols.items():
+            for s, t, window in ((512, 512, None), (500, 500, None),
+                                 (512, 512, 128), (500, 512, None)):
+                # the model's layout: [B, S, H, D] seen as [B, H, S, D]
+                q = randn(b, s, h, d, dtype=dtype).transpose(1, 2)
+                k = randn(b, t, kv, d, dtype=dtype).transpose(1, 2)
+                v = randn(b, t, kv, d, dtype=dtype).transpose(1, 2)
+                got = fa.flash_attention(q, k, v, window=window)
+                want = fa.flash_attention_plain(q, k, v, window=window)
+                torch.cuda.synchronize()
+                vmax = float(v.float().abs().max())
+                err = float((got.float() - want.float()).abs().max())
+                self.require(err <= tol * vmax,
+                             f"flash_attention {dtype} S={s} T={t} "
+                             f"window={window}: max err {err} > "
+                             f"{tol} * {vmax}")
+                key = f"attention {str(dtype)[6:]}"
+                worst[key] = max(worst.get(key, 0.0), err / vmax)
+                if dtype == torch.bfloat16 and window is None and s == t:
+                    table.append(self._flash_attention_row(
+                        q, k, v, got, want, F, s == 512))
+        for dtype, tol in tols.items():
+            q = randn(b, h, d, dtype=dtype)
+            for quant in (False, True):
+                if quant:
+                    k, v = (torch.randint(-127, 128, (b, 576, kv, d),
+                                          generator=gen, device=self.dev,
+                                          dtype=torch.int8)
+                            for _ in range(2))
+                    ks, vs = (torch.rand(b, 576, kv, generator=gen,
+                                         device=self.dev) * 0.05
+                              for _ in range(2))
+                    scales = dict(k_scale=ks.transpose(1, 2),
+                                  v_scale=vs.transpose(1, 2))
+                    vmax = float((v.float() * vs[..., None]).abs().max())
+                else:
+                    k = randn(b, 576, kv, d, dtype=dtype)
+                    v = randn(b, 576, kv, d, dtype=dtype)
+                    scales, vmax = {}, float(v.float().abs().max())
+                kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+                for pos in (0, 511, 575):
+                    for window in (None, 128):
+                        got = fd.flash_decode(q, kt, vt, pos, window=window,
+                                              **scales)
+                        want = fd.flash_decode_plain(q, kt, vt, pos,
+                                                     window=window, **scales)
+                        torch.cuda.synchronize()
+                        err = float((got.float() - want.float()).abs().max())
+                        self.require(err <= tol * vmax,
+                                     f"flash_decode {dtype} quant={quant} "
+                                     f"pos={pos} window={window}: max err "
+                                     f"{err} > {tol} * {vmax}")
+                        key = (f"decode {str(dtype)[6:]}"
+                               f"{' int8' if quant else ''}")
+                        worst[key] = max(worst.get(key, 0.0), err / vmax)
+                if dtype == torch.bfloat16:
+                    table.append(self._flash_decode_row(q, kt, vt, scales,
+                                                        F))
+        print("flash_table " + json.dumps(table), flush=True)
+        return ("flash kernels = plain versions at qwen3-0.6b's shapes, max "
+                "err / max|v|: " + ", ".join(f"{k} {v:.3g}"
+                                             for k, v in worst.items())
+                + " (tolerance 2e-5 f32, 2^-7 bf16)")
+
+    def _flash_attention_row(self, q, k, v, got, want, F, main) -> dict:
+        from repro_torch.kernels import flash_attention as fa
+        b, h, s, d = q.shape
+        kv, t = k.shape[1], k.shape[2]
+        ms = _cuda_time_ms(lambda: fa.flash_attention(q, k, v), reps=50)
+        plain_ms = _cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                 reps=10, warmup=2)
+        lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=50)
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        ops_ = 4 * b * h * d * _attention_pairs(s, t, True, None)
+        bound, by = _bound_ms(nbytes, ops_, BF16_OPS_PER_S)
+        row = {"S": s, "T": t, "dtype": "bf16", "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+               "bound_by": by}
+        if main:                 # the serve path's prefill shape
+            self.kernels["flash_attention"] = {
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:106",
+                "max_abs_err": float((got.float() - want.float()).abs()
+                                     .max()),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": by, "library_ms": lib_ms}
+        return row
+
+    def _flash_decode_row(self, q, kt, vt, scales, F) -> dict:
+        """Times at the serve path's last step (pos 575: the whole cache);
+        the fp row is the kernel's JSON row."""
+        torch = self.torch
+        from repro_torch.kernels import flash_decode as fd
+        b, h, d = q.shape
+        kv, s = kt.shape[1], kt.shape[2]
+        pos = s - 1
+        got = fd.flash_decode(q, kt, vt, pos, **scales)
+        want = fd.flash_decode_plain(q, kt, vt, pos, **scales)
+        ms = _cuda_time_ms(lambda: fd.flash_decode(q, kt, vt, pos, **scales))
+        plain_ms = _cuda_time_ms(
+            lambda: fd.flash_decode_plain(q, kt, vt, pos, **scales), reps=50)
+        if scales:   # SDPA on the dequantized copy (made outside the timing)
+            kl = (kt.float() * scales["k_scale"][..., None]).to(q.dtype)
+            vl = (vt.float() * scales["v_scale"][..., None]).to(q.dtype)
+        else:
+            kl, vl = kt, vt
+        mask = (torch.arange(s, device=self.dev) <= pos)[None, None, None]
+        q4 = q[:, :, None]
+        lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kl, vl, attn_mask=mask, enable_gqa=True))
+        valid = pos + 1
+        cache_bytes = 2 * b * kv * valid * d * kt.element_size()
+        if scales:
+            cache_bytes += 2 * b * kv * valid * 4
+        nbytes = 2 * q.numel() * q.element_size() + cache_bytes
+        bound, by = _bound_ms(nbytes, 4 * b * h * valid * d, BF16_OPS_PER_S)
+        row = {"S": s, "pos": pos, "dtype": "bf16",
+               "cache": "int8" if scales else "bf16", "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+               "bound_by": by}
+        if not scales:
+            self.kernels["flash_decode"] = {
+                "source": "src/repro_torch/csrc/flash_decode.cu",
+                "replaces": "src/repro/kernels/flash_decode.py:96",
+                "max_abs_err": float((got.float() - want.float()).abs()
+                                     .max()),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": by, "library_ms": lib_ms}
+        return row
+
+    def serve(self) -> str:
+        torch = self.torch
+        from repro_torch.launch import serve as cli
+        from repro_torch.models import api
+        batch, prompt_len, gen = 4, 512, 64
+        common = ["--arch", "qwen3-0.6b", "--no-reduced", "--use_flash",
+                  "--batch", str(batch), "--prompt_len", str(prompt_len),
+                  "--device", "cuda", "--seed", "0"]
+        argv = common + ["--gen", str(gen)]
+        # warm-up at the same prompt (libraries, cuBLAS plans); not counted
+        warm = cli.run(cli.parser().parse_args(common + ["--gen", "2"]))
+        params, layers, steps = warm.params, warm.cfg.num_layers, gen - 1
+        self.require(warm.cfg.d_model == 1024 and layers == 28
+                     and warm.cfg.dtype == "bfloat16",
+                     f"not qwen3-0.6b at full width: {warm.cfg}")
+        out, runs = [], {}
+        for name, extra in (("fp", []), ("kv_quant", ["--kv_quant"])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.reset_counts()
+            run = cli.run(cli.parser().parse_args(argv + extra), params)
+            self.read_counts(0, f"serve {name}", flash_attention=layers,
+                             flash_decode=layers * steps)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            toks = run.tokens
+            self.require(tuple(toks.shape) == (batch, gen)
+                         and int(toks.min()) >= 0
+                         and int(toks.max()) < run.cfg.vocab_size,
+                         f"serve {name}: tokens {tuple(toks.shape)} out of "
+                         f"range")
+            runs[name] = run
+            out.append(f"[{name}] prefill {run.prefill_s * 1e3:.2f} ms, "
+                       f"decode {run.decode_s * 1e3 / steps:.3f} ms/step, "
+                       f"{steps * batch / run.decode_s:.1f} tok/s, peak "
+                       f"device memory {peak_gib:.3f} GiB; "
+                       f"{run.lines[0]}; {run.lines[1]}")
+        profile = {name: self._profile(api, runs["fp"], quant)
+                   for name, quant in (("fp", False), ("kv_quant", True))}
+        print("serve_profile " + json.dumps(profile), flush=True)
+        errs = {name: self._teacher_forced(api, runs["fp"], quant)
+                for name, quant in (("fp", False), ("kv_quant", True))}
+        return ("qwen3-0.6b full width (28 layers, bf16, 596049920 params) "
+                f"batch {batch} prompt {prompt_len} gen {gen} --use_flash: "
+                + "; ".join(out) + "; teacher-forced, worst max|dlogits| / "
+                "max|logits| against the float32 einsum path (use_flash="
+                "False): " + "; ".join(
+                    f"[{name}] " + ", ".join(f"{k} {v:.4g}"
+                                             for k, v in e.items())
+                    for name, e in errs.items()))
+
+    def _profile(self, api, run, quant: bool, steps: int = 8) -> dict:
+        """torch.profiler over one prefill and ``steps`` decode steps of the
+        flash path on one run's weights and tokens: wall ms (host clock,
+        under the profiler), the device's kernel and copy ms, its idle
+        share, and the top kernels by device time, for each window."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        cfg, params = run.cfg, run.params
+        s = run.prompt.shape[1]
+        out, caches = {}, None
+
+        def prefill():
+            nonlocal caches
+            _, c = api.make_prefill_step(cfg)(params, {"tokens": run.prompt})
+            c = api.pad_prefill_cache(c, cfg, s + run.tokens.shape[1])
+            caches = api.quantize_cache(c, cfg) if quant else c
+
+        def decode():
+            for i in range(steps):
+                api.decode_step(params, caches, run.tokens[:, i:i + 1], s + i,
+                                cfg)
+
+        for window, fn in (("prefill", prefill), (f"decode x{steps}", decode)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            dev = {}     # the device's own events: kernels and copies
+            for evt in prof.key_averages():
+                if evt.device_type != DeviceType.CUDA:
+                    continue
+                us = getattr(evt, "self_device_time_total", None)
+                if us is None:
+                    us = evt.self_cuda_time_total
+                dev[evt.key] = dev.get(evt.key, 0.0) + us / 1e3
+            busy = sum(dev.values())
+            top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+            out[window] = {
+                "wall_ms": wall_ms,
+                "device_ms": busy if dev else "not measured",
+                "idle_share": 1 - busy / wall_ms if dev else "not measured",
+                "top": [[k[:70], v] for k, v in top]}
+        return out
+
+    def _teacher_forced(self, api, run, quant: bool) -> dict:
+        """One run's weights, prompt and continuation through four paths:
+        the flash kernels and the einsum attention (use_flash=False), each
+        in bf16 and with the weights in float32.  Prefill, then every
+        decode step fed the same token.  The float32 einsum path is the
+        reference: the float32 flash path must be within 1e-4 max|logits|
+        of it (1e-3 with the int8 cache, whose values at a rounding
+        boundary follow ulps of K), and the bf16 flash path no further
+        from it than 1.25 times the bf16 einsum path.  Returns the worst
+        max|dlogits| / max|logits| of each comparison."""
+        torch = self.torch
+        batch, s = run.prompt.shape
+        s_cache = s + run.tokens.shape[1]
+
+        def up(tree):
+            return {k: up(v) if isinstance(v, dict) else v.float()
+                    for k, v in tree.items()}
+
+        cfg, p32 = run.cfg, up(run.params)
+        paths = {"flash_bf16": (cfg, run.params),
+                 "einsum_bf16": (cfg.with_overrides(use_flash=False),
+                                 run.params),
+                 "flash_f32": (cfg.with_overrides(dtype="float32"), p32),
+                 "einsum_f32": (cfg.with_overrides(use_flash=False,
+                                                   dtype="float32"), p32)}
+        f32_bound = 1e-3 if quant else 1e-4
+        worst = {"flash_f32": 0.0, "flash_bf16": 0.0, "einsum_bf16": 0.0,
+                 "flash_vs_einsum_bf16": 0.0}
+
+        def rel(a, b):
+            return float((a.float() - b.float()).abs().max()
+                         / b.float().abs().max())
+
+        def check(out, where):
+            ref = out["einsum_f32"]
+            err = {n: rel(out[n], ref)
+                   for n in ("flash_f32", "flash_bf16", "einsum_bf16")}
+            err["flash_vs_einsum_bf16"] = rel(out["flash_bf16"],
+                                              out["einsum_bf16"])
+            tag = f"teacher-forced {where} quant={quant}"
+            self.require(all(math.isfinite(e) for e in err.values()),
+                         f"{tag}: non-finite logits {err}")
+            self.require(err["flash_f32"] <= f32_bound,
+                         f"{tag}: float32 flash path {err['flash_f32']} > "
+                         f"{f32_bound} max|logits| from the einsum path")
+            self.require(err["flash_bf16"] <= 1.25 * err["einsum_bf16"],
+                         f"{tag}: bf16 flash path {err['flash_bf16']} from "
+                         f"float32 > 1.25 x the bf16 einsum path's "
+                         f"{err['einsum_bf16']}")
+            for n, e in err.items():
+                worst[n] = max(worst[n], e)
+
+        caches, out = {}, {}
+        for name, (c, p) in paths.items():
+            lg, cache, _ = api.forward(p, {"tokens": run.prompt}, c)
+            cache = api.pad_prefill_cache(cache, c, s_cache)
+            caches[name] = api.quantize_cache(cache, c) if quant else cache
+            out[name] = lg
+        check(out, "prefill")
+        del out
+        for i in range(run.tokens.shape[1] - 1):
+            tok = run.tokens[:, i:i + 1]
+            check({name: api.decode_step(p, caches[name], tok, s + i, c)[0]
+                   for name, (c, p) in paths.items()}, f"step {i}")
+        return worst
 
 def main() -> int:
     import torch
@@ -736,6 +1082,8 @@ def main() -> int:
     s.phase(5, s.fashion)
     s.phase(6, s.mimic_channel)
     s.phase(7, s.fashion_channel)
+    s.phase(8, s.flash_vs_plain)
+    s.phase(9, s.serve)
     if s.failed:
         print(f"chip_smoke: failed {s.failed}", file=sys.stderr)
         return 1

@@ -8,7 +8,8 @@ reference fitted.  A session checkpointed mid-run with a wire channel comes
 with its per-link top-k residuals (``codec_state``) and its budget spend
 and DP release counts (``comm``), which ``Protocol.resume_state`` restores
 onto the port's transport.  ``params_from_numpy`` converts one learner's fitted
-params the same way.
+params the same way, and ``model_params_from_numpy`` a model-zoo parameter
+tree (the serve path's weights).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import SessionState
 from repro_torch.device import resolve_device
 from repro_torch.learners.base import Learner
@@ -48,3 +50,46 @@ def state_from_reference(directory: str, step: int | None = None, *,
         raise ValueError(f"expected a float32 ignorance vector, got "
                          f"{state.w.dtype} {tuple(state.w.shape)}")
     return state
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a tensor; bfloat16 arrays (the ``ml_dtypes`` type
+    JAX hands to numpy) are carried over bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.uint16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def model_params_from_numpy(cfg: ArchConfig, params: Mapping, *,
+                            device: str | torch.device = "cuda") -> dict:
+    """The JAX package's model parameter tree (``repro.models.api
+    .init_params``; leaves as numpy arrays, per-layer leaves stacked on
+    axis 0 as its ``scan`` lays them out) as the port's parameters on
+    ``device``, in ``cfg.dtype``.  The tree must match the port's for
+    ``cfg`` leaf for leaf, with the same shapes."""
+    from repro_torch.models import transformer
+    want = transformer.init_params(cfg)          # shapes only (meta)
+    dtype = transformer.DTYPES[cfg.dtype]
+    dev = resolve_device(device)
+
+    def walk(w: Mapping, got: Mapping, path: str) -> dict:
+        if not isinstance(got, Mapping) or set(got) != set(w):
+            keys = sorted(got) if isinstance(got, Mapping) else type(got)
+            raise ValueError(f"{path or 'params'}: expected keys "
+                             f"{sorted(w)}, got {keys}")
+        out = {}
+        for k, v in w.items():
+            where = f"{path}/{k}"
+            if isinstance(v, dict):
+                out[k] = walk(v, got[k], where)
+                continue
+            t = _tensor(got[k])
+            if tuple(t.shape) != tuple(v.shape):
+                raise ValueError(f"{where}: expected shape {tuple(v.shape)}, "
+                                 f"got {tuple(t.shape)}")
+            out[k] = t.to(device=dev, dtype=dtype)
+        return out
+
+    return walk(want, params, "")

@@ -1,15 +1,17 @@
 """Public wrappers for the port's kernels.
 
 Counterpart of ``repro/kernels/ops.py``.  Ported so far: the ignorance
-update and the four wire-codec kernels (quantize-dequant for vectors and
-score blocks, int4 pack and unpack); the weighted-CE and flash kernels are
-still to be ported (see ROADMAP.md).  Each runs its CUDA kernel for CUDA
-tensors and its plain version for CPU tensors.
+update, the four wire-codec kernels (quantize-dequant for vectors and
+score blocks, int4 pack and unpack), flash attention and flash decode; the
+weighted-CE kernels are still to be ported (see ROADMAP.md).  Each runs its
+CUDA kernel for CUDA tensors and its plain version for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ignorance as _ig
 from repro_torch.kernels import quantize as _q
 
@@ -45,3 +47,23 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
 def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of :func:`pack_int4`: n int8-carried int4 values (flat)."""
     return _q.unpack_int4(packed, n)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Blocked online-softmax attention: q [B, H, S, D] against k/v
+    [B, KV, T, D] (GQA, queries right-aligned), causal and with an optional
+    sliding window; returns [B, H, S, D]."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
+                 k_scale: torch.Tensor | None = None,
+                 v_scale: torch.Tensor | None = None,
+                 window: int | None = None) -> torch.Tensor:
+    """Single-row attention of q [B, H, D] against positions <= pos of a
+    [B, KV, S, D] cache (int8 with [B, KV, S] scales when given); returns
+    [B, H, D]."""
+    return _fd.flash_decode(q, k, v, pos, k_scale=k_scale, v_scale=v_scale,
+                            window=window)

@@ -131,7 +131,7 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _on_card(x: torch.Tensor, what: str) -> bool:
+def on_card(x: torch.Tensor, what: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if x.device.type == "cpu":
         return False
@@ -184,7 +184,7 @@ def quantize_dequant_tiles(x: torch.Tensor, u: torch.Tensor, qmax, *,
     n = x.shape[0]
     _check("x", x, torch.float32, (n,), x.device)
     _check("u", u, torch.float32, (n,), x.device)
-    if not _on_card(x, "quantize"):
+    if not on_card(x, "quantize"):
         return quantize_dequant_plain(x, u, qmax, bn)
     out = _launch_quantize(x, u, qmax, tile_for(n, bn))
     quantize_dequant_tiles.launches += 1
@@ -206,7 +206,7 @@ def quantize_dequant_block(x: torch.Tensor, u: torch.Tensor, qmax, *,
     n, k = x.shape
     _check("x", x, torch.float32, (n, k), x.device)
     _check("u", u, torch.float32, (n, k), x.device)
-    if not _on_card(x, "quantize"):
+    if not on_card(x, "quantize"):
         return quantize_dequant_block_plain(x, u, qmax, bn)
     xhat, q, scales = _launch_quantize(x, u, qmax, rows_for(n, k, bn) * k)
     quantize_dequant_block.launches += 1
@@ -222,7 +222,7 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
     if q.numel() < 1:
         raise ValueError("pack_int4 needs at least one value")
     _check("q", q, torch.int8, tuple(q.shape), q.device)
-    if not _on_card(q, "pack_int4"):
+    if not on_card(q, "pack_int4"):
         return pack_int4_plain(q)
     m = q.numel()
     packed = torch.empty((m + 1) // 2, dtype=torch.int8, device=q.device)
@@ -247,7 +247,7 @@ def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
         raise ValueError(f"{tuple(packed.shape)} packed bytes cannot hold "
                          f"{n} int4 values")
     _check("packed", packed, torch.int8, tuple(packed.shape), packed.device)
-    if not _on_card(packed, "unpack_int4"):
+    if not on_card(packed, "unpack_int4"):
         return unpack_int4_plain(packed, n)
     q = torch.empty(n, dtype=torch.int8, device=packed.device)
     stream = torch.cuda.current_stream(packed.device).cuda_stream
