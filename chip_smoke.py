@@ -51,6 +51,24 @@
    than 1.25 x the bf16 einsum path (two bf16 evaluations of 28 random
    layers differ by ~4 % of max|logits|, see PERF.md).  Prints prefill ms,
    decode ms per step, tokens/s and peak device memory.
+10. The weighted-CE kernels against their plain versions on the card:
+   qwen3-0.6b's training logits [8, 256, 151936] bf16 and the 100m
+   preset's [8, 256, 32000] float32, handed over as the loss hands them
+   (B * S rows, weight 0 at each last position), and the ragged (2040,
+   1000) and (7, 3) in both dtypes: loss and lse within rtol 1e-5,
+   dlogits within 2^-7 max|dlogits| (bf16) and 1e-5 max|dlogits|
+   (float32), two runs the same bits.  Prints ``ce_table``: kernel, plain
+   version, F.cross_entropy (forward; backward through autograd) and bound
+   ms at the two training shapes.
+11. Full-width training, qwen3-0.6b (28 layers, bf16, 596049920 params,
+   random weights) through ``repro_torch.launch.train``: batch 8, seq 256,
+   20 steps; every loss finite, one launch of each weighted-CE kernel per
+   step; prints step ms, tokens/s, peak device memory, loss first -> last
+   and a ``train_profile`` line (torch.profiler over two steps).  On the
+   trained weights and a fresh batch, the kernel loss and its gradients
+   against the plain loss's on the same logits (loss rtol 1e-5, global
+   gradient norm rtol 1e-2).  Then ``--preset 100m --steps 300`` (float32,
+   the reference example's run): its loss falls.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints one JSON
@@ -65,6 +83,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -99,6 +118,7 @@ def _counters() -> dict:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ignorance as ig
     from repro_torch.kernels import quantize as q
+    from repro_torch.kernels import weighted_ce as wce
     return {"ignorance_update_unnormalized": ig.ignorance_update_unnormalized,
             "ignorance_normalize": ig.normalize_,
             "quantize_dequant_tiles": q.quantize_dequant_tiles,
@@ -106,7 +126,9 @@ def _counters() -> dict:
             "pack_int4": q.pack_int4,
             "unpack_int4": q.unpack_int4,
             "flash_attention": fa.flash_attention,
-            "flash_decode": fd.flash_decode}
+            "flash_decode": fd.flash_decode,
+            "weighted_ce_fwd": wce.weighted_ce_fwd,
+            "weighted_ce_bwd": wce.weighted_ce_bwd}
 
 
 def _bound_ms(nbytes: int, ops: int,
@@ -140,10 +162,87 @@ def _host_time_ms(fn, reps: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+KINDS = (("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
+         ("weighted_ce", ("wce_",)), ("flash", ("flash_",)),
+         ("copy/cast", ("copy", "Memcpy", "Memset")),
+         ("softmax", ("softmax",)), ("reduce", ("reduce",)),
+         ("index/scatter", ("index", "scatter", "gather", "embedding")),
+         ("elementwise", ("elementwise",)))
+
+
+def _kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k.lower() in low for k in keys):
+            return kind
+    return "other"
+
+
+def _device_profile(fn, top: int = 8) -> dict:
+    """torch.profiler around ``fn()`` ending in a synchronize: wall ms (host
+    clock, under the profiler), the device's kernel and copy ms, its idle
+    share, the ``top`` kernels by device time, and the device ms by kind
+    of kernel (GEMMs, copies and casts, elementwise, ...)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = {}     # the device's own events: kernels and copies
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        dev[evt.key] = dev.get(evt.key, 0.0) + us / 1e3
+    busy = sum(dev.values())
+    ranked = sorted(dev.items(), key=lambda kv: -kv[1])[:top]
+    kinds: dict = {}
+    for name, ms in dev.items():
+        kinds[_kind_of(name)] = kinds.get(_kind_of(name), 0.0) + ms
+    return {"wall_ms": wall_ms,
+            "device_ms": busy if dev else "not measured",
+            "idle_share": 1 - busy / wall_ms if dev else "not measured",
+            "by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+            "top": [[k[:70], v] for k, v in ranked]}
+
+
 def _max_rel(a, b) -> float:
     import torch
     denom = torch.clamp(b.abs(), min=1e-30)
     return float(((a - b).abs() / denom).max())
+
+
+def _dlogits_ratios(d, pd, w, g) -> tuple[float, float]:
+    """The backward kernel's dlogits against the plain version's, as
+    ratios to their tolerances (each must be <= 1):
+
+    - element by element, |d - pd| <= rtol |pd| + 1e-3 |w g| / V, with
+      rtol 2^-7 in bf16 (both round the same float32 value, so they differ
+      by at most one bf16 ulp, <= 2^-7 of either) and 1e-5 in float32;
+      the atol is a thousandth of a typical entry |w g| / V;
+    - each row's sum, which is w g (sum p - 1) = 0: |sum_v d| <= stol |w g|,
+      with stol 2^-7 in bf16 (each of the entries, whose magnitudes sum to
+      at most 2 |w g|, rounds by at most 2^-8 of itself) and 1e-5 in
+      float32.  A kernel that drops small probabilities, or an lse that
+      is off, moves the row sum."""
+    import torch
+    bf16 = d.dtype == torch.bfloat16
+    rtol = 2.0 ** -7 if bf16 else 1e-5
+    wg = (w.float() * g.float()).abs()[:, None]
+    tiny = torch.finfo(torch.float32).tiny
+    pdf = pd.float()
+    bound = rtol * pdf.abs() + 1e-3 * wg / d.shape[1]
+    elem = float(((d.float() - pdf).abs() / bound.clamp(min=tiny)).max())
+    rows = d.double().sum(dim=1).abs()
+    row = float((rows / (rtol * wg[:, 0].double()).clamp(min=tiny)).max())
+    return elem, row
 
 
 class Smoke:
@@ -157,9 +256,11 @@ class Smoke:
         self.fashion_fp32 = None       # phase 5's data and accuracy
 
     def phase(self, num: int, fn) -> None:
+        t0 = time.perf_counter()
         try:
             line = fn()
-            print(f"phase {num} ok: {line}", flush=True)
+            print(f"phase {num} ok ({time.perf_counter() - t0:.1f} s): "
+                  f"{line}", flush=True)
         except Exception as e:  # report and go on: every phase runs
             traceback.print_exc()
             self.failed.append(f"phase {num}")
@@ -951,9 +1052,6 @@ class Smoke:
         flash path on one run's weights and tokens: wall ms (host clock,
         under the profiler), the device's kernel and copy ms, its idle
         share, and the top kernels by device time, for each window."""
-        torch = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         cfg, params = run.cfg, run.params
         s = run.prompt.shape[1]
         out, caches = {}, None
@@ -970,28 +1068,7 @@ class Smoke:
                                 cfg)
 
         for window, fn in (("prefill", prefill), (f"decode x{steps}", decode)):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            dev = {}     # the device's own events: kernels and copies
-            for evt in prof.key_averages():
-                if evt.device_type != DeviceType.CUDA:
-                    continue
-                us = getattr(evt, "self_device_time_total", None)
-                if us is None:
-                    us = evt.self_cuda_time_total
-                dev[evt.key] = dev.get(evt.key, 0.0) + us / 1e3
-            busy = sum(dev.values())
-            top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-            out[window] = {
-                "wall_ms": wall_ms,
-                "device_ms": busy if dev else "not measured",
-                "idle_share": 1 - busy / wall_ms if dev else "not measured",
-                "top": [[k[:70], v] for k, v in top]}
+            out[window] = _device_profile(fn)
         return out
 
     def _teacher_forced(self, api, run, quant: bool) -> dict:
@@ -1060,6 +1137,305 @@ class Smoke:
                    for name, (c, p) in paths.items()}, f"step {i}")
         return worst
 
+    # ------------------------------------------------------ weighted CE
+    def ce_vs_plain(self) -> str:
+        torch = self.torch
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.data.synthetic import token_stream
+        from repro_torch.kernels import weighted_ce as wce
+        from repro_torch.launch.train import PRESETS
+        from repro_torch.models import api
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+        host = torch.Generator().manual_seed(3)
+        cases = []
+        # the training path's rows: [B, S, V] logits as the loss hands them
+        for name, cfg in (("qwen3-0.6b", ARCHS["qwen3-0.6b"]),
+                          ("100m", PRESETS["100m"])):
+            b, s, v = 8, 256, cfg.vocab_size
+            dtype = getattr(torch, cfg.dtype)
+            logits = (torch.randn(b, s, v, generator=gen, device=self.dev)
+                      * 2).to(dtype)
+            batch = {"tokens": token_stream(host, vocab_size=v, batch=b,
+                                            seq_len=s, device=self.dev),
+                     "sample_weight": torch.rand(b, generator=gen,
+                                                 device=self.dev) + 0.5}
+            cases.append((name, *api.next_token_rows(logits, batch, cfg)))
+        for t, v in ((2040, 1000), (7, 3)):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn(t, v, generator=gen, device=self.dev)
+                     * 3).to(dtype)
+                lab = torch.randint(0, v, (t,), generator=gen,
+                                    device=self.dev, dtype=torch.int32)
+                w = torch.rand(t, generator=gen, device=self.dev)
+                w[::5] = 0.0
+                cases.append((f"{t}x{v} {str(dtype)[6:]}", x, lab, w))
+        worst, table = {}, []
+        for name, x, lab, w in cases:
+            g = torch.full_like(w, 1.0 / float(w.sum()))  # the loss's g
+            loss, lse = wce.weighted_ce_fwd(x, lab, w)
+            ploss, plse = wce.weighted_ce_fwd_plain(x, lab, w)
+            d = wce.weighted_ce_bwd(x, lab, w, lse, g)
+            pd = wce.weighted_ce_bwd_plain(x, lab, w, lse, g)
+            torch.cuda.synchronize()
+            rel = max(float(((a - p).abs() / (1e-5 * p.abs() + 1e-6)).max())
+                      for a, p in ((loss, ploss), (lse, plse)))
+            self.require(rel <= 1.0, f"weighted_ce_fwd {name}: loss or lse "
+                         f"beyond rtol 1e-5 (+ atol 1e-6) of the plain "
+                         f"version (ratio {rel})")
+            elem, row = _dlogits_ratios(d, pd, w, g)
+            self.require(elem <= 1.0 and row <= 1.0,
+                         f"weighted_ce_bwd {name}: dlogits beyond the plain "
+                         f"version's by {elem} of the element tolerance, "
+                         f"row sums {row} of theirs")
+            again = wce.weighted_ce_fwd(x, lab, w)
+            self.require(torch.equal(again[0], loss)
+                         and torch.equal(again[1], lse)
+                         and torch.equal(wce.weighted_ce_bwd(x, lab, w, lse,
+                                                             g), d),
+                         f"weighted_ce {name}: two runs differ")
+            worst[name] = (float(((loss - ploss).abs()
+                                  / ploss.abs().clamp(min=1e-30)).max()),
+                           elem, row)
+            if name in ("qwen3-0.6b", "100m"):
+                table.append(self._ce_row(name, x, lab, w, g, loss, ploss,
+                                          d, pd))
+        print("ce_table " + json.dumps(table), flush=True)
+        return ("weighted_ce kernels = plain versions, two runs identical; "
+                "max rel err loss, dlogits element and row-sum errors as "
+                "shares of their tolerances: "
+                + ", ".join(f"{k} {a:.3g} {b:.3g} {c:.3g}"
+                            for k, (a, b, c) in worst.items())
+                + " (loss rtol 1e-5; dlogits rtol 2^-7 bf16, 1e-5 f32, "
+                "per element, row sums 0 within the same share of |w g|)")
+
+    def _ce_row(self, name, x, lab, w, g, loss, ploss, d, pd) -> dict:
+        """Times at a training shape: both kernels, their plain versions,
+        F.cross_entropy (reduction='none') forward, its backward through
+        autograd (the graph kept), and both together; the qwen3 row is the
+        kernels' JSON rows."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import weighted_ce as wce
+        t, v = x.shape
+        lse = wce.weighted_ce_fwd(x, lab, w)[1]
+        fwd_ms = _cuda_time_ms(lambda: wce.weighted_ce_fwd(x, lab, w),
+                               reps=50)
+        bwd_ms = _cuda_time_ms(lambda: wce.weighted_ce_bwd(x, lab, w, lse, g),
+                               reps=50)
+        pfwd_ms = _cuda_time_ms(lambda: wce.weighted_ce_fwd_plain(x, lab, w),
+                                reps=10, warmup=2)
+        pbwd_ms = _cuda_time_ms(
+            lambda: wce.weighted_ce_bwd_plain(x, lab, w, lse, g), reps=10,
+            warmup=2)
+        lab64 = lab.long()
+        xg = x.detach().requires_grad_(True)
+        lib_fwd = _cuda_time_ms(lambda: F.cross_entropy(
+            xg.detach(), lab64, reduction="none"), reps=50)
+        nll = F.cross_entropy(xg, lab64, reduction="none")
+        lib_bwd = _cuda_time_ms(lambda: torch.autograd.grad(
+            nll, xg, g, retain_graph=True), reps=50)
+        del nll
+
+        def both():
+            torch.autograd.grad(F.cross_entropy(xg, lab64, reduction="none"),
+                                xg, g)
+        lib_both = _cuda_time_ms(both, reps=50)
+        esize = x.element_size()
+        b_fwd, by_fwd = _bound_ms(t * v * esize + 16 * t, 4 * t * v)
+        b_bwd, by_bwd = _bound_ms(2 * t * v * esize + 16 * t, 4 * t * v)
+        row = {"shape": name, "T": t, "V": v, "dtype": str(x.dtype)[6:],
+               "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": pfwd_ms,
+               "plain_bwd_ms": pbwd_ms, "cross_entropy_fwd_ms": lib_fwd,
+               "cross_entropy_bwd_ms": lib_bwd,
+               "cross_entropy_fwd_bwd_ms": lib_both, "fwd_bound_ms": b_fwd,
+               "bwd_bound_ms": b_bwd, "bound_by": by_fwd}
+        if name == "qwen3-0.6b":     # the training path's main shape
+            self.kernels["weighted_ce_fwd"] = {
+                "source": "src/repro_torch/csrc/weighted_ce.cu",
+                "replaces": "src/repro/kernels/weighted_ce.py:68",
+                "max_abs_err": float((loss - ploss).abs().max()),
+                "ms": fwd_ms, "plain_ms": pfwd_ms, "bound_ms": b_fwd,
+                "bound_by": by_fwd, "library_ms": lib_fwd}
+            self.kernels["weighted_ce_bwd"] = {
+                "source": "src/repro_torch/csrc/weighted_ce.cu",
+                "replaces": "src/repro/kernels/weighted_ce.py:113",
+                "max_abs_err": float((d.float() - pd.float()).abs().max()),
+                "ms": bwd_ms, "plain_ms": pbwd_ms, "bound_ms": b_bwd,
+                "bound_by": by_bwd, "library_ms": lib_bwd}
+        return row
+
+    # ------------------------------------------------------------ train
+    def train(self) -> str:
+        torch = self.torch
+        from repro_torch.launch import train as cli
+        from repro_torch.models import api
+        steps = 20
+        torch.cuda.synchronize()
+        self.reset_counts()
+        run = cli.run(cli.parser().parse_args(
+            ["--arch", "qwen3-0.6b", "--steps", str(steps), "--device",
+             "cuda", "--seed", "0"]))
+        self.read_counts(0, "train qwen3-0.6b", weighted_ce_fwd=steps,
+                         weighted_ce_bwd=steps)
+        cfg = run.cfg
+        n_params = api.count_params(run.params)
+        self.require(cfg.num_layers == 28 and cfg.d_model == 1024
+                     and cfg.dtype == "bfloat16" and n_params == 596049920,
+                     f"not qwen3-0.6b at full width: {cfg}, {n_params}")
+        losses = [h["loss"] for h in run.history]
+        self.require(len(losses) == steps
+                     and all(math.isfinite(x) for x in losses),
+                     f"train qwen3-0.6b: losses {losses}")
+        median_ms = statistics.median(run.step_s[1:]) * 1e3
+        tokens = 8 * 256
+        out = (f"qwen3-0.6b full width (28 layers, bf16, {n_params} params) "
+               f"batch 8 seq 256, {steps} steps: step {median_ms:.2f} ms "
+               f"(median after the first; first {run.step_s[0] * 1e3:.1f} "
+               f"ms), {tokens / median_ms * 1e3:.1f} tokens/s, peak device "
+               f"memory {run.peak_bytes / 2 ** 30:.3f} GiB, loss "
+               f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        print("train_profile " + json.dumps(self._train_profile(run)),
+              flush=True)
+        out += "; " + self._kernel_vs_plain_step(run)
+        self.reset_counts()
+        pre = cli.run(cli.parser().parse_args(
+            ["--preset", "100m", "--steps", "300", "--device", "cuda",
+             "--seed", "0"]))
+        self.read_counts(0, "train 100m", weighted_ce_fwd=300,
+                         weighted_ce_bwd=300)
+        first, last = pre.history[0]["loss"], pre.history[-1]["loss"]
+        self.require(all(math.isfinite(h["loss"]) for h in pre.history)
+                     and last < first,
+                     f"100m preset: loss {first} -> {last} did not fall")
+        pre_ms = statistics.median(pre.step_s[1:]) * 1e3
+        return (out + f"; 100m preset (float32, {api.count_params(pre.params)}"
+                f" params) 300 steps: loss {first:.4f} -> {last:.4f} "
+                f"(improved), step {pre_ms:.2f} ms, "
+                f"{tokens / pre_ms * 1e3:.1f} tokens/s, peak "
+                f"{pre.peak_bytes / 2 ** 30:.3f} GiB")
+
+    def _train_batch(self, cfg, seed: int) -> dict:
+        torch = self.torch
+        from repro_torch.data.synthetic import token_stream
+        gen = torch.Generator().manual_seed(seed)
+        return {"tokens": token_stream(gen, vocab_size=cfg.vocab_size,
+                                       batch=8, seq_len=256, device=self.dev),
+                "sample_weight": (torch.rand(8, generator=gen)
+                                  + 0.5).to(self.dev)}
+
+    def _train_profile(self, run) -> dict:
+        """torch.profiler on the run's weights (the CLI's optimizer): two
+        whole train steps, then one step's forward + backward and its
+        optimizer update alone; for each, wall and device ms, idle share,
+        device ms by kind, top kernels."""
+        from repro_torch.models import api
+        from repro_torch.optim.optimizers import adamw
+        from repro_torch.optim.schedules import cosine_with_warmup
+        opt = adamw(cosine_with_warmup(3e-4, 5, 20), weight_decay=0.01,
+                    grad_clip_norm=1.0)
+        step = api.make_train_step(run.cfg, opt)
+        batch = self._train_batch(run.cfg, 7)
+        state = {"p": run.params, "s": opt.init(run.params)}
+
+        def two_steps():
+            for i in range(2):
+                state["p"], state["s"], _ = step(state["p"], state["s"],
+                                                 batch, 10 + i)
+
+        def fwd_bwd():
+            state["g"] = api.loss_and_grads(state["p"], batch, run.cfg)[1]
+
+        def update():
+            opt.update(state["g"], state["s"], state["p"], 12)
+
+        two_steps()                      # warm: the optimizer's first use
+        return {"two steps": _device_profile(two_steps, top=12),
+                "forward+backward": _device_profile(fwd_bwd),
+                "optimizer update": _device_profile(update)}
+
+    def _step_pair(self, cfg, params, batch) -> dict:
+        """One forward of the train step, then its loss and gradients
+        through the kernels and through the plain versions on the same
+        logits: the losses, the logits' gradients as phase 10's ratios to
+        their tolerances, and the whole gradient's and the worst leaf's
+        relative L2 error and the two global norms."""
+        torch = self.torch
+        from repro_torch.kernels import weighted_ce as wce
+        from repro_torch.models import api
+        from repro_torch.optim.optimizers import tree_leaves
+        loss_k, grads_k, _, logits, leaves = api.loss_and_grads(
+            params, batch, cfg, retain_graph=True)
+        dl_k = torch.autograd.grad(loss_k, logits, retain_graph=True)[0]
+        rows, lab, w = api.next_token_rows(logits, batch, cfg)
+        loss_p = (wce.weighted_ce_fwd_plain(rows, lab, w)[0].sum()
+                  / w.sum().clamp(min=1e-9))
+        dl_p = torch.autograd.grad(loss_p, logits, retain_graph=True)[0]
+        grads_p = torch.autograd.grad(loss_p, leaves)
+        v = logits.shape[-1]
+        g = torch.full_like(w, 1.0 / max(float(w.sum()), 1e-9))
+        elem, row = _dlogits_ratios(dl_k.reshape(-1, v), dl_p.reshape(-1, v),
+                                    w, g)
+        del dl_k, dl_p, logits, leaves
+        sq_k = sq_p = sq_d = 0.0
+        leaf = 0.0
+        for gk, gp in zip(tree_leaves(grads_k), grads_p):
+            gk, gp = gk.double(), gp.double()
+            dk, dp, dd = (float(torch.sum(a * a))
+                          for a in (gk, gp, gk - gp))
+            sq_k, sq_p, sq_d = sq_k + dk, sq_p + dp, sq_d + dd
+            leaf = max(leaf, math.sqrt(dd / max(dp, 1e-300)))
+        return {"loss": (float(loss_k.detach()), float(loss_p.detach())),
+                "dlogits": (elem, row),
+                "norm": (math.sqrt(sq_k), math.sqrt(sq_p)),
+                "whole": math.sqrt(sq_d / sq_p), "leaf": leaf}
+
+    def _kernel_vs_plain_step(self, run) -> str:
+        """One step's loss and gradients on the run's weights and a fresh
+        batch: the loss through the kernels (the train step's) against the
+        plain versions' on the same logits.
+
+        The two paths differ only in the logits' gradient, held per element
+        by phase 10's rule; the rest of the backward is the same code.  In
+        bf16 (the run's weights) the loss is held to rtol 1e-5, the global
+        gradient norm to 1e-3, and the whole gradient's and each leaf's
+        relative L2 error to 2^-5: the bf16 roundings of a 28-layer
+        backward turn an ulp of difference in the logits' gradient into
+        about 1 % in the leaves.  So the same weights are also cast to
+        float32, where those roundings are 2^16 times finer, and there
+        the whole gradient and each leaf are held to 1e-4."""
+        torch = self.torch
+        from repro_torch.optim.optimizers import tree_map
+        batch = self._train_batch(run.cfg, 11)
+        out = []
+        for dtype, grad_tol in (("bfloat16", 2.0 ** -5), ("float32", 1e-4)):
+            cfg = run.cfg.with_overrides(dtype=dtype)
+            params = tree_map(lambda p: p.detach().to(getattr(torch, dtype)),
+                              run.params)
+            r = self._step_pair(cfg, params, batch)
+            del params
+            (lk, lp), (nk, np_) = r["loss"], r["norm"]
+            self.require(abs(lk - lp) <= 1e-5 * abs(lp),
+                         f"{dtype}: kernel loss {lk} != plain {lp} "
+                         f"(rtol 1e-5)")
+            self.require(abs(nk - np_) <= 1e-3 * np_,
+                         f"{dtype}: kernel grad norm {nk} != plain {np_} "
+                         f"(rtol 1e-3)")
+            self.require(max(r["dlogits"]) <= 1.0,
+                         f"{dtype}: the logits' gradient beyond phase 10's "
+                         f"rule: {r['dlogits']}")
+            self.require(r["whole"] <= grad_tol and r["leaf"] <= grad_tol,
+                         f"{dtype}: kernel gradients != plain: relative "
+                         f"error {r['whole']}, worst leaf {r['leaf']} "
+                         f"(tolerance {grad_tol:.3g})")
+            out.append(f"[{dtype}] loss {lk:.6f} vs {lp:.6f}, grad norm "
+                       f"{nk:.6g} vs {np_:.6g}, dlogits element / row-sum "
+                       f"shares {r['dlogits'][0]:.3g} / "
+                       f"{r['dlogits'][1]:.3g}, gradient relative error "
+                       f"{r['whole']:.3g}, worst leaf {r['leaf']:.3g} "
+                       f"(tolerance {grad_tol:.3g})")
+        return "kernel step = plain step on the same logits: " + "; ".join(out)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1084,6 +1460,8 @@ def main() -> int:
     s.phase(7, s.fashion_channel)
     s.phase(8, s.flash_vs_plain)
     s.phase(9, s.serve)
+    s.phase(10, s.ce_vs_plain)
+    s.phase(11, s.train)
     if s.failed:
         print(f"chip_smoke: failed {s.failed}", file=sys.stderr)
         return 1

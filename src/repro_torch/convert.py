@@ -8,8 +8,10 @@ reference fitted.  A session checkpointed mid-run with a wire channel comes
 with its per-link top-k residuals (``codec_state``) and its budget spend
 and DP release counts (``comm``), which ``Protocol.resume_state`` restores
 onto the port's transport.  ``params_from_numpy`` converts one learner's fitted
-params the same way, and ``model_params_from_numpy`` a model-zoo parameter
-tree (the serve path's weights).
+params the same way, ``model_params_from_numpy`` a model-zoo parameter
+tree (the serve and training paths' weights) and ``opt_state_from_numpy``
+an optimizer state over such a tree (the reference trainer's
+``{"params", "opt"}`` checkpoints).
 """
 from __future__ import annotations
 
@@ -93,3 +95,13 @@ def model_params_from_numpy(cfg: ArchConfig, params: Mapping, *,
         return out
 
     return walk(want, params, "")
+
+
+def opt_state_from_numpy(cfg: ArchConfig, opt_state: Mapping, *,
+                         device: str | torch.device = "cuda") -> dict:
+    """The reference optimizer's state over a model parameter tree
+    (``adamw``: ``{"m", "v"}``; ``sgd``: ``{"mu"}`` or ``{}``) as the
+    port's: every entry a tree converted by :func:`model_params_from_numpy`
+    (moments are ``zeros_like`` the params: the same tree and dtype)."""
+    return {k: model_params_from_numpy(cfg, v, device=device)
+            for k, v in opt_state.items()}

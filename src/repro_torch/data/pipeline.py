@@ -1,0 +1,44 @@
+"""Host-side input pipeline: deterministic shuffled batching with epoch
+reshuffling, and the synthetic LM batches of the training CLI.
+
+Counterpart of ``repro/data/pipeline.py``.  ``batched_indices`` is numpy
+and copied as it is, so its batches equal the reference's index for index;
+``lm_batches`` draws from a ``torch.Generator`` (so its tokens differ from
+the reference's threefry draws) and yields batches on the run's device.
+"""
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.data.synthetic import token_stream
+from repro_torch.device import resolve_device
+
+
+def batched_indices(n: int, batch_size: int, seed: int,
+                    drop_remainder: bool = True) -> Iterator[np.ndarray]:
+    """Infinite shuffled index batches (reshuffled each epoch)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        perm = rng.permutation(n)
+        end = (n // batch_size) * batch_size if drop_remainder else n
+        for i in range(0, end, batch_size):
+            yield perm[i:i + batch_size]
+
+
+def lm_batches(gen: torch.Generator, *, vocab_size: int, batch: int,
+               seq_len: int, copy_prob: float = 0.35,
+               device: str | torch.device = "cuda") -> Iterator[dict]:
+    """Infinite synthetic LM batches ``{"tokens" [B, S] int32,
+    "sample_weight" [B] float32 (uniform)}`` on ``device``, the tokens
+    drawn from ``gen`` (see ``synthetic.token_stream``)."""
+    dev = resolve_device(device)
+    while True:
+        tokens = token_stream(gen, vocab_size=vocab_size, batch=batch,
+                              seq_len=seq_len, copy_prob=copy_prob,
+                              device=dev)
+        yield {"tokens": tokens,
+               "sample_weight": torch.ones((batch,), dtype=torch.float32,
+                                           device=dev)}

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
@@ -155,3 +156,49 @@ def fashion_surrogate(gen: torch.Generator, n: int = 4000, side: int = 28,
     half = side * (side // 2)
     return _to(Dataset("fashion", X, classes, 10, (half, side * side - half)),
                device)
+
+
+def token_stream_draws(gen: torch.Generator, *, vocab_size: int, batch: int,
+                       seq_len: int, copy_prob: float = 0.35):
+    """The random draws of :func:`token_stream`, on the generator's device:
+    ``noise`` [B, S] uniform in [0, V) and ``use_map`` [B, S] Bernoulli
+    (copy_prob), as the reference draws them (with other numbers)."""
+    noise = torch.randint(0, vocab_size, (batch, seq_len), generator=gen,
+                          device=gen.device)
+    use_map = torch.rand((batch, seq_len), generator=gen,
+                         device=gen.device) < copy_prob
+    return noise, use_map
+
+
+def markov_chain(noise, use_map, vocab_size: int) -> np.ndarray:
+    """The first-order chain of :func:`token_stream` given its draws (numpy
+    arrays or CPU tensors): token 0 is ``noise[:, 0]``; token t is
+    ``(31 * token_{t-1} + 7) % V`` where ``use_map[:, t]``, else
+    ``noise[:, t]``.  One host pass over S; int32 [B, S]."""
+    noise = np.asarray(noise, dtype=np.int64)
+    use_map = np.asarray(use_map, dtype=bool)
+    tokens = np.empty(noise.shape, dtype=np.int64)
+    tokens[:, 0] = noise[:, 0]
+    for t in range(1, noise.shape[1]):
+        tokens[:, t] = np.where(use_map[:, t],
+                                (tokens[:, t - 1] * 31 + 7) % vocab_size,
+                                noise[:, t])
+    return tokens.astype(np.int32)
+
+
+def token_stream(gen: torch.Generator, *, vocab_size: int, batch: int,
+                 seq_len: int, copy_prob: float = 0.35,
+                 device: str | torch.device = "cuda") -> torch.Tensor:
+    """Synthetic LM token batch [B, S] int32 on ``device``: a first-order
+    Markov chain where, with probability ``copy_prob``, token t is the
+    affine map ``31 * t_prev + 7 (mod V)`` of the emitted predecessor, else
+    uniform noise (counterpart of ``repro/data/synthetic.py``'s
+    ``token_stream``).  The chain runs once on the host and the batch goes
+    to the device in one copy."""
+    dev = resolve_device(device)
+    noise, use_map = token_stream_draws(gen, vocab_size=vocab_size,
+                                        batch=batch, seq_len=seq_len,
+                                        copy_prob=copy_prob)
+    tokens = markov_chain(noise.cpu().numpy(), use_map.cpu().numpy(),
+                          vocab_size)
+    return torch.from_numpy(tokens).to(dev)

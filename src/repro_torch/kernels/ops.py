@@ -1,10 +1,11 @@
 """Public wrappers for the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py``.  Ported so far: the ignorance
-update, the four wire-codec kernels (quantize-dequant for vectors and
-score blocks, int4 pack and unpack), flash attention and flash decode; the
-weighted-CE kernels are still to be ported (see ROADMAP.md).  Each runs its
-CUDA kernel for CUDA tensors and its plain version for CPU tensors.
+Counterpart of ``repro/kernels/ops.py``: the ignorance update, the four
+wire-codec kernels (quantize-dequant for vectors and score blocks, int4
+pack and unpack), the weighted cross-entropy with its backward, flash
+attention and flash decode; every Pallas kernel of the reference has its
+CUDA counterpart.  Each runs its CUDA kernel for CUDA tensors and its plain
+version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -14,6 +15,33 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ignorance as _ig
 from repro_torch.kernels import quantize as _q
+from repro_torch.kernels import weighted_ce as _wce
+
+
+class _WeightedCE(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward kernel saves lse, the
+    backward kernel recomputes the probabilities from it; labels and
+    weights get no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, weights):
+        loss, lse = _wce.weighted_ce_fwd(logits, labels, weights)
+        ctx.save_for_backward(logits, labels, weights, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, weights, lse = ctx.saved_tensors
+        return (_wce.weighted_ce_bwd(logits, labels, weights, lse, g),
+                None, None)
+
+
+def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
+    """Per-token ignorance-weighted NLL [T] of logits [T, V]:
+    ``w * (logsumexp(x) - x[label])``, differentiable in the logits through
+    the backward kernel."""
+    return _WeightedCE.apply(logits, labels, weights)
 
 
 def ignorance_update(w: torch.Tensor, r: torch.Tensor,

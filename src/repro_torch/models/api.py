@@ -1,9 +1,18 @@
-"""Model API of the port, the serve half.
+"""Model API of the port: the serve half and the training half.
 
 Counterpart of ``repro/models/api.py``: init, forward, one decode step,
-the decode cache, and the prefill/serve step functions the serving CLI
-runs.  The training half (``weighted_next_token_loss``, ``make_train_step``)
-comes with the training slice; the encoder-decoder with a later one.
+the decode cache, the prefill/serve step functions the serving CLI runs,
+the ignorance-weighted next-token loss and the train step the trainer
+runs.  The encoder-decoder comes with a later slice.
+
+The loss runs through ``ops.weighted_ce`` (the CUDA forward and backward
+kernels on the card, their plain versions on the CPU), where the
+reference's ``weighted_next_token_loss`` is an einsum; the two compute the
+same function.  The kernel is handed the whole [B, S, V] logits as B * S
+rows, with weight 0 wherever a position predicts nothing (each sequence's
+last position and, for a vision model, its image prefix): the weighted sum
+is the reference's, no copy of the logits is made, and the backward kernel
+writes the whole ``dlogits`` with no scatter into a [:, :-1] slice.
 """
 from __future__ import annotations
 
@@ -13,8 +22,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.kernels import ops
 from repro_torch.models import transformer
 from repro_torch.models.attention import KVCache, QuantKVCache, quantize_kv
+from repro_torch.optim.optimizers import Optimizer, tree_leaves, tree_map
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator | None = None) -> dict:
@@ -33,7 +45,7 @@ def decode_step(params: dict, caches: dict, tokens: torch.Tensor, pos: int,
 
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
                dtype: torch.dtype | None = None,
-               device: torch.device | str = "cpu") -> dict:
+               device: torch.device | str = DEFAULT_DEVICE) -> dict:
     return transformer.init_cache(cfg, batch, s_cache, dtype, device)
 
 
@@ -71,7 +83,115 @@ def quantize_cache(caches: dict, cfg: ArchConfig) -> dict:
     return out
 
 
+# -------------------------------------------------------------------- loss
+def next_token_rows(logits: torch.Tensor, batch: dict, cfg: ArchConfig):
+    """The rows the loss hands the weighted-CE kernel: ``(rows [B * S, V],
+    labels [B * S] int32, weights [B * S] float32)``.  ``rows`` is a view
+    of the logits; position s of sequence b predicts ``tokens[b, s + 1]``
+    with weight ``sample_weight[b] * loss_mask[b, s + 1]``; every other
+    position (the last, and a vision model's image prefix) has weight 0
+    and label 0."""
+    tokens = batch["tokens"]
+    b, s_tok = tokens.shape
+    v = logits.shape[-1]
+    prefix = 0
+    if cfg.frontend == "vision" and "patch_emb" in batch:
+        prefix = batch["patch_emb"].shape[1]
+    if tuple(logits.shape[:2]) != (b, prefix + s_tok):
+        raise ValueError(f"logits {tuple(logits.shape)} do not match tokens "
+                         f"{tuple(tokens.shape)} (+ {prefix} image "
+                         f"positions)")
+    dev = logits.device
+    labels = torch.zeros((b, prefix + s_tok), dtype=torch.int32, device=dev)
+    labels[:, prefix:-1] = tokens[:, 1:]
+    w_tok = batch.get("loss_mask")
+    w_tok = (torch.ones((b, s_tok - 1), dtype=torch.float32, device=dev)
+             if w_tok is None else w_tok[:, 1:].to(torch.float32))
+    w = batch.get("sample_weight")
+    if w is not None:
+        w_tok = w.to(torch.float32)[:, None] * w_tok
+    weights = torch.zeros((b, prefix + s_tok), dtype=torch.float32,
+                          device=dev)
+    weights[:, prefix:-1] = w_tok
+    return logits.reshape(-1, v), labels.reshape(-1), weights.reshape(-1)
+
+
+def weighted_next_token_loss(logits: torch.Tensor, batch: dict,
+                             cfg: ArchConfig) -> torch.Tensor:
+    """Ignorance-weighted next-token cross-entropy, a float32 scalar.
+
+    ``batch['sample_weight']`` [B] is the ASCII ignorance score w_t of each
+    collated sample (sequence), uniform when absent; ``batch['loss_mask']``
+    [B, S] masks target tokens.  For VLM archs the frontend positions carry
+    no loss.  Returns ``sum(nll * w) / max(sum(w), 1e-9)``."""
+    rows, labels, weights = next_token_rows(logits, batch, cfg)
+    nll = ops.weighted_ce(rows, labels, weights)
+    return torch.sum(nll) / torch.clamp(torch.sum(weights), min=1e-9)
+
+
 # ---------------------------------------------------------- step functions
+def loss_and_grads(params: dict, batch: dict, cfg: ArchConfig,
+                   retain_graph: bool = False):
+    """One forward and backward of the loss: ``(loss, grads, aux, logits,
+    leaves)``.  ``grads`` is a tree like ``params``; ``leaves`` are the
+    detached parameter leaves the graph was built on, in
+    ``tree_leaves`` order, and ``logits`` the graph's output, so a caller
+    that keeps the graph (``retain_graph=True``) can take other
+    gradients of the same forward."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    it = iter(leaves)
+    tracked = tree_map(lambda _: next(it), params)
+    logits, aux = transformer.forward_train(tracked, batch, cfg)
+    loss = weighted_next_token_loss(logits, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves, retain_graph=retain_graph)
+    it = iter(grads)
+    return loss, tree_map(lambda _: next(it), params), aux, logits, leaves
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optimizer) -> Callable:
+    """(params, opt_state, batch, step) -> (params, opt_state, metrics).
+
+    Gradients by ``loss_and_grads``; with ``cfg.microbatches`` m > 1 the
+    batch is split in m along axis 0, the gradients are summed and divided
+    by m, and loss and aux are averaged, as the reference's ``scan`` does.  Returns new parameter and state
+    trees; the metrics are 0-d float32 tensors on the device."""
+    if cfg.use_flash:
+        raise NotImplementedError(
+            "make_train_step with use_flash: the flash kernels have no "
+            "backward kernel (nor does the reference's Pallas kernel); "
+            "training runs the einsum attention, use_flash=False")
+    transformer.check_supported(cfg)
+
+    def grads_of(params, mb):
+        loss, grads, aux = loss_and_grads(params, mb, cfg)[:3]
+        return grads, loss.detach(), aux
+
+    def train_step(params, opt_state, batch, step):
+        m = cfg.microbatches
+        if m <= 1:
+            grads, loss, aux = grads_of(params, batch)
+        else:
+            bsz = batch["tokens"].shape[0]
+            if bsz % m:
+                raise ValueError(f"batch {bsz} does not split into "
+                                 f"{m} microbatches")
+            grads, loss, aux = None, 0.0, 0.0
+            for i in range(m):
+                mb = {k: x.reshape((m, bsz // m) + tuple(x.shape[1:]))[i]
+                      for k, x in batch.items()}
+                g, l_, a = grads_of(params, mb)
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+                loss, aux = loss + l_, aux + a
+            grads = tree_map(lambda g: g / m, grads)
+            loss, aux = loss / m, aux / m
+        with torch.no_grad():
+            params, opt_state = optimizer.update(grads, opt_state, params,
+                                                 step)
+        return params, opt_state, {"loss": loss, "aux_loss": aux}
+
+    return train_step
+
+
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill_step(params, batch):
         logits, caches, _ = forward(params, batch, cfg)

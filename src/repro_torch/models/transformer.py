@@ -12,10 +12,13 @@ leading layer axis as the reference's ``scan`` lays them out::
 and the decode cache is ``{"sub0": KVCache(k=[L, B, S, KV, D], v=...)}``
 (or a ``QuantKVCache`` with [L, B, S, KV] scales).  A plain loop over the
 layers, each a view of the stacked tensors, replaces ``lax.scan``; there is
-no sequence sharding and no remat.
+no sequence sharding.  ``cfg.remat == "block"`` recomputes each layer in
+the backward pass (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` of its scan body.
 
 Entry points, as in the reference:
   * ``forward(params, batch, cfg)``              -> logits, caches, aux
+  * ``forward_train(params, batch, cfg)``        -> logits, aux (no caches)
   * ``decode_step(params, caches, tokens, pos, cfg, cache_mode)``
                                                  -> logits, caches
   * ``init_params(cfg, gen)`` / ``init_cache(cfg, batch, s_cache)``
@@ -27,8 +30,10 @@ raise ``NotImplementedError`` naming the slice they wait for.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (embed, lm_head, mlp_apply, mlp_init,
                                        normal_init, rmsnorm, rmsnorm_init,
@@ -68,10 +73,14 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 # --------------------------------------------------------------- layers
-def _layer(params: dict, i: int) -> dict:
-    """Layer i's params: views of the stacked leaves."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in params.items()}
+def _layers(params: dict, n: int) -> list[dict]:
+    """All n layers' params, views of the stacked leaves, each leaf unbound
+    once: under autograd the n layers' gradients then go back into each
+    stacked leaf in one stack, not through n full-size scatters of a
+    select."""
+    per_leaf = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+                for k, v in params.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
 def _block_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -81,6 +90,12 @@ def _block_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     x = x + out
     x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
     return x, cache
+
+
+def _block_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                 positions: torch.Tensor, rope) -> torch.Tensor:
+    """One layer without its K/V (the training forward's unit)."""
+    return _block_forward(p, x, cfg, positions, rope)[0]
 
 
 def _block_decode(p: dict, x: torch.Tensor, cache, pos: int,
@@ -131,23 +146,47 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return embed(params["embed"], batch["tokens"], cfg.embed_scale)
 
 
-def forward(params: dict, batch: dict, cfg: ArchConfig):
-    """Full-sequence forward (prefill).  batch: {"tokens": [B, S]}.
-    Returns (logits [B, S, V], caches, aux_loss = 0)."""
+def _run(params: dict, batch: dict, cfg: ArchConfig, keep_caches: bool):
+    """Embed, the layers, the head: (logits, K/V of every layer or None)."""
     check_supported(cfg)
+    if cfg.remat not in ("none", "block"):
+        raise ValueError(f"remat must be 'none' or 'block', got "
+                         f"{cfg.remat!r}")
     x = embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, cache = _block_forward(_layer(params["layers"]["sub0"], i), x, cfg,
-                                  positions, rope)
-        ks.append(cache.k)
-        vs.append(cache.v)
-    caches = {"sub0": attn.KVCache(k=torch.stack(ks), v=torch.stack(vs))}
-    return (_logits(params, x, cfg), caches,
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    for layer in _layers(params["layers"]["sub0"], cfg.num_layers):
+        if keep_caches:
+            x, cache = _block_forward(layer, x, cfg, positions, rope)
+            ks.append(cache.k)
+            vs.append(cache.v)
+        elif cfg.remat == "block" and torch.is_grad_enabled():
+            x = checkpoint(_block_train, layer, x, cfg, positions, rope,
+                           use_reentrant=False)
+        else:
+            x = _block_train(layer, x, cfg, positions, rope)
+    caches = ({"sub0": attn.KVCache(k=torch.stack(ks), v=torch.stack(vs))}
+              if keep_caches else None)
+    return _logits(params, x, cfg), caches
+
+
+def forward(params: dict, batch: dict, cfg: ArchConfig):
+    """Full-sequence forward (prefill).  batch: {"tokens": [B, S]}.
+    Returns (logits [B, S, V], caches, aux_loss = 0)."""
+    logits, caches = _run(params, batch, cfg, keep_caches=True)
+    return (logits, caches,
+            torch.zeros((), dtype=torch.float32, device=logits.device))
+
+
+def forward_train(params: dict, batch: dict, cfg: ArchConfig):
+    """The training forward: (logits [B, S, V], aux_loss = 0).  The same
+    computation as :func:`forward` without stacking every layer's K/V into
+    a cache (a training step has no use for it), and each layer under
+    ``torch.utils.checkpoint`` when ``cfg.remat == "block"``."""
+    logits, _ = _run(params, batch, cfg, keep_caches=False)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
 def decode_step(params: dict, caches: dict, tokens: torch.Tensor, pos: int,
@@ -163,19 +202,22 @@ def decode_step(params: dict, caches: dict, tokens: torch.Tensor, pos: int,
                            device=x.device)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     stacked = caches["sub0"]
-    for i in range(cfg.num_layers):
+    layers = _layers(params["layers"]["sub0"], cfg.num_layers)
+    for i, layer in enumerate(layers):
         layer_cache = type(stacked)(*(a[i] for a in stacked))
-        x, _ = _block_decode(_layer(params["layers"]["sub0"], i), x,
-                             layer_cache, pos, cfg, cache_mode, rope)
+        x, _ = _block_decode(layer, x, layer_cache, pos, cfg, cache_mode,
+                             rope)
     return _logits(params, x, cfg), caches
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
                dtype: torch.dtype | None = None,
-               device: torch.device | str = "cpu") -> dict:
-    """Zero-initialized decode cache in the stacked layout [L, B, S, ...];
-    int8 with float32 scales when ``cfg.kv_quant``."""
+               device: torch.device | str = DEFAULT_DEVICE) -> dict:
+    """Zero-initialized decode cache in the stacked layout [L, B, S, ...]
+    on ``device`` (the card unless the caller asks for the CPU); int8 with
+    float32 scales when ``cfg.kv_quant``."""
     check_supported(cfg)
+    device = resolve_device(device)
     dtype = dtype or _dtype(cfg)
     shape = (cfg.num_layers, batch, s_cache, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_quant:

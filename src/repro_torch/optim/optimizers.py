@@ -1,10 +1,15 @@
-"""Minimal optimizers over dicts of tensors.
+"""Minimal optimizers over trees of tensors.
 
 Counterpart of ``repro/optim/optimizers.py``: the same (init, update)
-pure-function convention, with fitted params held as dicts of tensors.  The
-bias corrections are computed in float32 tensors, as the reference computes
-them, not in Python floats: over hundreds of AdamW steps the float64 path
-drifts away from the reference's trajectory.
+pure-function convention, over a tree of nested dicts whose leaves are
+tensors (the learners' flat dicts, a model's nested parameters), mapped
+leaf by leaf as the reference's ``jax.tree.map``.  Moments are
+``zeros_like`` the params, so bf16 params keep bf16 moments, as in the
+reference.  The bias corrections are computed in float32 tensors, as the
+reference computes them, not in Python floats: over hundreds of AdamW
+steps the float64 path drifts away from the reference's trajectory.  The
+update itself is float32 math for every leaf (the reference's promotion
+of a bf16 moment against its float32 correction).
 """
 from __future__ import annotations
 
@@ -12,17 +17,34 @@ from typing import Callable, NamedTuple
 
 import torch
 
-Params = dict[str, torch.Tensor]
+Tree = dict   # nested dicts with tensor leaves
 
 
 class Optimizer(NamedTuple):
-    init: Callable[[Params], dict]
-    update: Callable[[Params, dict, Params, int], tuple[Params, dict]]
+    init: Callable[[Tree], dict]
+    update: Callable[[Tree, dict, Tree, int], tuple[Tree, dict]]
     # update(grads, opt_state, params, step) -> (new_params, new_opt_state)
 
 
-def _zeros(params: Params) -> Params:
-    return {k: torch.zeros_like(v) for k, v in params.items()}
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure); the result keeps the first
+    tree's keys and order."""
+    return {k: (tree_map(fn, v, *(r[k] for r in rest))
+                if isinstance(v, dict) else fn(v, *(r[k] for r in rest)))
+            for k, v in tree.items()}
+
+
+def tree_leaves(tree: Tree) -> list[torch.Tensor]:
+    """The leaves in depth-first key order."""
+    out = []
+    for v in tree.values():
+        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def _zeros(params: Tree) -> Tree:
+    return tree_map(torch.zeros_like, params)
 
 
 def _lr_at(lr, step: int, like: torch.Tensor) -> torch.Tensor:
@@ -30,16 +52,16 @@ def _lr_at(lr, step: int, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.float32, device=like.device)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
+def global_norm(tree: Tree) -> torch.Tensor:
     leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree.values()]
+              for x in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return {k: g * scale for k, g in grads.items()}
+    return tree_map(lambda g: g * scale, grads)
 
 
 def sgd(lr: float | Callable[[int], float], momentum: float = 0.0,
@@ -48,17 +70,17 @@ def sgd(lr: float | Callable[[int], float], momentum: float = 0.0,
         return {"mu": _zeros(params)} if momentum else {}
 
     def update(grads, state, params, step):
-        lr_t = _lr_at(lr, step, next(iter(params.values())))
+        lr_t = _lr_at(lr, step, tree_leaves(params)[0])
         if momentum:
-            mu = {k: momentum * state["mu"][k] + g for k, g in grads.items()}
-            step_dir = ({k: momentum * mu[k] + g for k, g in grads.items()}
+            mu = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
+            step_dir = (tree_map(lambda m, g: momentum * m + g, mu, grads)
                         if nesterov else mu)
             new_state = {"mu": mu}
         else:
             step_dir = grads
             new_state = {}
-        new_params = {k: p - lr_t * step_dir[k].to(p.dtype)
-                      for k, p in params.items()}
+        new_params = tree_map(lambda p, d: p - lr_t * d.to(p.dtype), params,
+                              step_dir)
         return new_params, new_state
 
     return Optimizer(init, update)
@@ -73,25 +95,27 @@ def adamw(lr: float | Callable[[int], float], b1: float = 0.9,
     def update(grads, state, params, step):
         if grad_clip_norm is not None:
             grads = clip_by_global_norm(grads, grad_clip_norm)
-        like = next(iter(params.values()))
+        like = tree_leaves(params)[0]
         t = torch.tensor(float(step), dtype=torch.float32,
                          device=like.device) + 1.0
-        m = {k: b1 * state["m"][k] + (1 - b1) * g.to(state["m"][k].dtype)
-             for k, g in grads.items()}
-        v = {k: b2 * state["v"][k]
-             + (1 - b2) * torch.square(g.to(state["v"][k].dtype))
-             for k, g in grads.items()}
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(m_.dtype),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_
+                     + (1 - b2) * torch.square(g.to(v_.dtype)),
+                     state["v"], grads)
         lr_t = _lr_at(lr, step, like)
         bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                          device=like.device), t)
         bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                          device=like.device), t)
-        new_params = {}
-        for k, p in params.items():
-            upd = (m[k] / bc1) / (torch.sqrt(v[k] / bc2) + eps)
+
+        def leaf(p, m_, v_):
+            upd = ((m_.to(torch.float32) / bc1)
+                   / (torch.sqrt(v_.to(torch.float32) / bc2) + eps))
             if weight_decay:
                 upd = upd + weight_decay * p.to(upd.dtype)
-            new_params[k] = (p.to(torch.float32) - lr_t * upd).to(p.dtype)
-        return new_params, {"m": m, "v": v}
+            return (p.to(torch.float32) - lr_t * upd).to(p.dtype)
+
+        return tree_map(leaf, params, m, v), {"m": m, "v": v}
 
     return Optimizer(init, update)

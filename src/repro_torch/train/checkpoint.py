@@ -1,10 +1,19 @@
-"""Structured checkpoints: a nested dict/list/tuple tree of tensors and
-Python scalars -> .npz of arrays + a JSON structure manifest.
+"""Checkpoints in the reference's file formats, so a directory written by
+either package is read by the other.
 
-Counterpart of ``repro/train/checkpoint.py``'s ``save_structured`` /
-``restore_structured``, in the same file format, so a directory written by
-either package is read by the other.  Restored arrays become tensors on the
-caller's device.
+Counterpart of ``repro/train/checkpoint.py``:
+
+  * ``save`` / ``restore`` -- a tree of nested dicts of tensors (the
+    trainer's ``{"params", "opt"}``) as ``ckpt_%08d.npz`` with ``/``-joined
+    leaf paths, ``latest.json``, and the newest ``max_keep`` kept; restored
+    against a template tree, each leaf cast to the template's dtype and
+    device.  bfloat16 leaves are stored as float32 (exact both ways; numpy
+    has no bfloat16, and the reference's ``restore`` casts to its
+    template's dtype).
+  * ``save_structured`` / ``restore_structured`` -- a nested
+    dict/list/tuple tree of tensors and Python scalars -> .npz of arrays +
+    a JSON structure manifest (the sessions' checkpoints).  Restored
+    arrays become tensors on the caller's device.
 """
 from __future__ import annotations
 
@@ -16,6 +25,79 @@ import numpy as np
 import torch
 
 Tree = Any
+
+
+def _flatten(tree: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """Leaves of nested dicts by their ``/``-joined key paths."""
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(_flatten(v, path + "/"))
+        else:
+            flat[path] = v
+    return flat
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        x = x.to(torch.float32)
+    return x.numpy()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A loaded array as a tensor; the reference's bfloat16 arrays come
+    back from ``np.load`` as 2-byte voids and are read bit for bit."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def save(directory: str, step: int, tree: Tree, max_keep: int = 3) -> str:
+    """``tree`` (nested dicts of tensors) to ``ckpt_{step:08d}.npz`` in
+    ``directory``, ``latest.json`` pointing at it; keeps the newest
+    ``max_keep`` checkpoints."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    flat = _flatten(tree)
+    np.savez(path, **{k: _to_numpy(flat[k]) for k in sorted(flat)})
+    with open(os.path.join(directory, "latest.json"), "w") as f:
+        json.dump({"step": step, "path": path}, f)
+    ckpts = sorted(p for p in os.listdir(directory) if p.startswith("ckpt_"))
+    for old in ckpts[:-max_keep]:
+        os.remove(os.path.join(directory, old))
+    return path
+
+
+def restore(directory: str, template: Tree,
+            step: int | None = None) -> tuple[Tree, int]:
+    """The checkpoint of ``step`` (the latest unless given) as a tree shaped
+    like ``template``, each leaf in the template leaf's dtype and on its
+    device; returns (tree, step).  The checkpoint must hold exactly the
+    template's leaf paths."""
+    if step is None:
+        with open(os.path.join(directory, "latest.json")) as f:
+            step = json.load(f)["step"]
+    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    flat = _flatten(template)
+    with np.load(path) as data:
+        if set(flat) != set(data.files):
+            raise ValueError(f"checkpoint/template mismatch: "
+                             f"{sorted(set(flat) ^ set(data.files))}")
+        leaves = {k: _from_numpy(data[k]) for k in flat}
+    for k, leaf in flat.items():
+        if tuple(leaves[k].shape) != tuple(leaf.shape):
+            raise ValueError(f"{k}: checkpoint shape {tuple(leaves[k].shape)}"
+                             f" != template {tuple(leaf.shape)}")
+
+    def rebuild(node: Tree, prefix: str) -> Tree:
+        return {k: rebuild(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else leaves[f"{prefix}{k}"].to(device=v.device, dtype=v.dtype)
+                for k, v in node.items()}
+
+    return rebuild(template, ""), step
 
 
 def _encode_structure(tree: Tree, arrays: dict[str, np.ndarray]) -> Any:

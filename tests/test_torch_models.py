@@ -370,7 +370,7 @@ def test_use_flash_never_drops_to_sdpa(ref):
     """The kernels have no ring validity and no softcap: use_flash with
     either raises instead of computing _sdpa."""
     cfg, params = _port(ref, True)
-    caches = tapi.init_cache(cfg, B, 8)
+    caches = tapi.init_cache(cfg, B, 8, device="cpu")
     tok = torch.zeros(B, 1, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ring"):
         tapi.decode_step(params, caches, tok, 0, cfg, "ring")
@@ -383,10 +383,11 @@ def test_use_flash_never_drops_to_sdpa(ref):
 
 def test_init_cache_layout():
     cfg = _tcfg()
-    c = tapi.init_cache(cfg, B, 40)["sub0"]
+    c = tapi.init_cache(cfg, B, 40, device="cpu")["sub0"]
     assert isinstance(c, tattn.KVCache)
     assert tuple(c.k.shape) == (cfg.num_layers, B, 40, 2, cfg.head_dim)
-    q = tapi.init_cache(cfg.with_overrides(kv_quant=True), B, 40)["sub0"]
+    q = tapi.init_cache(cfg.with_overrides(kv_quant=True), B, 40,
+                        device="cpu")["sub0"]
     assert isinstance(q, tattn.QuantKVCache) and q.k.dtype == torch.int8
     assert tuple(q.k_scale.shape) == (cfg.num_layers, B, 40, 2)
     assert tapi.cache_length(cfg.with_overrides(window=16), 64) == 16
