@@ -2,9 +2,14 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card, in phases.
 
   python3 chip_smoke.py            # from the root of a checkout
+  python3 chip_smoke.py --phases 1,8   # those phases only, no result line
 
 1. Prints the card's name and power limit; builds the CUDA kernels from
-   src/repro_torch/csrc with nvcc (all sources at once) and times the build.
+   src/repro_torch/csrc with nvcc (all sources at once) and times the build;
+   prints ``flash_ptxas`` (registers and spill bytes of every flash kernel
+   instantiation, from ``-Xptxas=-v``) and fails unless ``cuobjdump -sass``
+   finds tensor-core instructions (HGMMA or HMMA) in the flash_attention
+   library.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main path's sizes and beyond, and times kernel, plain version and bound:
    the ignorance update, and the wire channel's quantize-dequant (vectors
@@ -33,13 +38,20 @@
    codecs' encode -> decode (quantize, pack, unpack) of a real hop's w
    equal their roundtrip within one step; accuracy beside phase 5's.
 8. The model zoo's kernels against their plain versions on the card at
-   qwen3-0.6b's shapes (B 4, H 16, KV 8, D 128), float32 (within 2e-5
-   max|v|) and bfloat16 (within 2^-7 max|v|), with the model's strided
-   layouts: flash attention at S = T = 512, a ragged S = T = 500, a window
-   of 128, right-aligned S 500 < T 512; flash decode against a cache of
-   576 at pos 0, 511, 575, fp and int8, with and without a window.  Times
-   kernel, plain version, bound and F.scaled_dot_product_attention (the
-   library yardstick; a boolean mask for decode).
+   the dense models' shapes: qwen3-0.6b (B 4, H 16, KV 8, D 128),
+   h2o-danube-3-4b (B 2, H 32, KV 8, D 120, a window of 128 that bites at
+   S 512) and gemma-7b (B 2, H = KV = 16, D 256); float32 (within 2e-5
+   max|v|) and bfloat16 (within 2^-7 max|v|), two runs the same bits,
+   with the model's strided layouts: flash attention at S = T = 512, a
+   ragged S = T = 500, right-aligned S 500 < T 512, a window of 128; flash
+   decode against a cache of 576 at pos 0, 511, 575, fp and int8, with and
+   without a window.  Checks that the decode grid at the serve shape puts
+   2 or more blocks on each SM.  Prints ``flash_table`` (bf16, per model):
+   call ms (CUDA events), device_ms (torch.profiler's kernel durations a
+   call, L2 warm) and device_ms_cold (the same over copies of the inputs
+   that exceed the 50 MB L2), plain version, bound, and
+   F.scaled_dot_product_attention's call and device ms (the library
+   yardstick; a boolean mask for a window or a cache position).
 9. Full-width serve, qwen3-0.6b (28 layers, bf16, random weights) through
    ``repro_torch.launch.serve --no-reduced --use_flash``: batch 4, prompt
    512, 64 tokens, once plain and once with --kv_quant; one flash_attention
@@ -71,8 +83,8 @@
    the reference example's run): its loss falls.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
-the last line is not printed.  Before the last line it prints one JSON
-object describing each kernel.  The last line is
+the last line is not printed.  Before the last line it prints the card's
+line again and one JSON object describing each kernel.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits 2 when torch sees no CUDA device, and fails to import the port when
 run outside a checkout.
@@ -82,6 +94,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -150,6 +163,44 @@ def _attention_pairs(s: int, t: int, causal: bool, window) -> int:
     return pairs
 
 
+def _kernel_device_ms(fn, key: str, reps: int = 100) -> float:
+    """Device time a call of the kernels whose name holds ``key``:
+    torch.profiler's kernel durations over ``reps`` calls of ``fn`` (after
+    a warm-up), summed and divided by ``reps``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0  # key "" takes every kernel of the window
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and key in evt.key:
+            us = getattr(evt, "self_device_time_total", None)
+            total += (evt.self_cuda_time_total if us is None else us) / 1e3
+    if total <= 0:
+        raise RuntimeError(f"the profiler saw no {key} kernel")
+    return total / reps
+
+
+def _live_tiles(s: int, t: int, causal: bool, window) -> int:
+    """KV tiles of 64 keys the attention kernels visit for one head: for
+    each tile of 64 right-aligned queries, the tiles that hold a key of
+    the causal / window band of one of its queries."""
+    tiles = 0
+    for q0 in range(0, s, 64):
+        lo, hi = q0 + t - s, min(s, q0 + 64) - 1 + t - s
+        k_begin = 0 if window is None else max(0, lo - window + 1)
+        k_end = min(t, hi + 1) if causal else t
+        tiles += -(-k_end // 64) - k_begin // 64
+    return tiles
+
+
 def _host_time_ms(fn, reps: int = 50) -> float:
     """Host clock around ``reps`` calls that end in a synchronize."""
     import torch
@@ -211,6 +262,54 @@ def _device_profile(fn, top: int = 8) -> dict:
             "idle_share": 1 - busy / wall_ms if dev else "not measured",
             "by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
             "top": [[k[:70], v] for k, v in ranked]}
+
+
+def _ptxas_usage(log: str) -> dict:
+    """Registers and spill stores / loads (bytes) of each kernel in an
+    ``nvcc -Xptxas=-v`` log, by demangled name without its arguments."""
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {"regs": None, "spill": [None, None]}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            usage[fn]["spill"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn]["regs"] = int(m.group(1))
+    names = list(usage)
+    filt = os.path.join(os.path.dirname(_cuda_tool("nvcc")), "cu++filt")
+    if names and os.path.exists(filt):
+        out = subprocess.run([filt, *names], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            return {_short_name(pretty): usage[raw]
+                    for raw, pretty in zip(names, out)}
+    return usage
+
+
+def _short_name(demangled: str) -> str:
+    """``void (anonymous namespace)::f<(int)4>(Args)`` -> ``f<4>``."""
+    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\(int\)",
+                  "", demangled)
+    return name[:name.index("(")] if "(" in name else name
+
+
+def _cuda_tool(name: str) -> str:
+    from repro_torch.kernels import _build
+    return os.path.join(os.path.dirname(_build._nvcc()), name)
+
+
+def _sass_count(lib, opcodes) -> dict:
+    """How many instructions of each opcode ``cuobjdump -sass`` finds in a
+    built library."""
+    sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 
 def _max_rel(a, b) -> float:
@@ -299,7 +398,19 @@ class Smoke:
         t0 = time.perf_counter()
         _build.build(*sources)
         secs = time.perf_counter() - t0
-        return f"built {sources} with nvcc in {secs:.2f} s"
+        usage = {}
+        for name in ("flash_attention", "flash_decode"):
+            usage.update(_ptxas_usage(_build.LOGS[name]))
+        print("flash_ptxas " + json.dumps(usage), flush=True)
+        spills = [k for k, u in usage.items() if u["spill"] != [0, 0]]
+        mma = _sass_count(_build.library_path("flash_attention"),
+                          ("HGMMA", "HMMA"))
+        self.require(sum(mma.values()) > 0,
+                     f"no tensor-core instruction in the flash_attention "
+                     f"library's SASS: {mma}")
+        return (f"built {sources} with nvcc in {secs:.2f} s; flash "
+                f"instantiations {len(usage)}, spilling {spills or 'none'}; "
+                f"flash_attention SASS tensor-core instructions {mma}")
 
     def kernel_vs_plain(self) -> str:
         torch = self.torch
@@ -852,150 +963,261 @@ class Smoke:
                 f"(pack/unpack at n={w.numel()})")
 
     # ------------------------------------------------------- model zoo
+    # The dense models' attention: (model, batch, H, KV, D, window);
+    # danube's window of 4096 is cut to 128 so that it bites at S 512.
+    FLASH_SHAPES = (("qwen3-0.6b", 4, 16, 8, 128, None),
+                    ("h2o-danube-3-4b", 2, 32, 8, 120, 128),
+                    ("gemma-7b", 2, 16, 16, 256, None))
+
     def flash_vs_plain(self) -> str:
         torch = self.torch
-        import torch.nn.functional as F
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import flash_decode as fd
         gen = torch.Generator(device=self.dev).manual_seed(2)
-        b, h, kv, d = 4, 16, 8, 128       # qwen3-0.6b's attention
         tols = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
-        worst, table = {}, []
+        worst, timed = {}, []
 
         def randn(*shape, dtype):
             return torch.randn(*shape, generator=gen, device=self.dev).to(
                 dtype)
 
-        for dtype, tol in tols.items():
-            for s, t, window in ((512, 512, None), (500, 500, None),
-                                 (512, 512, 128), (500, 512, None)):
-                # the model's layout: [B, S, H, D] seen as [B, H, S, D]
-                q = randn(b, s, h, d, dtype=dtype).transpose(1, 2)
-                k = randn(b, t, kv, d, dtype=dtype).transpose(1, 2)
-                v = randn(b, t, kv, d, dtype=dtype).transpose(1, 2)
-                got = fa.flash_attention(q, k, v, window=window)
-                want = fa.flash_attention_plain(q, k, v, window=window)
-                torch.cuda.synchronize()
-                vmax = float(v.float().abs().max())
-                err = float((got.float() - want.float()).abs().max())
-                self.require(err <= tol * vmax,
-                             f"flash_attention {dtype} S={s} T={t} "
-                             f"window={window}: max err {err} > "
-                             f"{tol} * {vmax}")
-                key = f"attention {str(dtype)[6:]}"
-                worst[key] = max(worst.get(key, 0.0), err / vmax)
-                if dtype == torch.bfloat16 and window is None and s == t:
-                    table.append(self._flash_attention_row(
-                        q, k, v, got, want, F, s == 512))
-        for dtype, tol in tols.items():
-            q = randn(b, h, d, dtype=dtype)
-            for quant in (False, True):
-                if quant:
-                    k, v = (torch.randint(-127, 128, (b, 576, kv, d),
-                                          generator=gen, device=self.dev,
-                                          dtype=torch.int8)
-                            for _ in range(2))
-                    ks, vs = (torch.rand(b, 576, kv, generator=gen,
-                                         device=self.dev) * 0.05
-                              for _ in range(2))
-                    scales = dict(k_scale=ks.transpose(1, 2),
-                                  v_scale=vs.transpose(1, 2))
-                    vmax = float((v.float() * vs[..., None]).abs().max())
-                else:
-                    k = randn(b, 576, kv, d, dtype=dtype)
-                    v = randn(b, 576, kv, d, dtype=dtype)
-                    scales, vmax = {}, float(v.float().abs().max())
-                kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-                for pos in (0, 511, 575):
-                    for window in (None, 128):
-                        got = fd.flash_decode(q, kt, vt, pos, window=window,
-                                              **scales)
-                        want = fd.flash_decode_plain(q, kt, vt, pos,
-                                                     window=window, **scales)
-                        torch.cuda.synchronize()
-                        err = float((got.float() - want.float()).abs().max())
-                        self.require(err <= tol * vmax,
-                                     f"flash_decode {dtype} quant={quant} "
-                                     f"pos={pos} window={window}: max err "
-                                     f"{err} > {tol} * {vmax}")
-                        key = (f"decode {str(dtype)[6:]}"
-                               f"{' int8' if quant else ''}")
-                        worst[key] = max(worst.get(key, 0.0), err / vmax)
-                if dtype == torch.bfloat16:
-                    table.append(self._flash_decode_row(q, kt, vt, scales,
-                                                        F))
+        def check(what, key, got, again, want, vmax, tol):
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            self.require(err <= tol * vmax,
+                         f"{what}: max err {err} > {tol} * {vmax}")
+            self.require(torch.equal(got, again),
+                         f"{what}: two runs differ")
+            worst[key] = max(worst.get(key, 0.0), err / vmax)
+
+        for model, b, h, kv, d, win in self.FLASH_SHAPES:
+            cases = [(512, 512, win), (500, 500, win), (500, 512, win)]
+            if win is None:
+                cases.append((512, 512, 128))
+            for dtype, tol in tols.items():
+                for s, t, window in cases:
+                    # the model's layout: [B, S, H, D] seen as [B, H, S, D]
+                    q = randn(b, s, h, d, dtype=dtype).transpose(1, 2)
+                    k = randn(b, t, kv, d, dtype=dtype).transpose(1, 2)
+                    v = randn(b, t, kv, d, dtype=dtype).transpose(1, 2)
+                    got = fa.flash_attention(q, k, v, window=window)
+                    again = fa.flash_attention(q, k, v, window=window)
+                    want = fa.flash_attention_plain(q, k, v, window=window)
+                    check(f"flash_attention {model} {dtype} S={s} T={t} "
+                          f"window={window}",
+                          f"attention {model} {str(dtype)[6:]}", got, again,
+                          want, float(v.float().abs().max()), tol)
+                    if dtype == torch.bfloat16 and s == t == 512 \
+                            and window == win:
+                        timed.append(("attention", model, (q, k, v),
+                                      window, got, want))
+            for dtype, tol in tols.items():
+                q = randn(b, h, d, dtype=dtype)
+                for quant in (False, True):
+                    if quant:
+                        k, v = (torch.randint(-127, 128, (b, 576, kv, d),
+                                              generator=gen, device=self.dev,
+                                              dtype=torch.int8)
+                                for _ in range(2))
+                        ks, vs = (torch.rand(b, 576, kv, generator=gen,
+                                             device=self.dev) * 0.05
+                                  for _ in range(2))
+                        scales = dict(k_scale=ks.transpose(1, 2),
+                                      v_scale=vs.transpose(1, 2))
+                        vmax = float((v.float() * vs[..., None]).abs().max())
+                    else:
+                        k = randn(b, 576, kv, d, dtype=dtype)
+                        v = randn(b, 576, kv, d, dtype=dtype)
+                        scales, vmax = {}, float(v.float().abs().max())
+                    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+                    for pos in (0, 511, 575):
+                        for window in (None, 128):
+                            got, again = (fd.flash_decode(
+                                q, kt, vt, pos, window=window, **scales)
+                                for _ in range(2))
+                            want = fd.flash_decode_plain(
+                                q, kt, vt, pos, window=window, **scales)
+                            check(f"flash_decode {model} {dtype} quant="
+                                  f"{quant} pos={pos} window={window}",
+                                  f"decode {model} {str(dtype)[6:]}"
+                                  f"{' int8' if quant else ''}", got, again,
+                                  want, vmax, tol)
+                    if dtype == torch.bfloat16 and (
+                            model == "qwen3-0.6b" or not quant):
+                        timed.append(("decode", model, (q, kt, vt), scales,
+                                      got, want))
+        # the decode grid at the serve shape's last step (pos 575)
+        b, h, kv, d = self.FLASH_SHAPES[0][1:5]
+        sms = fd.sm_count(torch.cuda.current_device())
+        lo, hi = fd.valid_range(575, 576, None)
+        gt = fd.heads_per_block(h // kv)
+        n_split, chunk = fd.split_plan(lo, hi, b * h // gt, sms,
+                                       fd.rows_per_pass(torch.bfloat16, d))
+        blocks = b * h // gt * n_split
+        self.require(gt == h // kv and blocks >= 2 * sms,
+                     f"flash_decode grid {blocks} blocks ({gt} heads a "
+                     f"block) on {sms} SMs")
+        # call times first, then the profiler's device times (so that no
+        # call time is taken after a profiler session)
+        rows = [self._flash_row(*row) for row in timed]
+        table = [row for row, _ in rows]
+        for (row, lib_fn), (kind, _, tensors, extra, _, _) in zip(rows,
+                                                                  timed):
+            key = "flash_attention" if kind == "attention" else "flash_decode"
+            fn = self._flash_call(kind, tensors, extra)
+            row["device_ms"] = _kernel_device_ms(lambda: fn(*tensors), key)
+            row["library_device_ms"] = _kernel_device_ms(lib_fn, "")
+            copies = [tuple(x.clone() for x in tensors)
+                      for _ in range(max(2, -(-120 * 2 ** 20 // sum(
+                          x.numel() * x.element_size() for x in tensors))))]
+            turn = iter(range(10 ** 9))
+            row["device_ms_cold"] = _kernel_device_ms(
+                lambda: fn(*copies[next(turn) % len(copies)]), key)
+        for row in table:
+            if row["model"] == "qwen3-0.6b" and row.get("cache") != "int8":
+                name = ("flash_attention" if "T" in row else "flash_decode")
+                self.kernels[name] = {k: row[k] for k in (
+                    "source", "replaces", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}
+        for row in table:
+            for k in ("source", "replaces"):
+                row.pop(k)
         print("flash_table " + json.dumps(table), flush=True)
-        return ("flash kernels = plain versions at qwen3-0.6b's shapes, max "
+        print("flash_scaling " + json.dumps(self._flash_scaling()),
+              flush=True)
+        return ("flash kernels = plain versions, two runs the same bits, at "
+                "qwen3-0.6b's, h2o-danube-3-4b's and gemma-7b's shapes; max "
                 "err / max|v|: " + ", ".join(f"{k} {v:.3g}"
                                              for k, v in worst.items())
-                + " (tolerance 2e-5 f32, 2^-7 bf16)")
+                + f" (tolerance 2e-5 f32, 2^-7 bf16); decode grid {blocks} "
+                f"blocks on {sms} SMs ({n_split} splits of {chunk} "
+                f"positions, {gt} query heads a block)")
 
-    def _flash_attention_row(self, q, k, v, got, want, F, main) -> dict:
-        from repro_torch.kernels import flash_attention as fa
-        b, h, s, d = q.shape
-        kv, t = k.shape[1], k.shape[2]
-        ms = _cuda_time_ms(lambda: fa.flash_attention(q, k, v), reps=50)
-        plain_ms = _cuda_time_ms(lambda: fa.flash_attention_plain(q, k, v),
-                                 reps=10, warmup=2)
-        lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps=50)
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        ops_ = 4 * b * h * d * _attention_pairs(s, t, True, None)
-        bound, by = _bound_ms(nbytes, ops_, BF16_OPS_PER_S)
-        row = {"S": s, "T": t, "dtype": "bf16", "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
-               "bound_by": by}
-        if main:                 # the serve path's prefill shape
-            self.kernels["flash_attention"] = {
-                "source": "src/repro_torch/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:106",
-                "max_abs_err": float((got.float() - want.float()).abs()
-                                     .max()),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": by, "library_ms": lib_ms}
-        return row
-
-    def _flash_decode_row(self, q, kt, vt, scales, F) -> dict:
-        """Times at the serve path's last step (pos 575: the whole cache);
-        the fp row is the kernel's JSON row."""
+    def _flash_scaling(self) -> list:
+        """bf16 flash_attention at qwen3-0.6b's heads (H 16, KV 8, D 128)
+        over more batches, lengths and masks, each against its plain
+        version (2^-7 max|v|): its device time and SDPA's beside the
+        kernel's blocks (B * H * ceil(S / 64)) and live KV tiles of 64,
+        which is how its time splits into a cost a block and a cost a
+        tile."""
         torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import flash_attention as fa
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+        rows = []
+        for b, s, causal, window in (
+                (4, 512, True, None), (8, 512, True, None),
+                (16, 512, True, None), (4, 1024, True, None),
+                (4, 2048, True, None), (4, 512, False, None),
+                (4, 512, True, 64), (1, 512, True, None)):
+            q, k, v = (torch.randn(b, s, h, 128, generator=gen,
+                                   device=self.dev).to(torch.bfloat16)
+                       .transpose(1, 2) for h in (16, 8, 8))
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+            err = float((got.float() - want.float()).abs().max())
+            self.require(err <= 2 ** -7 * float(v.float().abs().max()),
+                         f"flash_attention B={b} S={s} causal={causal} "
+                         f"window={window}: max err {err}")
+            row = {"B": b, "S": s, "causal": causal, "window": window,
+                   "blocks": b * 16 * -(-s // 64),
+                   "kv_tiles": b * 16 * _live_tiles(s, s, causal, window),
+                   "device_ms": _kernel_device_ms(lambda: fa.flash_attention(
+                       q, k, v, causal=causal, window=window),
+                       "flash_attention")}
+            if window is None:
+                row["library_device_ms"] = _kernel_device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, enable_gqa=True), "")
+            rows.append(row)
+        return rows
+
+    def _flash_call(self, kind, tensors, extra):
+        """The kernel's wrapper with its options bound: f(q, k, v[, k_scale,
+        v_scale]); decode at the serve path's last step (pos 575)."""
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import flash_decode as fd
-        b, h, d = q.shape
-        kv, s = kt.shape[1], kt.shape[2]
-        pos = s - 1
-        got = fd.flash_decode(q, kt, vt, pos, **scales)
-        want = fd.flash_decode_plain(q, kt, vt, pos, **scales)
-        ms = _cuda_time_ms(lambda: fd.flash_decode(q, kt, vt, pos, **scales))
-        plain_ms = _cuda_time_ms(
-            lambda: fd.flash_decode_plain(q, kt, vt, pos, **scales), reps=50)
-        if scales:   # SDPA on the dequantized copy (made outside the timing)
-            kl = (kt.float() * scales["k_scale"][..., None]).to(q.dtype)
-            vl = (vt.float() * scales["v_scale"][..., None]).to(q.dtype)
+        if kind == "attention":
+            return lambda q, k, v: fa.flash_attention(q, k, v, window=extra)
+        if extra:
+            return lambda q, k, v: fd.flash_decode(q, k, v, 575, **extra)
+        return lambda q, k, v: fd.flash_decode(q, k, v, 575)
+
+    def _flash_row(self, kind, model, tensors, extra, got, want):
+        """One bf16 row of flash_table: call ms (CUDA events around
+        back-to-back calls), the plain version's, the library call's
+        (F.scaled_dot_product_attention, a boolean mask where a window or a
+        cache position needs one) and the bound of this input; and the
+        library call, for its device time."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_decode as fd
+        q, k, v = tensors
+        fn = self._flash_call(kind, tensors, extra)
+        ms = _cuda_time_ms(lambda: fn(q, k, v), reps=100)
+        if kind == "attention":
+            b, h, s, d = q.shape
+            t, window = k.shape[2], extra
+            plain_ms = _cuda_time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, window=window), reps=10, warmup=2)
+            if window is None:
+                def lib_fn():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)
+            else:
+                rows = torch.arange(s, device=self.dev)[:, None] + (t - s)
+                cols = torch.arange(t, device=self.dev)[None]
+                mask = (cols <= rows) & (cols > rows - window)
+
+                def lib_fn():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True)
+            nbytes = q.element_size() * (2 * q.numel() + k.numel()
+                                         + v.numel())
+            ops_ = 4 * b * h * d * _attention_pairs(s, t, True, window)
+            row = {"model": model, "S": s, "T": t, "window": window,
+                   "source":
+                   "src/repro_torch/csrc/flash_attention.cu", "replaces":
+                   "src/repro/kernels/flash_attention.py:106"}
         else:
-            kl, vl = kt, vt
-        mask = (torch.arange(s, device=self.dev) <= pos)[None, None, None]
-        q4 = q[:, :, None]
-        lib_ms = _cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kl, vl, attn_mask=mask, enable_gqa=True))
-        valid = pos + 1
-        cache_bytes = 2 * b * kv * valid * d * kt.element_size()
-        if scales:
-            cache_bytes += 2 * b * kv * valid * 4
-        nbytes = 2 * q.numel() * q.element_size() + cache_bytes
-        bound, by = _bound_ms(nbytes, 4 * b * h * valid * d, BF16_OPS_PER_S)
-        row = {"S": s, "pos": pos, "dtype": "bf16",
-               "cache": "int8" if scales else "bf16", "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
-               "bound_by": by}
-        if not scales:
-            self.kernels["flash_decode"] = {
-                "source": "src/repro_torch/csrc/flash_decode.cu",
-                "replaces": "src/repro/kernels/flash_decode.py:96",
-                "max_abs_err": float((got.float() - want.float()).abs()
-                                     .max()),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": by, "library_ms": lib_ms}
-        return row
+            b, h, d = q.shape
+            kv, s = k.shape[1], k.shape[2]
+            pos, scales = s - 1, extra
+            got = fn(q, k, v)
+            want = fd.flash_decode_plain(q, k, v, pos, **scales)
+            plain_ms = _cuda_time_ms(lambda: fd.flash_decode_plain(
+                q, k, v, pos, **scales), reps=50)
+            if scales:  # SDPA on the dequantized copy (made outside timing)
+                kl = (k.float() * scales["k_scale"][..., None]).to(q.dtype)
+                vl = (v.float() * scales["v_scale"][..., None]).to(q.dtype)
+            else:
+                kl, vl = k, v
+            mask = (torch.arange(s, device=self.dev) <= pos)[None, None,
+                                                              None]
+            q4 = q[:, :, None]
+
+            def lib_fn():
+                return F.scaled_dot_product_attention(
+                    q4, kl, vl, attn_mask=mask, enable_gqa=True)
+            valid = pos + 1
+            cache_bytes = 2 * b * kv * valid * d * k.element_size()
+            if scales:
+                cache_bytes += 2 * b * kv * valid * 4
+            nbytes = 2 * q.numel() * q.element_size() + cache_bytes
+            ops_ = 4 * b * h * valid * d
+            row = {"model": model, "S": s, "pos": pos,
+                   "cache": "int8" if scales else "bf16", "source":
+                   "src/repro_torch/csrc/flash_decode.cu", "replaces":
+                   "src/repro/kernels/flash_decode.py:96"}
+        lib_ms = _cuda_time_ms(lib_fn, reps=100)
+        bound, by = _bound_ms(nbytes, ops_, BF16_OPS_PER_S)
+        row.update({"dtype": "bf16", "max_abs_err": float(
+            (got.float() - want.float()).abs().max()), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": by})
+        return row, lib_fn
 
     def serve(self) -> str:
         torch = self.torch
@@ -1436,7 +1658,15 @@ class Smoke:
         return "kernel step = plain step on the same logits: " + "; ".join(out)
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    """``--phases 1,8`` runs those phases only (they need phase 1's build
+    first), for work on one part; with no arguments, all of them."""
+    phases_arg = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phases":
+            print("usage: chip_smoke.py [--phases N,M,...]", file=sys.stderr)
+            return 2
+        phases_arg = sorted({int(n) for n in argv[1].split(",")})
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1449,24 +1679,26 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
+    card = f"card: {smi.stdout.strip().splitlines()[0]}"
+    print(card, flush=True)
     s = Smoke()
-    s.phase(1, s.build)
-    s.phase(2, s.kernel_vs_plain)
-    s.phase(3, s.cli_path)
-    s.phase(4, s.mimic)
-    s.phase(5, s.fashion)
-    s.phase(6, s.mimic_channel)
-    s.phase(7, s.fashion_channel)
-    s.phase(8, s.flash_vs_plain)
-    s.phase(9, s.serve)
-    s.phase(10, s.ce_vs_plain)
-    s.phase(11, s.train)
+    phases = {1: s.build, 2: s.kernel_vs_plain, 3: s.cli_path, 4: s.mimic,
+              5: s.fashion, 6: s.mimic_channel, 7: s.fashion_channel,
+              8: s.flash_vs_plain, 9: s.serve, 10: s.ce_vs_plain,
+              11: s.train}
+    chosen = sorted(phases) if phases_arg is None else phases_arg
+    for num in chosen:
+        s.phase(num, phases[num])
     if s.failed:
         print(f"chip_smoke: failed {s.failed}", file=sys.stderr)
         return 1
+    if chosen != sorted(phases):
+        print(f"chip_smoke: phases {chosen} passed (a partial run prints "
+              f"no result)")
+        return 0
     kernels = [{"name": name, "route": "cuda", **s.kernels[name],
                 "launches": s.launches[name]} for name in _counters()]
+    print(card)  # again near the end, where a reader of the tail finds it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1475,4 +1707,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

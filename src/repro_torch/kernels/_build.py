@@ -21,7 +21,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LOGS: dict[str, str] = {}  # nvcc's output (ptxas' registers and spills)
 
 
 def _nvcc() -> str:
@@ -63,7 +64,8 @@ def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
 
 def build(*names: str) -> list[Path]:
     """Compile every named source that is not built yet, all ``nvcc``
-    processes started together, and return the libraries' paths."""
+    processes started together, and return the libraries' paths; each
+    compiler's output is kept in ``LOGS``."""
     started = [(name, _start_build(name)) for name in names]
     errors = []
     for name, job in started:
@@ -71,6 +73,7 @@ def build(*names: str) -> list[Path]:
             continue
         proc, tmp, target = job
         out, _ = proc.communicate()
+        LOGS[name] = out
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             errors.append(f"nvcc failed for {name}.cu "

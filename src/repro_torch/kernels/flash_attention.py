@@ -3,14 +3,18 @@ grouped-query heads: CUDA kernel and plain version.
 
 Counterpart of ``repro/kernels/flash_attention.py``, whose Pallas TPU
 kernel this replaces with ``csrc/flash_attention.cu`` (built by
-:mod:`._build`).  Layouts as in the reference: q [B, H, S, D], k/v
-[B, KV, T, D] with H % KV == 0 (the KV head of query head h is
-h // (H / KV)); queries are right-aligned against the keys (offset T - S);
-scale 1/sqrt(D).  Unlike the TPU kernel it takes any S <= T and any T (the
-ragged last tiles are masked), and any strides with a unit stride on D, so
-the model hands it its [B, S, H, D] activations as permuted views.  The
-output is allocated [B, S, H, D] in memory and returned as its [B, H, S, D]
-view, so the model's merge of the heads is free.
+:mod:`._build`).  The dtype picks the kernel (:func:`kernel_for`):
+bfloat16 runs on the tensor cores (wgmma, K/V through TMA), float32 on the
+CUDA cores (the repository's float32 rule keeps TF32 off).  Layouts as in
+the reference: q [B, H, S, D], k/v [B, KV, T, D] with H % KV == 0 (the KV
+head of query head h is h // (H / KV)); queries are right-aligned against
+the keys (offset T - S); scale 1/sqrt(D).  Unlike the TPU kernel it takes
+any S <= T and any T (the ragged last tiles are masked), and any strides
+with a unit stride on D, so the model hands it its [B, S, H, D]
+activations as permuted views; the bfloat16 kernel also needs what TMA
+needs (:func:`check_tma_layout`).  The output is allocated [B, S, H, D] in
+memory and returned as its [B, H, S, D] view, so the model's merge of the
+heads is free.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and uses
 :func:`flash_attention_plain` (the semantics of ``repro/kernels/ref.py``'s
@@ -19,6 +23,7 @@ the other.  It counts its launches in ``flash_attention.launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -29,6 +34,9 @@ from repro_torch.kernels.quantize import on_card
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNELS = {torch.float32: "flash_attention_f32",
+           torch.bfloat16: "flash_attention_bf16"}
+TMA_ALIGN = 16  # bytes: TMA's rule for bases and strides
 
 
 # ------------------------------------------------------------ plain version
@@ -59,12 +67,55 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load("flash_attention")
-    if lib.flash_attention.argtypes is None:
-        p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention.argtypes = [p, p, p, p] + [i32] * 9 + [
-            ctypes.c_float, ctypes.POINTER(ctypes.c_int64), p]
-        lib.flash_attention.restype = ctypes.c_int
+    for name in KERNELS.values():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            p, i32 = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [p, p, p, p] + [i32] * 8 + [
+                ctypes.c_float, ctypes.POINTER(ctypes.c_int64), p]
+            fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_for(dtype: torch.dtype) -> str:
+    """The C entry point that takes ``dtype``: the tensor-core kernel for
+    bfloat16, the CUDA-core kernel for float32; no other dtype has one."""
+    if dtype not in KERNELS:
+        raise TypeError(f"no flash_attention kernel for {dtype}")
+    return KERNELS[dtype]
+
+
+def check_tma_layout(*named: tuple[str, torch.Tensor]) -> None:
+    """Raise unless each tensor is one TMA can copy in boxes: a head dim
+    of a multiple of 16 bytes (8 bf16), and a 16-byte aligned base and
+    stride on every other axis longer than 1."""
+    for name, x in named:
+        size, bad = x.element_size(), x.data_ptr() % TMA_ALIGN
+        bad |= x.shape[-1] * size % TMA_ALIGN
+        for n, st in zip(x.shape[:-1], x.stride()[:-1]):
+            if n > 1:
+                bad |= st * size % TMA_ALIGN
+        if bad:
+            raise ValueError(
+                f"{name}: the tensor-core kernel reads {TMA_ALIGN}-byte "
+                f"aligned rows (TMA): head dim {x.shape[-1]}, strides "
+                f"{tuple(x.stride())}, base at {x.data_ptr() % TMA_ALIGN} "
+                f"bytes past a {TMA_ALIGN}-byte boundary")
+
+
+def current(device: torch.device):
+    """A context in which ``device`` is the current card; none when it
+    already is, which saves the switch's host time on every call."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream, read as PyTorch's own
+    launchers read it: without building a ``torch.cuda.Stream`` object for
+    its ``cuda_stream`` on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_head_dim_last(name: str, x: torch.Tensor) -> None:
@@ -111,23 +162,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_head_dim_last(name, x)
+    kernel = kernel_for(q.dtype)
+    if q.dtype == torch.bfloat16:
+        check_tma_layout(("q", q), ("k", k), ("v", v))
     b, h, s, d = q.shape
     kv, t = k.shape[1], k.shape[2]
     if -(-s // 64) > 65535:
         raise ValueError(f"S={s} exceeds the kernel's grid")
-    out = torch.empty((b, s, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1),
+                              dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        status = _lib().flash_attention(
+    with current(q.device):
+        status = getattr(_lib(), kernel)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], b, h, kv, s, t, d, int(causal),
+            b, h, kv, s, t, d, int(causal),
             0 if window is None else window, 1.0 / math.sqrt(d), strides,
-            stream)
+            raw_stream(q.device))
     if status != 0:
-        raise RuntimeError(f"flash_attention launch failed with cudaError_t "
+        raise RuntimeError(f"{kernel} launch failed with cudaError_t "
                            f"{status}")
     flash_attention.launches += 1
     return out

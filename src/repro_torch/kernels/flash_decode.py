@@ -13,6 +13,15 @@ and any strides with a unit stride on D, so the model hands it its
 [B, S, KV, D] cache and [B, S, KV] scales as permuted views; ``pos`` is a
 host integer in [0, S).
 
+The kernel splits the valid positions over blocks (split-KV): a block
+takes the query heads of one KV head (:func:`heads_per_block`) and one
+chunk of the positions (:func:`split_plan`), and a second launch merges
+each head's partial softmax states in a fixed order.  The plan is made
+here, in Python, from the valid range (:func:`valid_range`), the grid's
+other axis, the card's SM count and the rows a block loads at once
+(:func:`rows_per_pass`).  The cache's rows are read in vectors
+(:func:`check_cache_layout`).
+
 :func:`flash_decode` launches the kernel for CUDA tensors and uses
 :func:`flash_decode_plain` (the semantics of ``repro/kernels/ref.py``'s
 ``flash_decode``) only for CPU tensors; it never falls back from one to
@@ -21,12 +30,14 @@ the other.  It counts its launches in ``flash_decode.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
-                                                 NEG_INF, check_head_dim_last)
+                                                 NEG_INF, check_head_dim_last,
+                                                 current, raw_stream)
 from repro_torch.kernels.quantize import on_card
 
 
@@ -55,13 +66,99 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+# --------------------------------------------------------------- the plan
+BLOCKS_PER_SM = 4    # the split aims at this many blocks on each SM or more
+CHUNK_ALIGN = 8      # chunk lengths are multiples of this many positions
+MAX_SPLIT = 64       # the kernel's merge takes at most this many chunks
+MAX_HEADS_PER_BLOCK = 8
+
+
+def valid_range(pos: int, s: int, window: int | None) -> tuple[int, int]:
+    """The valid positions [lo, hi] of a cache of ``s`` at ``pos``."""
+    lo = 0 if window is None else max(0, pos - window + 1)
+    return lo, min(pos, s - 1)
+
+
+def heads_per_block(g: int) -> int:
+    """Query heads one block takes of the ``g`` that share a KV head: all of
+    them up to 8, else the largest power of two <= 8 that divides g."""
+    gt = MAX_HEADS_PER_BLOCK
+    while g % gt:
+        gt //= 2
+    return gt
+
+
+def vector_of(dtype: torch.dtype) -> tuple[int, int]:
+    """(bytes, values) of one load of a cache row of ``dtype``: 16 bytes
+    of float32 or bfloat16, 8 of int8 (a 120-dim int8 row is only 8-byte
+    aligned)."""
+    return (8, 8) if dtype == torch.int8 else (16, 16 // dtype.itemsize)
+
+
+def rows_per_pass(dtype: torch.dtype, d: int) -> int:
+    """Cache rows a block loads at once, as the kernel lays them out: 4
+    warps, L lanes a row (16 for a row of <= 128 values in 8-value
+    vectors, else 32), 4 rows a lane group."""
+    lanes = 16 if vector_of(dtype)[1] == 8 and d <= 128 else 32
+    return 4 * (32 // lanes) * 4
+
+
+def split_plan(lo: int, hi: int, blocks: int, sms: int,
+               pass_rows: int) -> tuple[int, int]:
+    """(n_split, chunk): block j of a row of ``n_split`` takes positions
+    [lo + j * chunk, min(hi, lo + (j + 1) * chunk - 1)].  The chunk is a
+    multiple of CHUNK_ALIGN positions, small enough for BLOCKS_PER_SM
+    blocks on each of ``sms`` SMs over the ``blocks`` of the grid's other
+    axis, and at most one pass of ``pass_rows`` (a block's loads all in
+    flight at once), unless MAX_SPLIT chunks would not cover the range.
+    No chunk is empty."""
+    n = hi - lo + 1
+    if n < 1 or blocks < 1 or sms < 1 or pass_rows < CHUNK_ALIGN:
+        raise ValueError(f"no plan for positions [{lo}, {hi}], {blocks} "
+                         f"blocks, {sms} SMs, {pass_rows} rows a pass")
+
+    def align(x: int) -> int:
+        return -(-x // CHUNK_ALIGN) * CHUNK_ALIGN
+
+    want = -(-BLOCKS_PER_SM * sms // blocks)
+    chunk = max(min(align(-(-n // want)), pass_rows // CHUNK_ALIGN
+                    * CHUNK_ALIGN), align(-(-n // MAX_SPLIT)))
+    return -(-n // chunk), chunk
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of card ``index`` (the plan's other input)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_cache_layout(*named: tuple[str, torch.Tensor]) -> None:
+    """Raise unless each cache tensor is one the kernel reads in vectors:
+    a head dim that is a multiple of the vector's values, and a base and
+    every stride of an axis longer than 1 aligned to the vector."""
+    for name, x in named:
+        nbytes, values = vector_of(x.dtype)
+        size, bad = x.element_size(), x.data_ptr() % nbytes
+        bad |= x.shape[-1] % values
+        for n, st in zip(x.shape[:-1], x.stride()[:-1]):
+            if n > 1:
+                bad |= st * size % nbytes
+        if bad:
+            raise ValueError(
+                f"{name}: the kernel reads {x.dtype} rows {nbytes} bytes "
+                f"({values} values) at a time: head dim {x.shape[-1]}, "
+                f"strides {tuple(x.stride())}, base at "
+                f"{x.data_ptr() % nbytes} bytes past a {nbytes}-byte "
+                f"boundary")
+
+
 # -------------------------------------------------------------- the kernel
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load("flash_decode")
     if lib.flash_decode.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode.argtypes = [p] * 6 + [i32] * 9 + [
+        lib.flash_decode.argtypes = [p] * 8 + [i32] * 12 + [
             ctypes.c_float, ctypes.POINTER(ctypes.c_int64), p]
         lib.flash_decode.restype = ctypes.c_int
     return lib
@@ -119,23 +216,30 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
                                   v_scale=v_scale, window=window)
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_head_dim_last(name, x)
+    check_cache_layout(("k", k), ("v", v))
     b, h, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     quant = k_scale is not None
-    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    lo, hi = valid_range(pos, s, window)
+    gt = heads_per_block(h // kv)
+    n_split, chunk = split_plan(lo, hi, b * h // gt, sm_count(q.device.index),
+                                rows_per_pass(k.dtype, d))
+    out = q.new_empty((b, h, d))
+    # the blocks' partials: acc [B * H, n_split, D], then (m, l) pairs
+    scratch = q.new_empty(b * h * n_split * (d + 2), dtype=torch.float32)
+    part_ml = scratch.data_ptr() + 4 * b * h * n_split * d
     ks, vs = (k_scale, v_scale) if quant else (k, v)  # strides unused
     strides = (ctypes.c_int64 * 16)(
         *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *ks.stride()[:3],
         *vs.stride()[:3], *out.stride()[:2])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    with current(q.device):
         status = _lib().flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None, out.data_ptr(),
-            DTYPES[q.dtype], int(quant), b, h, kv, s, d, pos,
-            0 if window is None else window, 1.0 / math.sqrt(d), strides,
-            stream)
+            scratch.data_ptr(), part_ml, DTYPES[q.dtype], int(quant), b, h,
+            kv, s, d, lo, hi, chunk, n_split, gt, 1.0 / math.sqrt(d),
+            strides, raw_stream(q.device))
     if status != 0:
         raise RuntimeError(f"flash_decode launch failed with cudaError_t "
                            f"{status}")

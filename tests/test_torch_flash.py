@@ -225,50 +225,75 @@ def test_wrappers_never_fall_back_off_the_cpu():
 @pytest.mark.gpu
 def test_flash_kernels_match_plain_on_card():
     """The CUDA kernels against their plain versions on the card at the
-    model's shapes (skips without one): f32 within 2e-5 max|v|, bf16
-    within 2^-7 max|v|; the launch counters count."""
+    dense models' shapes (skips without one): qwen3-0.6b (H 16, KV 8, D
+    128), h2o-danube-3-4b (H 32, KV 8, D 120, a window of 128 that bites at
+    S 512) and gemma-7b (H = KV = 16, D 256), and one non-causal case;
+    f32 within 2e-5 max|v|, bf16 within 2^-7 max|v|; two runs give the
+    same bits; the launch counters count one per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = ((4, 16, 8, 128, None), (2, 32, 8, 120, 128),
+              (2, 16, 16, 256, None))
     for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, 2 ** -7)):
-        for s, t, window in ((512, 512, None), (500, 500, None),
-                             (512, 512, 128), (37, 130, 16)):
-            q = torch.randn(4, 16, s, 128, generator=gen, device=dev)
-            k = torch.randn(4, 8, t, 128, generator=gen, device=dev)
-            v = torch.randn(4, 8, t, 128, generator=gen, device=dev)
-            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-            before = tfa.flash_attention.launches
-            got = tfa.flash_attention(q, k, v, window=window)
-            want = tfa.flash_attention_plain(q, k, v, window=window)
-            torch.cuda.synchronize()
-            assert tfa.flash_attention.launches == before + 1
-            err = float((got.float() - want.float()).abs().max())
-            assert err <= tol * float(v.float().abs().max()), (s, t, err)
-        for quant in (False, True):
-            q = torch.randn(4, 16, 128, generator=gen, device=dev).to(dtype)
-            if quant:
-                k = torch.randint(-127, 128, (4, 8, 576, 128), generator=gen,
-                                  device=dev, dtype=torch.int8)
-                v = torch.randint(-127, 128, (4, 8, 576, 128), generator=gen,
-                                  device=dev, dtype=torch.int8)
-                kw = dict(k_scale=torch.rand(4, 8, 576, generator=gen,
-                                             device=dev) * 0.05,
-                          v_scale=torch.rand(4, 8, 576, generator=gen,
-                                             device=dev) * 0.05)
-                vmax = float((v.float() * kw["v_scale"][..., None]).abs()
-                             .max())
-            else:
-                k = torch.randn(4, 8, 576, 128, generator=gen,
-                                device=dev).to(dtype)
-                v = torch.randn(4, 8, 576, 128, generator=gen,
-                                device=dev).to(dtype)
-                kw, vmax = {}, float(v.float().abs().max())
-            for pos in (0, 511, 575):
-                for window in (None, 128):
-                    got = tfd.flash_decode(q, k, v, pos, window=window, **kw)
-                    want = tfd.flash_decode_plain(q, k, v, pos,
-                                                  window=window, **kw)
-                    torch.cuda.synchronize()
-                    err = float((got.float() - want.float()).abs().max())
-                    assert err <= tol * vmax, (quant, pos, window, err)
+        for b, h, kv, d, win in shapes:
+            cases = ((512, 512, win, True), (500, 500, win, True),
+                     (512, 512, 128, True), (37, 130, 16, True),
+                     (200, 300, None, False))
+            for s, t, window, causal in cases:
+                # the model's layout: [B, S, H, D] seen as [B, H, S, D]
+                q = torch.randn(b, s, h, d, generator=gen, device=dev)
+                k = torch.randn(b, t, kv, d, generator=gen, device=dev)
+                v = torch.randn(b, t, kv, d, generator=gen, device=dev)
+                q, k, v = (x.to(dtype).transpose(1, 2) for x in (q, k, v))
+                before = tfa.flash_attention.launches
+                got, again = (tfa.flash_attention(q, k, v, causal=causal,
+                                                  window=window)
+                              for _ in range(2))
+                want = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+                torch.cuda.synchronize()
+                assert tfa.flash_attention.launches == before + 2
+                assert torch.equal(got, again), (d, s, t)
+                err = float((got.float() - want.float()).abs().max())
+                assert err <= tol * float(v.float().abs().max()), \
+                    (d, s, t, err)
+            for quant in (False, True):
+                q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
+                if quant:
+                    k = torch.randint(-127, 128, (b, 576, kv, d),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int8)
+                    v = torch.randint(-127, 128, (b, 576, kv, d),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int8)
+                    kw = dict(k_scale=torch.rand(b, 576, kv, generator=gen,
+                                                 device=dev) * 0.05,
+                              v_scale=torch.rand(b, 576, kv, generator=gen,
+                                                 device=dev) * 0.05)
+                    vmax = float((v.float() * kw["v_scale"][..., None])
+                                 .abs().max())
+                    kw = {n: x.transpose(1, 2) for n, x in kw.items()}
+                else:
+                    k = torch.randn(b, 576, kv, d, generator=gen,
+                                    device=dev).to(dtype)
+                    v = torch.randn(b, 576, kv, d, generator=gen,
+                                    device=dev).to(dtype)
+                    kw, vmax = {}, float(v.float().abs().max())
+                k, v = k.transpose(1, 2), v.transpose(1, 2)
+                for pos in (0, 511, 575):
+                    for window in (None, 128):
+                        before = tfd.flash_decode.launches
+                        got = tfd.flash_decode(q, k, v, pos, window=window,
+                                               **kw)
+                        again = tfd.flash_decode(q, k, v, pos, window=window,
+                                                 **kw)
+                        want = tfd.flash_decode_plain(q, k, v, pos,
+                                                      window=window, **kw)
+                        torch.cuda.synchronize()
+                        assert tfd.flash_decode.launches == before + 2
+                        assert torch.equal(got, again), (d, quant, pos)
+                        err = float((got.float() - want.float()).abs().max())
+                        assert err <= tol * vmax, (d, quant, pos, window,
+                                                   err)
