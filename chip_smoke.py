@@ -6,15 +6,24 @@
 
 1. Prints the card's name and power limit; builds the CUDA kernels from
    src/repro_torch/csrc with nvcc (all sources at once) and times the build;
-   prints ``flash_ptxas`` (registers and spill bytes of every flash kernel
-   instantiation, from ``-Xptxas=-v``) and fails unless ``cuobjdump -sass``
+   prints ``flash_ptxas`` and ``hop_ptxas`` (registers and spill bytes of
+   every flash, ignorance and quantize kernel instantiation, from
+   ``-Xptxas=-v``) and fails if one spills, or unless ``cuobjdump -sass``
    finds tensor-core instructions (HGMMA or HMMA) in the flash_attention
    library.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's sizes and beyond, and times kernel, plain version and bound:
-   the ignorance update, and the wire channel's quantize-dequant (vectors
-   and score blocks), int4 pack and unpack (integers and scales exact, two
-   runs identical); times the copy of a hop's channel draws to the card.
+   main path's sizes, at both sides of each boundary of the launch plans
+   and beyond, bit for bit, two runs identical: the ignorance update (one
+   cluster launch; its unnormalized mode in w_new and the partials), and
+   the wire channel's quantize-dequant (vectors and score blocks; one
+   launch), int4 pack and unpack.  Prints each plan (``ignorance_plans``,
+   ``quantize_plans``: cluster size and CTAs), checks with torch.profiler
+   that the update at n = 42000 and the quantize-dequant at 42000 and
+   [18000, 10] are one device kernel a call, and times kernel (call ms and
+   device ms), plain version and bound (``kernel_table``,
+   ``quantize_table``) and an empty kernel launched the same way
+   (``launch_floor``, plain and as a cluster of 8); times the copy of a
+   hop's channel draws to the card.
 3. Runs the session CLI path (blob3, tree agents) with the metered and the
    mesh-ring transport: the kernels' launch counts equal the hop count, the
    ledger equals the Fig.-4 formula, and a session paused after 2 rounds
@@ -132,8 +141,8 @@ def _counters() -> dict:
     from repro_torch.kernels import ignorance as ig
     from repro_torch.kernels import quantize as q
     from repro_torch.kernels import weighted_ce as wce
-    return {"ignorance_update_unnormalized": ig.ignorance_update_unnormalized,
-            "ignorance_normalize": ig.normalize_,
+    return {"ignorance_update": ig.ignorance_update,
+            "ignorance_update_unnormalized": ig.ignorance_update_unnormalized,
             "quantize_dequant_tiles": q.quantize_dequant_tiles,
             "quantize_dequant_block": q.quantize_dequant_block,
             "pack_int4": q.pack_int4,
@@ -166,7 +175,7 @@ def _attention_pairs(s: int, t: int, causal: bool, window) -> int:
 def _kernel_device_ms(fn, key: str, reps: int = 100) -> float:
     """Device time a call of the kernels whose name holds ``key``:
     torch.profiler's kernel durations over ``reps`` calls of ``fn`` (after
-    a warm-up), summed and divided by ``reps``."""
+    a warm-up), their mean times the kernels a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -178,14 +187,40 @@ def _kernel_device_ms(fn, key: str, reps: int = 100) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0  # key "" takes every kernel of the window
+    total, count = 0.0, 0  # key "" takes every kernel of the window
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA and key in evt.key:
             us = getattr(evt, "self_device_time_total", None)
             total += (evt.self_cuda_time_total if us is None else us) / 1e3
+            count += evt.count
     if total <= 0:
         raise RuntimeError(f"the profiler saw no {key} kernel")
-    return total / reps
+    # the mean kernel times the kernels a call: a kernel the tracer
+    # dropped from the window does not pull the time down
+    return total / count * max(1, round(count / reps))
+
+
+def _device_kernels_per_call(fn, reps: int = 20) -> tuple[float, dict]:
+    """Device kernels a call of ``fn``: torch.profiler's kernel events over
+    ``reps`` calls (after a warm-up), divided by ``reps``; and the count of
+    each kernel by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):      # a window where the tracer dropped a kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {evt.key[:60]: evt.count for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA}
+        if seen and sum(seen.values()) % reps == 0:
+            break
+    return sum(seen.values()) / reps, seen
 
 
 def _live_tiles(s: int, t: int, causal: bool, window) -> int:
@@ -293,8 +328,8 @@ def _ptxas_usage(log: str) -> dict:
 
 def _short_name(demangled: str) -> str:
     """``void (anonymous namespace)::f<(int)4>(Args)`` -> ``f<4>``."""
-    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|\(int\)",
-                  "", demangled)
+    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|"
+                  r"\((int|bool)\)", "", demangled)
     return name[:name.index("(")] if "(" in name else name
 
 
@@ -375,13 +410,12 @@ class Smoke:
             fn.launches = 0
 
     def read_counts(self, hops: int, where: str, **channel: int) -> None:
-        """The main path's launches since reset_counts: one of each
-        ignorance pass per shipped hop, and the wire channel's kernels as
-        ``channel`` names them (0 where not named), added to the run's
-        totals."""
+        """The main path's launches since reset_counts: one fused
+        ignorance update per shipped hop (and no unnormalized one), and the
+        wire channel's kernels as ``channel`` names them (0 where not
+        named), added to the run's totals."""
         want = {name: 0 for name in _counters()}
-        want["ignorance_update_unnormalized"] = hops
-        want["ignorance_normalize"] = hops
+        want["ignorance_update"] = hops
         want.update(channel)
         got = {name: fn.launches for name, fn in _counters().items()}
         self.require(got == want,
@@ -398,63 +432,102 @@ class Smoke:
         t0 = time.perf_counter()
         _build.build(*sources)
         secs = time.perf_counter() - t0
-        usage = {}
+        usage, hop = {}, {}
         for name in ("flash_attention", "flash_decode"):
             usage.update(_ptxas_usage(_build.LOGS[name]))
+        for name in ("ignorance", "quantize"):
+            hop.update(_ptxas_usage(_build.LOGS[name]))
         print("flash_ptxas " + json.dumps(usage), flush=True)
-        spills = [k for k, u in usage.items() if u["spill"] != [0, 0]]
+        print("hop_ptxas " + json.dumps(hop), flush=True)
+        spills = [k for k, u in {**usage, **hop}.items()
+                  if u["spill"] != [0, 0]]
+        self.require(not spills, f"spilling instantiations: {spills}")
         mma = _sass_count(_build.library_path("flash_attention"),
                           ("HGMMA", "HMMA"))
         self.require(sum(mma.values()) > 0,
                      f"no tensor-core instruction in the flash_attention "
                      f"library's SASS: {mma}")
         return (f"built {sources} with nvcc in {secs:.2f} s; flash "
-                f"instantiations {len(usage)}, spilling {spills or 'none'}; "
+                f"instantiations {len(usage)}, ignorance and quantize "
+                f"{len(hop)}, none spilling; "
                 f"flash_attention SASS tensor-core instructions {mma}")
 
     def kernel_vs_plain(self) -> str:
         torch = self.torch
         from repro_torch.kernels import ignorance as ig
         from repro_torch.kernels import ops
-        tol = 1e-6
-        rows = []
         gen = torch.Generator(device=self.dev).manual_seed(0)
-        # 420, 10500, 42000: the hops of phases 3, 4, 5
-        for n in (1, 210, 420, 1024, 1000, 4096, 10500, 42000, 2 ** 20 + 3,
-                  2 ** 20):
+        limit = ig.cluster_limit(self.dev.index or 0)
+        # 420, 10500, 42000: the hops of phases 3, 4, 5; then both sides of
+        # each boundary of the plan (the cluster limit at 8 and 16 tiles,
+        # 2, 3, 4, 5 tiles a CTA under either limit, LARGE_N at 64 tiles)
+        ns = [1, 210, 420, 1024, 1000, 4096, 10500, 42000, 2 ** 18,
+              2 ** 20 + 3, 2 ** 20]
+        for tiles in (8, 16, 24, 32, 48, 64):
+            ns += [tiles * ig.BN, tiles * ig.BN + 1]
+        rows, plans = [], {}
+        for n in ns:
             w = torch.rand(n, generator=gen, device=self.dev) + 0.01
             w /= w.sum()
             r = (torch.rand(n, generator=gen, device=self.dev) > 0.4).float()
             a = torch.tensor(1.7, device=self.dev)
-            k_w, k_p = ig.ignorance_update_unnormalized(w, r, a)
-            p_w, p_p = ig.ignorance_update_unnormalized_plain(w, r, a)
             k_n = ops.ignorance_update(w, r, a)
             p_n = ig.ignorance_update_plain(w, r, a)
+            k_w, k_p = ig.ignorance_update_unnormalized(w, r, a)
+            p_w, p_p = ig.ignorance_update_unnormalized_plain(w, r, a)
             torch.cuda.synchronize()
-            errs = (_max_rel(k_w, p_w), _max_rel(k_p, p_p), _max_rel(k_n, p_n))
-            self.require(max(errs) <= tol,
-                         f"n={n}: max rel err (w_new, partials, w) {errs} > {tol}")
+            self.require(torch.equal(k_n, p_n),
+                         f"n={n}: the update differs from the plain version "
+                         f"(max abs {float((k_n - p_n).abs().max())})")
+            self.require(torch.equal(k_w, p_w) and torch.equal(k_p, p_p),
+                         f"n={n}: the unnormalized mode differs from the "
+                         f"plain version in w_new or the partials")
             self.require(torch.equal(ops.ignorance_update(w, r, a), k_n),
                          f"n={n}: two runs differ")
-            row = {"n": n, "rel_err": errs,
-                   "abs_err": float((k_n - p_n).abs().max())}
-            if n in (10500, 42000, 2 ** 20):
-                row["kernel_ms"] = _cuda_time_ms(
-                    lambda: ops.ignorance_update(w, r, a))
-                row["plain_ms"] = _cuda_time_ms(
-                    lambda: ig.ignorance_update_plain(w, r, a))
-                row["bound_ms"] = _bound_ms(12 * n, 4 * n)[0]
+            p = ig.plan(n, limit)
+            plans[n] = [p.route, p.cluster, p.ctas, p.tiles_per_cta]
+            if n in (10500, 42000, ig.LARGE_N, ig.LARGE_N + 1, 2 ** 18,
+                     2 ** 20):
+                rows.append({
+                    "n": n, "route": p.route,
+                    "kernel_ms": _cuda_time_ms(
+                        lambda: ops.ignorance_update(w, r, a)),
+                    "device_ms": _kernel_device_ms(
+                        lambda: ops.ignorance_update(w, r, a), ""),
+                    "plain_ms": _cuda_time_ms(
+                        lambda: ig.ignorance_update_plain(w, r, a)),
+                    "bound_ms": _bound_ms(12 * n + 4, 4 * n)[0]})
             if n == 42000:      # the main path's largest hop (phase 5)
-                self._kernel_rows(w, r, a, k_w, p_w, k_n, p_n)
-            rows.append(row)
-        print("kernel_table " + json.dumps(
-            [{k: v for k, v in r.items() if k != "rel_err"} for r in rows
-             if "kernel_ms" in r]), flush=True)
-        worst = [max(r["rel_err"][i] for r in rows) for i in range(3)]
-        return (f"ignorance n in {[r['n'] for r in rows]}: max rel err w_new "
-                f"{worst[0]:.3g}, partials {worst[1]:.3g}, normalized w "
-                f"{worst[2]:.3g} (tolerance {tol}); "
+                per_call, seen = _device_kernels_per_call(
+                    lambda: ops.ignorance_update(w, r, a))
+                self.require(per_call == 1, f"ops.ignorance_update at n = "
+                             f"{n}: {per_call} device kernels a call {seen}")
+                self._kernel_rows(w, r, a, k_n, p_n, k_w, p_w)
+        print(f"ignorance_plans cluster_limit={limit} [route, cluster, "
+              f"ctas, tiles_per_cta] " + json.dumps(plans),
+              flush=True)
+        print("kernel_table " + json.dumps(rows), flush=True)
+        floor = self._launch_floor()
+        return (f"ignorance n in {ns}: update and unnormalized mode equal to "
+                f"the plain versions bit for bit, two runs identical, one "
+                f"device kernel a call at n = 42000 (cluster limit {limit}); "
+                f"launch floor {floor:.4f} device ms; "
                 + self._quantize_vs_plain())
+
+    def _launch_floor(self) -> float:
+        """The empty kernel of csrc/ignorance.cu through the same ctypes
+        route, plain and as a cluster of 8: call ms and device ms.  Returns
+        the plain launch's device ms."""
+        from repro_torch.kernels import ignorance as ig
+        out = {}
+        for cluster in (1, 8):
+            def fn():
+                ig.launch_floor(self.dev, cluster)
+            out[cluster] = {"ms": _cuda_time_ms(fn),
+                            "device_ms": _kernel_device_ms(fn,
+                                                           "empty_kernel")}
+        print("launch_floor " + json.dumps(out), flush=True)
+        return out[1]["device_ms"]
 
     def _quantize_vs_plain(self) -> str:
         """The wire channel's kernels against their plain versions on one
@@ -465,9 +538,13 @@ class Smoke:
         from repro_torch.kernels import ops
         from repro_torch.kernels import quantize as q
         gen = torch.Generator(device=self.dev).manual_seed(1)
-        checked, timed = 0, []
-        shapes = [(n,) for n in (1, 420, 1000, 1024, 10500, 42000, 2 ** 20,
-                                 2 ** 20 + 3)]
+        limit = q.cluster_limit(self.dev.index or 0)
+        checked, timed, plans = 0, [], {}
+        # global tiles on both sides of each boundary of the plan: one CTA
+        # (1024), the cluster limit (8 and 16 CTAs), LARGE_TILE
+        shapes = [(n,) for n in (1, 420, 1000, 1024, 1025, 10500, 42000,
+                                 8192, 8193, 16384, 16385, 2 ** 18,
+                                 2 ** 18 + 1, 2 ** 20, 2 ** 20 + 3)]
         # MIMIC's and Fashion's score blocks, global tiles, and the ragged
         # 1020- and 1023-element row tiles
         shapes += [(4500, 2), (18000, 10), (1024, 3), (2048, 10), (2040, 10),
@@ -495,14 +572,26 @@ class Smoke:
                                      for a, b in zip(again, got)),
                                  f"quantize {shape}: two runs differ")
                     checked += 1
-            if shape in ((10500,), (42000,), (2 ** 20,), (4500, 2),
-                         (18000, 10)):
-                row = {"shape": list(shape),
+            tile = (q.rows_for(*shape) * shape[1] if block
+                    else q.tile_for(shape[0]))
+            p = q.plan(tile, limit)
+            plans[str(shape)] = [p.route, p.cluster, x.numel() // tile
+                                 * (1 if p.route == "large" else p.cluster)]
+            if shape in ((10500,), (42000,), (2 ** 20,), (2 ** 20 + 3,),
+                         (4500, 2), (18000, 10)):
+                row = {"shape": list(shape), "route": p.route,
                        "kernel_ms": _cuda_time_ms(lambda: kern(x, u, 127.0)),
+                       "device_ms": _kernel_device_ms(
+                           lambda: kern(x, u, 127.0), ""),
                        "plain_ms": _cuda_time_ms(lambda: plain(x, u, 127.0)),
                        "bound_ms": _bound_ms(13 * x.numel() + 4,
                                              8 * x.numel())[0]}
                 timed.append(row)
+            if shape in ((42000,), (18000, 10)):
+                per_call, seen = _device_kernels_per_call(
+                    lambda: kern(x, u, 127.0))
+                self.require(per_call == 1, f"quantize {shape}: {per_call} "
+                             f"device kernels a call {seen}")
             if shape == (42000,):
                 self._quantize_row("quantize_dequant_tiles", x, u, kern,
                                    plain, "src/repro/kernels/quantize.py:73")
@@ -534,11 +623,15 @@ class Smoke:
             (42000,), self.dev))
         block_ms = _host_time_ms(lambda: draws.serve(key, 1).uniform(
             (18000, 10), self.dev))
+        print(f"quantize_plans cluster_limit={limit} [route, cluster, "
+              f"ctas] " + json.dumps(plans), flush=True)
         print("quantize_table " + json.dumps(timed), flush=True)
         print(f"draws_ms hop[42000]={hop_ms:.4f} block[18000,10]="
               f"{block_ms:.4f}", flush=True)
         return (f"quantize/pack/unpack: {checked} cases equal to the plain "
-                f"versions (q, scales, bytes exact), two runs identical; "
+                f"versions (q, scales, bytes exact), two runs identical, "
+                f"quantize one device kernel a call at (42000,) and "
+                f"(18000, 10) (cluster limit {limit}); "
                 f"draws to the card {hop_ms:.3f} ms a hop, {block_ms:.3f} ms "
                 f"a score block")
 
@@ -551,6 +644,7 @@ class Smoke:
             "replaces": replaces,
             "max_abs_err": float((got[0] - want[0]).abs().max()),
             "ms": _cuda_time_ms(lambda: kern(x, u, 127.0)),
+            "device_ms": _kernel_device_ms(lambda: kern(x, u, 127.0), ""),
             "plain_ms": _cuda_time_ms(lambda: plain(x, u, 127.0)),
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
@@ -565,6 +659,7 @@ class Smoke:
             "max_abs_err": float((ops.pack_int4(qv).int()
                                   - q.pack_int4_plain(qv).int()).abs().max()),
             "ms": _cuda_time_ms(lambda: ops.pack_int4(qv)),
+            "device_ms": _kernel_device_ms(lambda: ops.pack_int4(qv), ""),
             "plain_ms": _cuda_time_ms(lambda: q.pack_int4_plain(qv)),
             "bound_ms": bound, "bound_by": by, "library_ms": None}
         self.kernels["unpack_int4"] = {
@@ -574,35 +669,39 @@ class Smoke:
                                   - q.unpack_int4_plain(packed, m).int()
                                   ).abs().max()),
             "ms": _cuda_time_ms(lambda: ops.unpack_int4(packed, m)),
+            "device_ms": _kernel_device_ms(lambda: ops.unpack_int4(packed, m),
+                                           ""),
             "plain_ms": _cuda_time_ms(
                 lambda: q.unpack_int4_plain(packed, m)),
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
-    def _kernel_rows(self, w, r, a, k_w, p_w, k_n, p_n) -> None:
-        torch = self.torch
+    def _kernel_rows(self, w, r, a, k_n, p_n, k_w, p_w) -> None:
         from repro_torch.kernels import ignorance as ig
+        from repro_torch.kernels import ops
         n, nt = w.shape[0], ig.num_tiles(w.shape[0])
+        bound, by = _bound_ms(4 * (3 * n + 1), 4 * n)
+        self.kernels["ignorance_update"] = {
+            "source": "src/repro_torch/csrc/ignorance.cu",
+            "replaces": "src/repro/kernels/ignorance.py:46",
+            "max_abs_err": float((k_n - p_n).abs().max()),
+            "ms": _cuda_time_ms(lambda: ops.ignorance_update(w, r, a)),
+            "device_ms": _kernel_device_ms(
+                lambda: ops.ignorance_update(w, r, a), ""),
+            "plain_ms": _cuda_time_ms(
+                lambda: ig.ignorance_update_plain(w, r, a)),
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
         b1, by1 = _bound_ms(4 * (3 * n + 1 + nt), 4 * n)
         self.kernels["ignorance_update_unnormalized"] = {
             "source": "src/repro_torch/csrc/ignorance.cu",
             "replaces": "src/repro/kernels/ignorance.py:46",
             "max_abs_err": float((k_w - p_w).abs().max()),
-            "ms": _cuda_time_ms(lambda: ig.ignorance_update_unnormalized(w, r, a)),
+            "ms": _cuda_time_ms(
+                lambda: ig.ignorance_update_unnormalized(w, r, a)),
+            "device_ms": _kernel_device_ms(
+                lambda: ig.ignorance_update_unnormalized(w, r, a), ""),
             "plain_ms": _cuda_time_ms(
                 lambda: ig.ignorance_update_unnormalized_plain(w, r, a)),
             "bound_ms": b1, "bound_by": by1, "library_ms": None}
-        # pass 2 on partials summing to 1: in place, repeatable
-        buf = k_w.clone()
-        unit = torch.zeros(nt, device=self.dev)
-        unit[0] = 1.0
-        b2, by2 = _bound_ms(4 * (2 * n + nt), n + nt)
-        self.kernels["ignorance_normalize"] = {
-            "source": "src/repro_torch/csrc/ignorance.cu",
-            "replaces": "src/repro/kernels/ops.py:62",
-            "max_abs_err": float((k_n - p_n).abs().max()),
-            "ms": _cuda_time_ms(lambda: ig.normalize_(buf, unit)),
-            "plain_ms": _cuda_time_ms(lambda: ig.normalize_plain(buf, unit)),
-            "bound_ms": b2, "bound_by": by2, "library_ms": None}
 
     def cli_path(self) -> str:
         torch = self.torch
@@ -1476,13 +1575,18 @@ class Smoke:
                 "source": "src/repro_torch/csrc/weighted_ce.cu",
                 "replaces": "src/repro/kernels/weighted_ce.py:68",
                 "max_abs_err": float((loss - ploss).abs().max()),
-                "ms": fwd_ms, "plain_ms": pfwd_ms, "bound_ms": b_fwd,
+                "ms": fwd_ms, "device_ms": _kernel_device_ms(
+                    lambda: wce.weighted_ce_fwd(x, lab, w), "wce_fwd", 50),
+                "plain_ms": pfwd_ms, "bound_ms": b_fwd,
                 "bound_by": by_fwd, "library_ms": lib_fwd}
             self.kernels["weighted_ce_bwd"] = {
                 "source": "src/repro_torch/csrc/weighted_ce.cu",
                 "replaces": "src/repro/kernels/weighted_ce.py:113",
                 "max_abs_err": float((d.float() - pd.float()).abs().max()),
-                "ms": bwd_ms, "plain_ms": pbwd_ms, "bound_ms": b_bwd,
+                "ms": bwd_ms, "device_ms": _kernel_device_ms(
+                    lambda: wce.weighted_ce_bwd(x, lab, w, lse, g), "wce_bwd",
+                    50),
+                "plain_ms": pbwd_ms, "bound_ms": b_bwd,
                 "bound_by": by_bwd, "library_ms": lib_bwd}
         return row
 

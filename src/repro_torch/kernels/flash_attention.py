@@ -23,13 +23,12 @@ the other.  It counts its launches in ``flash_attention.launches``.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 
 import torch
 
-from repro_torch.kernels.quantize import on_card
+from repro_torch.kernels._launch import current, on_card, raw_stream
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -101,21 +100,6 @@ def check_tma_layout(*named: tuple[str, torch.Tensor]) -> None:
                 f"aligned rows (TMA): head dim {x.shape[-1]}, strides "
                 f"{tuple(x.stride())}, base at {x.data_ptr() % TMA_ALIGN} "
                 f"bytes past a {TMA_ALIGN}-byte boundary")
-
-
-def current(device: torch.device):
-    """A context in which ``device`` is the current card; none when it
-    already is, which saves the switch's host time on every call."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
-def raw_stream(device: torch.device) -> int:
-    """The handle of ``device``'s current stream, read as PyTorch's own
-    launchers read it: without building a ``torch.cuda.Stream`` object for
-    its ``cuda_stream`` on every call."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_head_dim_last(name: str, x: torch.Tensor) -> None:

@@ -35,10 +35,9 @@ import math
 
 import torch
 
+from repro_torch.kernels._launch import current, on_card, raw_stream
 from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
-                                                 NEG_INF, check_head_dim_last,
-                                                 current, raw_stream)
-from repro_torch.kernels.quantize import on_card
+                                                 NEG_INF, check_head_dim_last)
 
 
 # ------------------------------------------------------------ plain version

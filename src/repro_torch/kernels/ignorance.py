@@ -1,32 +1,75 @@
 """Ignorance-score update (paper eqs. 10/12): CUDA kernel and plain version.
 
 Counterpart of ``repro/kernels/ignorance.py``, whose Pallas TPU kernel this
-replaces with ``csrc/ignorance.cu`` (built by :mod:`._build`).  The kernel
-runs in two launches with a fixed reduction order (see the source's note):
+replaces, together with the normalizer of ``repro/kernels/ops.py``, with
+``csrc/ignorance.cu`` (built by :mod:`._build`):
 
-  * :func:`ignorance_update_unnormalized` -- pass 1: ``w * exp(alpha(1-r))``
-    and one partial sum per 1024-tile, the JAX function's API;
-  * :func:`normalize_` -- pass 2: divide by ``max(sum(partials), 1e-12)``
-    in place.
+  * :func:`ignorance_update` -- ``w * exp(alpha(1-r))`` divided by its sum
+    clamped at 1e-12, in one launch on a thread-block cluster (the route
+    for n <= ``LARGE_N``, every hop of the main path; see the source's
+    note), or in two launches above that (the large-n route);
+  * :func:`ignorance_update_unnormalized` -- ``w * exp(alpha(1-r))`` and one
+    partial sum per 1024-tile, the JAX function's API, in one launch.
 
-Unlike the TPU kernel it takes any n >= 1: the ragged last tile is masked.
-Each wrapper launches its kernel for CUDA tensors and uses the plain
-version below only for CPU tensors; it never falls back from one to the
+Both sum in the same fixed order, so the card gives the plain version's
+bits below.  Unlike the TPU kernel they take any n >= 1: the ragged last
+tile is masked.  :func:`plan` lays the cluster out in Python, where the
+tests reach it.  Each wrapper launches its kernel for CUDA tensors and uses
+the plain version only for CPU tensors; it never falls back from one to the
 other.  Each counts its launches in a plain integer attribute
-(``ignorance_update_unnormalized.launches``, ``normalize_.launches``).
+(``ignorance_update.launches``, ``ignorance_update_unnormalized.launches``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels._launch import (check_status, current, on_card,
+                                         raw_stream)
+
 BN = 1024
+MAX_TILES_PER_CTA = 8
+PORTABLE_CLUSTER = 8
+MAX_CLUSTER = 16
+LARGE_N = 2 ** 16         # above it, the large-n route
 _EPS = 1e-12
 
 
 def num_tiles(n: int) -> int:
     return -(-n // BN)
+
+
+class Plan(NamedTuple):
+    """A launch of :func:`ignorance_update`: ``ctas`` CTAs of
+    ``tiles_per_cta`` tiles each; on the cluster route the grid is one
+    cluster of ``cluster`` CTAs."""
+    route: str            # "cluster" or "large"
+    cluster: int
+    ctas: int
+    tiles_per_cta: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, cluster_limit: int = PORTABLE_CLUSTER) -> Plan:
+    """The launch for a length-n update on a card whose clusters may hold
+    ``cluster_limit`` CTAs (8, or 16 where it fits): as many CTAs as the
+    limit allows, up to one a tile, and as few tiles a CTA as that leaves,
+    no CTA empty.  Above ``LARGE_N`` the large-n route: the unnormalized
+    mode's grid (one CTA a tile), then the second pass."""
+    if n < 1:
+        raise ValueError(f"no plan for n = {n}")
+    if cluster_limit not in (PORTABLE_CLUSTER, MAX_CLUSTER):
+        raise ValueError(f"cluster limit {cluster_limit} is neither "
+                         f"{PORTABLE_CLUSTER} nor {MAX_CLUSTER}")
+    tiles = num_tiles(n)
+    if n > LARGE_N:
+        return Plan("large", 1, tiles, 1)
+    per_cta = -(-tiles // min(cluster_limit, tiles))
+    cluster = -(-tiles // per_cta)
+    return Plan("cluster", cluster, cluster, per_cta)
 
 
 # ----------------------------------------------------------- plain version
@@ -79,14 +122,29 @@ def ignorance_update_plain(w: torch.Tensor, r: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load("ignorance")
-    if lib.ignorance_update_unnormalized.argtypes is None:
-        p = ctypes.c_void_p
-        lib.ignorance_update_unnormalized.argtypes = [p, p, p, p, p,
-                                                      ctypes.c_int64, p]
-        lib.ignorance_update_unnormalized.restype = ctypes.c_int
-        lib.ignorance_normalize.argtypes = [p, p, ctypes.c_int64, p]
-        lib.ignorance_normalize.restype = ctypes.c_int
+    if lib.ignorance_update.argtypes is None:
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.ignorance_update.argtypes = [p, p, p, p, i64, i32, i32, p]
+        lib.ignorance_update_large.argtypes = [p, p, p, p, p, i64, p]
+        lib.ignorance_update_unnormalized.argtypes = [p, p, p, p, p, i64, p]
+        lib.ignorance_max_cluster.argtypes = [ctypes.POINTER(i32)]
+        lib.launch_floor.argtypes = [i32, p]
+        for fn in (lib.ignorance_update, lib.ignorance_update_large,
+                   lib.ignorance_update_unnormalized,
+                   lib.ignorance_max_cluster, lib.launch_floor):
+            fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def cluster_limit(index: int) -> int:
+    """The largest cluster the kernel may take on card ``index`` (the
+    plan's other input), asked of the CUDA runtime once.  Call it with the
+    card current: it also allows the kernel the non-portable size."""
+    out = ctypes.c_int(0)
+    check_status("ignorance_max_cluster",
+                 _lib().ignorance_max_cluster(ctypes.byref(out)))
+    return out.value
 
 
 def _check_vector(name: str, x: torch.Tensor, n: int,
@@ -102,16 +160,9 @@ def _check_vector(name: str, x: torch.Tensor, n: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_status(fn: str, status: int) -> None:
-    if status != 0:
-        raise RuntimeError(f"{fn} launch failed with cudaError_t {status}")
-
-
-def ignorance_update_unnormalized(w: torch.Tensor, r: torch.Tensor,
-                                  alpha: torch.Tensor):
-    """Returns (w * exp(alpha(1-r)) [n], per-tile partial sums
-    [ceil(n/1024)]).  ``w``, ``r``: float32 [n]; ``alpha``: a 0-d float32
-    tensor on the same device."""
+def _check(w: torch.Tensor, r: torch.Tensor, alpha: torch.Tensor) -> int:
+    """Raise unless ``w`` and ``r`` are float32 [n] and ``alpha`` a 0-d
+    float32 tensor, all on one device; returns n."""
     if w.dim() != 1 or w.shape[0] < 1:
         raise ValueError(f"w must be a non-empty vector, got {tuple(w.shape)}")
     n = w.shape[0]
@@ -122,18 +173,54 @@ def ignorance_update_unnormalized(w: torch.Tensor, r: torch.Tensor,
         raise ValueError(f"alpha must be a 0-d float32 tensor on {w.device}, "
                          f"got {alpha.dtype} {tuple(alpha.shape)} on "
                          f"{alpha.device}")
-    if w.device.type == "cpu":
+    return n
+
+
+def ignorance_update(w: torch.Tensor, r: torch.Tensor,
+                     alpha: torch.Tensor) -> torch.Tensor:
+    """The normalized update ``w * exp(alpha(1-r)) / max(sum, 1e-12)``
+    [n].  ``w``, ``r``: float32 [n]; ``alpha``: a 0-d float32 tensor on the
+    same device."""
+    n = _check(w, r, alpha)
+    if not on_card(w, "ignorance"):
+        return ignorance_update_plain(w, r, alpha)
+    out, dev = torch.empty_like(w), w.device
+    with current(dev):
+        p = plan(n, cluster_limit(dev.index))
+        stream = raw_stream(dev)
+        if p.route == "cluster":
+            status = _lib().ignorance_update(
+                w.data_ptr(), r.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+                n, p.cluster, p.tiles_per_cta, stream)
+        else:       # the large-n route's partials are its scratch
+            partials = torch.empty(num_tiles(n), dtype=torch.float32,
+                                   device=dev)
+            status = _lib().ignorance_update_large(
+                w.data_ptr(), r.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+                partials.data_ptr(), n, stream)
+    check_status("ignorance_update", status)
+    ignorance_update.launches += 1
+    return out
+
+
+ignorance_update.launches = 0
+
+
+def ignorance_update_unnormalized(w: torch.Tensor, r: torch.Tensor,
+                                  alpha: torch.Tensor):
+    """Returns (w * exp(alpha(1-r)) [n], per-tile partial sums
+    [ceil(n/1024)]).  ``w``, ``r``: float32 [n]; ``alpha``: a 0-d float32
+    tensor on the same device."""
+    n = _check(w, r, alpha)
+    if not on_card(w, "ignorance"):
         return ignorance_update_unnormalized_plain(w, r, alpha)
-    if w.device.type != "cuda":
-        raise ValueError(f"no ignorance kernel for device {w.device}")
     out = torch.empty_like(w)
     partials = torch.empty(num_tiles(n), dtype=torch.float32, device=w.device)
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    with torch.cuda.device(w.device):
+    with current(w.device):
         status = _lib().ignorance_update_unnormalized(
             w.data_ptr(), r.data_ptr(), alpha.data_ptr(), out.data_ptr(),
-            partials.data_ptr(), n, stream)
-    _check_status("ignorance_update_unnormalized", status)
+            partials.data_ptr(), n, raw_stream(w.device))
+    check_status("ignorance_update_unnormalized", status)
     ignorance_update_unnormalized.launches += 1
     return out, partials
 
@@ -141,26 +228,12 @@ def ignorance_update_unnormalized(w: torch.Tensor, r: torch.Tensor,
 ignorance_update_unnormalized.launches = 0
 
 
-def normalize_(w_new: torch.Tensor, partials: torch.Tensor) -> torch.Tensor:
-    """Divide ``w_new`` by ``max(sum(partials), 1e-12)``: in place on the
-    card (returns ``w_new``), out of place on the CPU."""
-    if w_new.dim() != 1 or w_new.shape[0] < 1:
-        raise ValueError(f"w_new must be a non-empty vector, got "
-                         f"{tuple(w_new.shape)}")
-    n = w_new.shape[0]
-    _check_vector("w_new", w_new, n, w_new.device)
-    _check_vector("partials", partials, num_tiles(n), w_new.device)
-    if w_new.device.type == "cpu":
-        return normalize_plain(w_new, partials)
-    if w_new.device.type != "cuda":
-        raise ValueError(f"no ignorance kernel for device {w_new.device}")
-    stream = torch.cuda.current_stream(w_new.device).cuda_stream
-    with torch.cuda.device(w_new.device):
-        status = _lib().ignorance_normalize(w_new.data_ptr(),
-                                            partials.data_ptr(), n, stream)
-    _check_status("ignorance_normalize", status)
-    normalize_.launches += 1
-    return w_new
-
-
-normalize_.launches = 0
+def launch_floor(device: torch.device, cluster: int = 1) -> None:
+    """Launch the source's empty kernel on ``cluster`` CTAs (a cluster
+    launch above 1) through the same route as the update: the yardstick
+    of a launch's own host and device cost."""
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    with current(device):
+        status = _lib().launch_floor(cluster, raw_stream(device))
+    check_status("launch_floor", status)

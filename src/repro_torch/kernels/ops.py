@@ -46,10 +46,10 @@ def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
 
 def ignorance_update(w: torch.Tensor, r: torch.Tensor,
                      alpha: torch.Tensor) -> torch.Tensor:
-    """Eqs. (10)/(12), normalized: pass 1 then pass 2 of the CUDA kernel for
-    CUDA tensors, their plain version for CPU tensors."""
-    w_new, partials = _ig.ignorance_update_unnormalized(w, r, alpha)
-    return _ig.normalize_(w_new, partials)
+    """Eqs. (10)/(12), normalized: one launch of the CUDA kernel for CUDA
+    tensors (a thread-block cluster sums and scales), its plain version for
+    CPU tensors."""
+    return _ig.ignorance_update(w, r, alpha)
 
 
 def quantize_dequant(x: torch.Tensor, u: torch.Tensor, qmax, *,

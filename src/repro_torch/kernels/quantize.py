@@ -19,6 +19,11 @@ XLA rewrites the division by that constant into this product (a quotient
 and the product differ in the last bit for about half of all absmax values
 at qmax = 7).  ``x / scale`` stays a true division, as in the reference.
 
+Both quantize-dequant wrappers make one launch: one CTA a tile of up to
+1024 elements, one thread-block cluster a larger tile (every main-path
+payload is one global tile), laid out by :func:`plan`; a tile above
+``LARGE_TILE`` takes two launches (see the source's note).
+
 Each wrapper launches its kernel for CUDA tensors and uses the plain
 version below only for CPU tensors; it never falls back from one to the
 other.  Each counts its launches in a plain integer attribute
@@ -27,12 +32,23 @@ other.  Each counts its launches in a plain integer attribute
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels._launch import (check_status, current, on_card,
+                                         raw_stream)
+
 DEFAULT_BN = 1024
 _EPS = 1e-12
+THREADS = 512             # a CTA of the fused kernel
+CTA_TILE = 1024           # tiles up to this size take one CTA
+MAX_PER_THREAD = 64       # elements a thread holds in registers
+PORTABLE_CLUSTER = 8
+MAX_CLUSTER = 16
+LARGE_TILE = 2 ** 18      # above it, the large-n route
 
 
 def tile_for(n: int, bn: int = DEFAULT_BN) -> int:
@@ -47,6 +63,39 @@ def rows_for(n: int, k: int, bn: int = DEFAULT_BN) -> int:
     return tile_for(n, max(1, bn // k))
 
 
+class Plan(NamedTuple):
+    """A launch of the quantize-dequant kernel for tiles of one size:
+    each tile taken by ``cluster`` CTAs of ``per_cta`` elements (the last
+    fewer); one CTA a tile when ``cluster`` is 1."""
+    route: str            # "cta", "cluster" or "large"
+    cluster: int
+    per_cta: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(tile: int, cluster_limit: int = PORTABLE_CLUSTER) -> Plan:
+    """The launch for tiles of ``tile`` elements on a card whose clusters
+    may hold ``cluster_limit`` CTAs (8, or 16 where it fits): one CTA for a
+    tile of up to ``CTA_TILE``; else one cluster a tile, with as many CTAs
+    as the limit allows up to one per ``CTA_TILE`` elements, each share a
+    multiple of 32 elements (whole warps' loads), no CTA empty.  Above
+    ``LARGE_TILE`` the large-n route (two launches)."""
+    if tile < 1:
+        raise ValueError(f"no plan for a tile of {tile}")
+    if cluster_limit not in (PORTABLE_CLUSTER, MAX_CLUSTER):
+        raise ValueError(f"cluster limit {cluster_limit} is neither "
+                         f"{PORTABLE_CLUSTER} nor {MAX_CLUSTER}")
+    if tile > LARGE_TILE:
+        return Plan("large", 1, CTA_TILE)
+    if tile <= CTA_TILE:
+        return Plan("cta", 1, tile)
+    cluster = min(cluster_limit, -(-tile // CTA_TILE))
+    per_cta = -(-tile // cluster)
+    per_cta = -(-per_cta // 32) * 32
+    return Plan("cluster", -(-tile // per_cta), per_cta)
+
+
+@functools.lru_cache(maxsize=None)
 def inv_qmax(qmax) -> float:
     """``float32(1) / float32(qmax)``: the reciprocal the scale multiplies
     by, rounded once in float32 as XLA folds it."""
@@ -107,15 +156,30 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load("quantize")
     if lib.quantize_dequant.argtypes is None:
-        p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-        lib.quantize_dequant.argtypes = [p, p, p, p, p, p, i64, i64, f32, f32,
-                                         p]
-        lib.quantize_dequant.restype = ctypes.c_int
+        p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                            ctypes.c_float)
+        lib.quantize_dequant.argtypes = [p, p, p, p, p, i64, i64, i32, i64,
+                                         f32, f32, p]
+        lib.quantize_dequant_large.argtypes = [p, p, p, p, p, p, i64, i64,
+                                               f32, f32, p]
+        lib.quantize_max_cluster.argtypes = [ctypes.POINTER(i32)]
         lib.pack_int4.argtypes = [p, p, i64, p]
-        lib.pack_int4.restype = ctypes.c_int
         lib.unpack_int4.argtypes = [p, p, i64, p]
-        lib.unpack_int4.restype = ctypes.c_int
+        for fn in (lib.quantize_dequant, lib.quantize_dequant_large,
+                   lib.quantize_max_cluster, lib.pack_int4, lib.unpack_int4):
+            fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def cluster_limit(index: int) -> int:
+    """The largest cluster the kernel may take on card ``index`` (the
+    plan's other input), asked of the CUDA runtime once.  Call it with the
+    card current: it also allows the kernel the non-portable size."""
+    out = ctypes.c_int(0)
+    check_status("quantize_max_cluster",
+                 _lib().quantize_max_cluster(ctypes.byref(out)))
+    return out.value
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
@@ -131,20 +195,6 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def on_card(x: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"no {what} kernel for device {x.device}")
-    return True
-
-
-def _check_status(fn: str, status: int) -> None:
-    if status != 0:
-        raise RuntimeError(f"{fn} launch failed with cudaError_t {status}")
-
-
 def _check_qmax(qmax) -> float:
     qmax = float(qmax)
     if not (qmax >= 1.0 and qmax <= 127.0):
@@ -155,21 +205,29 @@ def _check_qmax(qmax) -> float:
 
 def _launch_quantize(x: torch.Tensor, u: torch.Tensor, qmax: float,
                      tile: int):
-    """Both passes of the CUDA quantize-dequant on a flat payload in tiles
-    of ``tile`` elements; returns flat (xhat, q, scales)."""
-    n = x.numel()
-    xhat = torch.empty(n, dtype=torch.float32, device=x.device)
-    q = torch.empty(n, dtype=torch.int8, device=x.device)
-    scales = torch.empty(n // tile, dtype=torch.float32, device=x.device)
-    chunks = torch.empty((n // tile) * -(-tile // DEFAULT_BN),
-                         dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        status = _lib().quantize_dequant(
-            x.data_ptr(), u.data_ptr(), xhat.data_ptr(), q.data_ptr(),
-            scales.data_ptr(), chunks.data_ptr(), n, tile, qmax,
-            inv_qmax(qmax), stream)
-    _check_status("quantize_dequant", status)
+    """The CUDA quantize-dequant on a flat payload in tiles of ``tile``
+    elements, one launch (two on the large-n route); returns flat (xhat, q,
+    scales)."""
+    n, dev = x.numel(), x.device
+    xhat = torch.empty(n, dtype=torch.float32, device=dev)
+    q = torch.empty(n, dtype=torch.int8, device=dev)
+    scales = torch.empty(n // tile, dtype=torch.float32, device=dev)
+    with current(dev):
+        p = plan(tile, cluster_limit(dev.index))
+        stream = raw_stream(dev)
+        if p.route != "large":
+            status = _lib().quantize_dequant(
+                x.data_ptr(), u.data_ptr(), xhat.data_ptr(), q.data_ptr(),
+                scales.data_ptr(), n, tile, p.cluster, p.per_cta, qmax,
+                inv_qmax(qmax), stream)
+        else:       # the large-n route's chunk maxima are its scratch
+            chunks = torch.empty((n // tile) * -(-tile // CTA_TILE),
+                                 dtype=torch.float32, device=dev)
+            status = _lib().quantize_dequant_large(
+                x.data_ptr(), u.data_ptr(), xhat.data_ptr(), q.data_ptr(),
+                scales.data_ptr(), chunks.data_ptr(), n, tile, qmax,
+                inv_qmax(qmax), stream)
+    check_status("quantize_dequant", status)
     return xhat, q, scales
 
 
@@ -226,10 +284,10 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
         return pack_int4_plain(q)
     m = q.numel()
     packed = torch.empty((m + 1) // 2, dtype=torch.int8, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        status = _lib().pack_int4(q.data_ptr(), packed.data_ptr(), m, stream)
-    _check_status("pack_int4", status)
+    with current(q.device):
+        status = _lib().pack_int4(q.data_ptr(), packed.data_ptr(), m,
+                                  raw_stream(q.device))
+    check_status("pack_int4", status)
     pack_int4.launches += 1
     return packed
 
@@ -250,11 +308,10 @@ def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
     if not on_card(packed, "unpack_int4"):
         return unpack_int4_plain(packed, n)
     q = torch.empty(n, dtype=torch.int8, device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    with torch.cuda.device(packed.device):
+    with current(packed.device):
         status = _lib().unpack_int4(packed.data_ptr(), q.data_ptr(), n,
-                                    stream)
-    _check_status("unpack_int4", status)
+                                    raw_stream(packed.device))
+    check_status("unpack_int4", status)
     unpack_int4.launches += 1
     return q
 

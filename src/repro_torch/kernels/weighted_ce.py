@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.quantize import on_card
+from repro_torch.kernels._launch import on_card
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -85,7 +85,7 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         ig.ignorance_update_unnormalized(torch.zeros(0), torch.zeros(0), ta)
     with pytest.raises(ValueError):
-        ig.normalize_(tw, torch.zeros(2))
+        ig.ignorance_update(tw, tr[:8], ta)
     with pytest.raises(ValueError):
         ig.ignorance_update_unnormalized(tw.to("meta"), tr.to("meta"),
                                          ta.to("meta"))
@@ -94,11 +94,13 @@ def test_wrappers_validate_inputs():
 def test_cpu_path_launches_nothing():
     """CPU tensors take the plain version; the launch counters count only
     kernel launches."""
-    before = (ig.ignorance_update_unnormalized.launches, ig.normalize_.launches)
+    before = (ig.ignorance_update_unnormalized.launches,
+              ig.ignorance_update.launches)
     w, r, a = _wra(300, 1)
     ops.ignorance_update(_t(w), _t(r), torch.tensor(a))
+    ig.ignorance_update_unnormalized(_t(w), _t(r), torch.tensor(a))
     assert (ig.ignorance_update_unnormalized.launches,
-            ig.normalize_.launches) == before
+            ig.ignorance_update.launches) == before
 
 
 @pytest.mark.gpu

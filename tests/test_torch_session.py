@@ -294,8 +294,8 @@ def test_every_standard_hop_goes_through_the_kernel_wrapper(blob,
     wrappers (plain version on the CPU); exact-reweight hops do not."""
     Xtr, ctr, _, _, k = blob
     calls = []
-    real = ig.ignorance_update_unnormalized
-    monkeypatch.setattr(ig, "ignorance_update_unnormalized",
+    real = ig.ignorance_update
+    monkeypatch.setattr(ig, "ignorance_update",
                         lambda *a: calls.append(1) or real(*a))
     for transport in (T.InProcessTransport(), T.MeteredTransport(),
                       T.MeshRingTransport()):
