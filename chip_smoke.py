@@ -16,14 +16,19 @@
    and beyond, bit for bit, two runs identical: the ignorance update (one
    cluster launch; its unnormalized mode in w_new and the partials), and
    the wire channel's quantize-dequant (vectors and score blocks; one
-   launch), int4 pack and unpack.  Prints each plan (``ignorance_plans``,
+   launch), int4 pack and unpack, and the int4 codec's fused encode
+   (quantize with the pack as its epilogue) and decode (unpack with the
+   dequantize), also from offset views of the wire.  Prints each plan
+   (``ignorance_plans``,
    ``quantize_plans``: cluster size and CTAs), checks with torch.profiler
-   that the update at n = 42000 and the quantize-dequant at 42000 and
-   [18000, 10] are one device kernel a call, and times kernel (call ms and
-   device ms), plain version and bound (``kernel_table``,
-   ``quantize_table``) and an empty kernel launched the same way
-   (``launch_floor``, plain and as a cluster of 8); times the copy of a
-   hop's channel draws to the card.
+   that the update at n = 42000, the quantize-dequant and the int4 encode
+   at 42000 and [18000, 10] and the int4 decode at 42000 are one device
+   kernel a call, and times kernel (call ms and device ms), plain version
+   and bound (``kernel_table``, ``quantize_table``; ``int4_wire_table``
+   beside the parent route: quantize then pack, unpack then a cast and a
+   product) and an empty kernel launched the same way (``launch_floor``,
+   plain and as a cluster of 8); times the copy of a hop's channel draws
+   to the card.
 3. Runs the session CLI path (blob3, tree agents) with the metered and the
    mesh-ring transport: the kernels' launch counts equal the hop count, the
    ledger equals the Fig.-4 formula, and a session paused after 2 rounds
@@ -44,8 +49,9 @@
    launches = int-codec hops and score blocks.
 7. Fashion at full width with --codec int8 --serve-codec int4 on the card:
    ledger = wire_bits, the first alpha = phase 5's, the int4 and int8
-   codecs' encode -> decode (quantize, pack, unpack) of a real hop's w
-   equal their roundtrip within one step; accuracy beside phase 5's.
+   codecs' encode -> decode (int4: the fused wire kernels, one launch
+   each) of a real hop's w equal their roundtrip within one step; accuracy
+   beside phase 5's.
 8. The model zoo's kernels against their plain versions on the card at
    the dense models' shapes: qwen3-0.6b (B 4, H 16, KV 8, D 128),
    h2o-danube-3-4b (B 2, H 32, KV 8, D 120, a window of 128 that bites at
@@ -147,6 +153,8 @@ def _counters() -> dict:
             "quantize_dequant_block": q.quantize_dequant_block,
             "pack_int4": q.pack_int4,
             "unpack_int4": q.unpack_int4,
+            "quantize_pack_int4": q.quantize_pack_int4,
+            "unpack_dequant_int4": q.unpack_dequant_int4,
             "flash_attention": fa.flash_attention,
             "flash_decode": fd.flash_decode,
             "weighted_ce_fwd": wce.weighted_ce_fwd,
@@ -182,19 +190,24 @@ def _kernel_device_ms(fn, key: str, reps: int = 100) -> float:
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0  # key "" takes every kernel of the window
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and key in evt.key:
-            us = getattr(evt, "self_device_time_total", None)
-            total += (evt.self_cuda_time_total if us is None else us) / 1e3
-            count += evt.count
+    for _ in range(3):      # a window where the tracer saw no kernel at all
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0  # key "" takes every kernel of the window
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and key in evt.key:
+                us = getattr(evt, "self_device_time_total", None)
+                total += (evt.self_cuda_time_total if us is None
+                          else us) / 1e3
+                count += evt.count
+        if total > 0:
+            break
     if total <= 0:
-        raise RuntimeError(f"the profiler saw no {key} kernel")
+        raise RuntimeError(f"the profiler saw no {key} kernel in three "
+                           f"windows")
     # the mean kernel times the kernels a call: a kernel the tracer
     # dropped from the window does not pull the time down
     return total / count * max(1, round(count / reps))
@@ -512,7 +525,8 @@ class Smoke:
                 f"the plain versions bit for bit, two runs identical, one "
                 f"device kernel a call at n = 42000 (cluster limit {limit}); "
                 f"launch floor {floor:.4f} device ms; "
-                + self._quantize_vs_plain())
+                + self._quantize_vs_plain() + "; "
+                + self._int4_wire_vs_plain(floor))
 
     def _launch_floor(self) -> float:
         """The empty kernel of csrc/ignorance.cu through the same ctypes
@@ -634,6 +648,146 @@ class Smoke:
                 f"(18000, 10) (cluster limit {limit}); "
                 f"draws to the card {hop_ms:.3f} ms a hop, {block_ms:.3f} ms "
                 f"a score block")
+
+    def _int4_wire_vs_plain(self, floor: float) -> str:
+        """The int4 codec's fused encode (quantize with the pack as its
+        epilogue) and decode (unpack with the dequantize) against their
+        plain versions: bytes, scales and xhat bit for bit, decode = the
+        quantize-dequant's xhat, two runs the same bits, the wire also
+        read from offset views; one device kernel a call at the main
+        path's payloads; ``int4_wire_table`` beside the parent route."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import quantize as q
+        gen = torch.Generator(device=self.dev).manual_seed(2)
+        shapes = [(n,) for n in (1, 7, 420, 1024, 1025, 8192, 8193, 16384,
+                                 16385, 10500, 42000, 42001, 2 ** 18 - 1,
+                                 2 ** 18, 2 ** 18 + 1, 2 ** 20 + 3)]
+        shapes += [(4500, 2), (18000, 10), (1024, 3), (2040, 10), (3069, 3)]
+        table, checked = [], 0
+        for shape in shapes:
+            n = math.prod(shape)
+            tile = (q.rows_for(*shape) * shape[1] if len(shape) == 2
+                    else q.tile_for(n))
+            x = (torch.rand(shape, generator=gen, device=self.dev) - 0.3) * 5
+            for u in (torch.rand(shape, generator=gen, device=self.dev),
+                      torch.full(shape, 0.5, device=self.dev)):
+                packed, scales = ops.quantize_pack_int4(x, u, 7.0, tile)
+                want_p, want_s = q.quantize_pack_int4_plain(x, u, 7.0, tile)
+                xhat = ops.unpack_dequant_int4(packed, scales, n, tile)
+                want = q.unpack_dequant_int4_plain(want_p, want_s, n, tile)
+                roundtrip = q.quantize_dequant_plain(
+                    x.reshape(-1), u.reshape(-1), 7.0, bn=tile)[0]
+                torch.cuda.synchronize()
+                self.require(torch.equal(packed, want_p)
+                             and torch.equal(scales, want_s),
+                             f"int4 encode {shape}: bytes or scales differ "
+                             f"from the plain version")
+                self.require(torch.equal(xhat.view(torch.int32),
+                                         want.view(torch.int32))
+                             and torch.equal(xhat, roundtrip),
+                             f"int4 decode {shape}: xhat differs from the "
+                             f"plain version or the roundtrip")
+                again = ops.quantize_pack_int4(x, u, 7.0, tile)
+                self.require(torch.equal(again[0], packed)
+                             and torch.equal(again[1], scales)
+                             and torch.equal(ops.unpack_dequant_int4(
+                                 packed, scales, n, tile), xhat),
+                             f"int4 wire {shape}: two runs differ")
+                checked += 1
+            lead = 1 + n % 3                     # an offset view of the wire
+            buf = torch.empty(lead + packed.numel(), dtype=torch.int8,
+                              device=self.dev)
+            buf[lead:].copy_(packed)
+            self.require(torch.equal(ops.unpack_dequant_int4(
+                buf[lead:], scales, n, tile), xhat),
+                f"int4 decode {shape}: an offset view decodes otherwise")
+            xbuf = torch.empty(n + 1, device=self.dev)   # x off 8 bytes
+            xbuf[1:].copy_(x.reshape(-1))
+            got = ops.quantize_pack_int4(xbuf[1:].view(shape), u, 7.0, tile)
+            self.require(torch.equal(got[0], packed)
+                         and torch.equal(got[1], scales),
+                         f"int4 encode {shape}: an offset view of x encodes "
+                         f"otherwise")
+            if shape in ((42000,), (18000, 10)):
+                table.append(self._int4_wire_row(x, u, tile, floor))
+            if shape == (42000,):       # a Fashion hop's int4 wire
+                for name, key, line in (("quantize_pack_int4", "encode", 131),
+                                        ("unpack_dequant_int4", "decode",
+                                         150)):
+                    r = table[-1][key]
+                    self.kernels[name] = {
+                        "source": "src/repro_torch/csrc/quantize.cu",
+                        "replaces": f"src/repro/kernels/quantize.py:{line}",
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "device_ms": r["device_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None}
+        print("int4_wire_table " + json.dumps(table), flush=True)
+        return (f"int4 wire: {checked} cases of the fused encode and "
+                f"decode equal to the plain versions bit for bit (decode = "
+                f"the quantize-dequant's xhat), two runs identical, offset "
+                f"views; encode and decode one device kernel a call at "
+                f"(42000,) and (18000, 10)")
+
+    def _int4_wire_row(self, x, u, tile, floor) -> dict:
+        """One ``int4_wire_table`` row: the fused encode and decode (call
+        ms, device ms, device kernels a call, plain ms, bound ms, max abs
+        err against the plain version) beside the quantize-dequant alone on
+        the same inputs, the parent route's (the quantize-dequant then the
+        pack; the unpack, a cast and a product) and the launch floor."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import quantize as q
+        n, tiles = x.numel(), x.numel() // tile
+        packed, scales = ops.quantize_pack_int4(x, u, 7.0, tile)
+        xhat = ops.unpack_dequant_int4(packed, scales, n, tile)
+        qd = (ops.quantize_dequant_block if x.dim() == 2
+              else ops.quantize_dequant)
+
+        def parent_encode():        # the codec's default tiles, as ``tile``
+            return ops.pack_int4(qd(x, u, 7.0)[1])
+
+        def parent_decode():
+            return (ops.unpack_int4(packed, n).to(torch.float32)
+                    .reshape(-1, tile) * scales[:, None]).reshape(-1)
+
+        self.require(torch.equal(parent_decode(), xhat)
+                     and torch.equal(parent_encode(), packed),
+                     f"int4 wire {tuple(x.shape)}: the parent route gives "
+                     f"other bits")
+        plain_p = q.quantize_pack_int4_plain(x, u, 7.0, tile)[0]
+        plain_x = q.unpack_dequant_int4_plain(packed, scales, n, tile)
+        fused = {  # name: (call, plain, max abs err, bytes, operations)
+            "encode": (lambda: ops.quantize_pack_int4(x, u, 7.0, tile),
+                       lambda: q.quantize_pack_int4_plain(x, u, 7.0, tile),
+                       (packed.int() - plain_p.int()).abs().max(),
+                       8 * n + (n + 1) // 2 + 4 * tiles, 8 * n),
+            "decode": (lambda: ops.unpack_dequant_int4(packed, scales, n,
+                                                       tile),
+                       lambda: q.unpack_dequant_int4_plain(packed, scales, n,
+                                                           tile),
+                       (xhat - plain_x).abs().max(),
+                       (n + 1) // 2 + 4 * tiles + 4 * n, 2 * n)}
+        others = {"quantize_alone": lambda: qd(x, u, 7.0),
+                  "parent_encode": parent_encode,
+                  "parent_decode": parent_decode}
+        row = {"shape": list(x.shape), "launch_floor_device_ms": floor}
+        for name, fn in [*((k, v[0]) for k, v in fused.items()),
+                         *others.items()]:
+            per_call, seen = _device_kernels_per_call(fn)
+            if name in fused:
+                self.require(per_call == 1, f"int4 {name} {tuple(x.shape)}: "
+                             f"{per_call} device kernels a call {seen}")
+            row[name] = {"ms": _cuda_time_ms(fn),
+                         "device_ms": _kernel_device_ms(fn, ""),
+                         "kernels_a_call": per_call}
+        for name, (_, plain, err, nbytes, ops_) in fused.items():
+            bound, by = _bound_ms(nbytes, ops_)
+            row[name].update(plain_ms=_cuda_time_ms(plain),
+                             max_abs_err=float(err), bound_ms=bound,
+                             bound_by=by)
+        return row
 
     def _quantize_row(self, name, x, u, kern, plain, replaces) -> None:
         got, want = kern(x, u, 127.0), plain(x, u, 127.0)
@@ -1010,9 +1164,10 @@ class Smoke:
             E.SessionConfig(num_classes=10, max_rounds=5),
             lambda dev: LogisticRegression(steps=300, device=dev))
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        # the int wires of a real hop's w: encode (quantize, and pack for
-        # int4) then decode (unpack) equals the fused roundtrip, and every
-        # element lies within one quantization step of its input
+        # the int wires of a real hop's w: encode (int4: the quantize with
+        # the pack fused in) then decode (int4: the unpack fused with the
+        # dequantize) equals the fused roundtrip, and every element lies
+        # within one quantization step of its input
         w = session.state.w
         draws = session.draws.hop(session.state.key, 0, 0)
         for bits in (4, 8):
@@ -1029,10 +1184,12 @@ class Smoke:
                          f"int{bits}: an element is more than one step "
                          f"({step}) from its input")
         counts = self._int_codec_counts(t)
-        counts["quantize_dequant_tiles"] += 4       # encode and roundtrip x2
+        # int8's encode, both roundtrips; int4's encode and decode are one
+        # launch each of the fused wire kernels
+        counts["quantize_dequant_tiles"] += 3
         self.read_counts(sum(e["kind"] == "ignorance" for e in t.log.entries),
-                         "fashion int8", pack_int4=1, unpack_int4=1,
-                         **counts)
+                         "fashion int8", quantize_pack_int4=1,
+                         unpack_dequant_int4=1, **counts)
         self._check_wire_bits(t, Xtr[0].shape[0], tuple(served.shape) + (10,))
         alphas = [c.alpha for c in session.state.components]
         self.require(all(math.isfinite(a) for a in alphas),
@@ -1059,7 +1216,7 @@ class Smoke:
                 f"{kinds['score_block']} (= wire_bits); session {secs:.2f} s, "
                 f"peak device memory {peak_gib:.3f} GiB; int4/int8 "
                 f"encode->decode of a hop's w = roundtrip, within one step "
-                f"(pack/unpack at n={w.numel()})")
+                f"(the fused int4 wire at n={w.numel()})")
 
     # ------------------------------------------------------- model zoo
     # The dense models' attention: (model, batch, H, KV, D, window);

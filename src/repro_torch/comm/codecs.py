@@ -22,8 +22,9 @@ tensor, so a lossy codec really degrades the interchange.
   ===========  =======================  ============================
 
 The int codecs run the quantize kernels (``kernels/quantize.py``:
-``roundtrip`` and ``encode`` the quantize-dequant kernel, int4's
-``encode``/``decode`` the pack and unpack kernels).  ``topk`` keeps a
+``roundtrip`` and int8's ``encode`` the quantize-dequant kernel, int4's
+``encode`` the quantize with the pack fused into it, int4's ``decode`` the
+unpack fused with the dequantize).  ``topk`` keeps a
 per-link error-feedback residual, carried in ``SessionState.codec_state``.
 
 Random draws are arguments: a stochastic codec takes the hop's
@@ -122,8 +123,10 @@ class QuantCodec(Codec):
 
     ``bits`` per element (8 or 4; int4 travels packed two to a byte).
     ``stochastic`` selects unbiased stochastic rounding (needs the hop's
-    draws) against round-half-up.  ``roundtrip`` and ``encode`` run the
-    quantize-dequant kernel; ``decode(encode(x))`` equals ``roundtrip(x)``.
+    draws) against round-half-up.  ``roundtrip`` runs the quantize-dequant
+    kernel, and so does int8's ``encode``; int4's ``encode`` and ``decode``
+    run the fused int4 wire kernels.  ``decode(encode(x))`` equals
+    ``roundtrip(x)``.
     """
     bits: int = 8
     stochastic: bool = True
@@ -133,12 +136,16 @@ class QuantCodec(Codec):
     def qmax(self) -> float:
         return float(2 ** (self.bits - 1) - 1)
 
-    def _tiles(self, shape) -> int:
+    def _tile(self, shape) -> int:
+        """Elements that share a scale: a block's row tile times its
+        width, else the tile of the flat payload."""
         if isinstance(shape, (tuple, list, torch.Size)) and len(shape) == 2:
             n, k = int(shape[0]), int(shape[1])
-            return n // rows_for(n, k, self.bn)
-        n = numel(shape)
-        return n // tile_for(n, self.bn)
+            return rows_for(n, k, self.bn) * k
+        return tile_for(numel(shape), self.bn)
+
+    def _tiles(self, shape) -> int:
+        return numel(shape) // self._tile(shape)
 
     def wire_bits(self, shape) -> int:
         m = numel(shape)
@@ -167,18 +174,26 @@ class QuantCodec(Codec):
         return xhat, state
 
     def encode(self, x, draws=None, state=None):
-        _, q, scales = self._quantize(x, draws)
         if self.bits == 4:
+            if x.dim() not in (1, 2):
+                raise ValueError(f"QuantCodec takes a vector or an [n, K] "
+                                 f"block, got shape {tuple(x.shape)}")
+            packed, scales = ops.quantize_pack_int4(
+                x.to(torch.float32).contiguous(), self._u(x, draws),
+                self.qmax, self._tile(tuple(x.shape)))
             # the shape rides the wire so decode can unpack odd counts
-            return (ops.pack_int4(q), scales, tuple(q.shape)), state
+            return (packed, scales, tuple(x.shape)), state
+        _, q, scales = self._quantize(x, draws)
         return (q, scales), state
 
     def decode(self, wire):
         if self.bits == 4:
             packed, scales, shape = wire
-            q = ops.unpack_int4(packed, numel(shape)).reshape(shape)
-        else:
-            q, scales = wire
+            n = numel(shape)
+            return ops.unpack_dequant_int4(packed, scales, n,
+                                           n // scales.shape[0]
+                                           ).reshape(shape)
+        q, scales = wire
         if q.dim() == 2:
             n, k = q.shape
             br = n // scales.shape[0]

@@ -1,8 +1,9 @@
 """Public wrappers for the port's kernels.
 
-Counterpart of ``repro/kernels/ops.py``: the ignorance update, the four
+Counterpart of ``repro/kernels/ops.py``: the ignorance update, the
 wire-codec kernels (quantize-dequant for vectors and score blocks, int4
-pack and unpack), the weighted cross-entropy with its backward, flash
+pack and unpack, and the int4 codec's fused encode and decode), the
+weighted cross-entropy with its backward, flash
 attention and flash decode; every Pallas kernel of the reference has its
 CUDA counterpart.  Each runs its CUDA kernel for CUDA tensors and its plain
 version for CPU tensors.
@@ -75,6 +76,20 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
 def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of :func:`pack_int4`: n int8-carried int4 values (flat)."""
     return _q.unpack_int4(packed, n)
+
+
+def quantize_pack_int4(x: torch.Tensor, u: torch.Tensor, qmax, tile: int):
+    """The int4 codec's encode in one launch: the per-tile quantize of a
+    flat payload with its packing as the epilogue; returns (packed wire
+    bytes [ceil(numel / 2)], per-tile scales)."""
+    return _q.quantize_pack_int4(x, u, qmax, tile)
+
+
+def unpack_dequant_int4(packed: torch.Tensor, scales: torch.Tensor, n: int,
+                        tile: int) -> torch.Tensor:
+    """The int4 codec's decode in one launch: the flat dequantized [n] of
+    :func:`quantize_pack_int4`'s wire."""
+    return _q.unpack_dequant_int4(packed, scales, n, tile)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

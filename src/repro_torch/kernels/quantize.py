@@ -1,5 +1,5 @@
-"""Fused quantize-dequant and int4 packing for the wire codecs: CUDA kernels
-and their plain versions.
+"""Fused quantize-dequant and the int4 wire for the codecs: CUDA kernels and
+their plain versions.
 
 Counterpart of ``repro/kernels/quantize.py``, whose four Pallas TPU kernels
 this replaces with ``csrc/quantize.cu`` (built by :mod:`._build`):
@@ -9,7 +9,13 @@ this replaces with ``csrc/quantize.cu`` (built by :mod:`._build`):
   * :func:`quantize_dequant_block` -- the same body over the row tiles of an
     [n, k] score block (the serve codec);
   * :func:`pack_int4` / :func:`unpack_int4` -- two int4 values per wire
-    byte, the int4 codec's ``encode``/``decode``.
+    byte, the reference's ``ops.pack_int4`` / ``ops.unpack_int4``;
+  * :func:`quantize_pack_int4` / :func:`unpack_dequant_int4` -- the int4
+    codec's ``encode`` and ``decode``, one launch each: the quantize with
+    the pack as its epilogue (no xhat, no int8 q), and the unpack with the
+    dequantize.  A payload of several odd tiles (pairs straddle two tiles),
+    or one whose x or u is an offset view off an 8-byte boundary, encodes
+    in two launches, the quantize-dequant and then the pack.
 
 Per tile: ``scale = max(|x|, 1e-12) * float32(1/qmax)``,
 ``q = clip(floor(x / scale + u), -qmax, qmax)``, ``xhat = q * scale``.
@@ -19,10 +25,10 @@ XLA rewrites the division by that constant into this product (a quotient
 and the product differ in the last bit for about half of all absmax values
 at qmax = 7).  ``x / scale`` stays a true division, as in the reference.
 
-Both quantize-dequant wrappers make one launch: one CTA a tile of up to
-1024 elements, one thread-block cluster a larger tile (every main-path
-payload is one global tile), laid out by :func:`plan`; a tile above
-``LARGE_TILE`` takes two launches (see the source's note).
+Both quantize-dequant wrappers and the int4 encode make one launch: one
+CTA a tile of up to 1024 elements, one thread-block cluster a larger tile
+(every main-path payload is one global tile), laid out by :func:`plan`; a
+tile above ``LARGE_TILE`` takes two launches (see the source's note).
 
 Each wrapper launches its kernel for CUDA tensors and uses the plain
 version below only for CPU tensors; it never falls back from one to the
@@ -151,6 +157,23 @@ def unpack_int4_plain(packed: torch.Tensor, n: int) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).reshape(-1)[:n]
 
 
+def quantize_pack_int4_plain(x: torch.Tensor, u: torch.Tensor, qmax,
+                             tile: int):
+    """The int4 encode in PyTorch ops, per tile of ``tile`` contiguous
+    elements of the flat payload: (packed [ceil(numel / 2)] int8, scales
+    [numel / tile] f32)."""
+    _, q, scales = _quantize_flat(x, u, qmax, tile)
+    return pack_int4_plain(q), scales
+
+
+def unpack_dequant_int4_plain(packed: torch.Tensor, scales: torch.Tensor,
+                              n: int, tile: int) -> torch.Tensor:
+    """The int4 decode in PyTorch ops: the flat xhat [n], each value times
+    its tile's scale (one float32 product, as the reference's decode)."""
+    q = unpack_int4_plain(packed, n).to(torch.float32)
+    return (q.reshape(-1, tile) * scales[:, None]).reshape(-1)
+
+
 # -------------------------------------------------------------- the kernels
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
@@ -162,11 +185,18 @@ def _lib() -> ctypes.CDLL:
                                          f32, f32, p]
         lib.quantize_dequant_large.argtypes = [p, p, p, p, p, p, i64, i64,
                                                f32, f32, p]
+        lib.quantize_pack_int4.argtypes = [p, p, p, p, i64, i64, i32, i64,
+                                           f32, f32, p]
+        lib.quantize_pack_int4_large.argtypes = [p, p, p, p, p, i64, i64,
+                                                 f32, f32, p]
         lib.quantize_max_cluster.argtypes = [ctypes.POINTER(i32)]
         lib.pack_int4.argtypes = [p, p, i64, p]
         lib.unpack_int4.argtypes = [p, p, i64, p]
+        lib.unpack_dequant_int4.argtypes = [p, p, p, i64, i64, p]
         for fn in (lib.quantize_dequant, lib.quantize_dequant_large,
-                   lib.quantize_max_cluster, lib.pack_int4, lib.unpack_int4):
+                   lib.quantize_pack_int4, lib.quantize_pack_int4_large,
+                   lib.quantize_max_cluster, lib.pack_int4, lib.unpack_int4,
+                   lib.unpack_dequant_int4):
             fn.restype = ctypes.c_int
     return lib
 
@@ -195,12 +225,21 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_qmax(qmax) -> float:
+def _check_qmax(qmax, top: float = 127.0) -> float:
     qmax = float(qmax)
-    if not (qmax >= 1.0 and qmax <= 127.0):
-        raise ValueError(f"qmax must lie in [1, 127] (an int8 carrier), "
-                         f"got {qmax}")
+    if not (qmax >= 1.0 and qmax <= top):
+        raise ValueError(f"qmax must lie in [1, {top:g}] (an "
+                         f"{'int4' if top < 127 else 'int8'} carrier), got "
+                         f"{qmax}")
     return qmax
+
+
+def _check_tile(n: int, tile: int) -> int:
+    tile = int(tile)
+    if n < 1 or tile < 1 or n % tile:
+        raise ValueError(f"a payload of {n} elements does not split into "
+                         f"tiles of {tile}")
+    return tile
 
 
 def _launch_quantize(x: torch.Tensor, u: torch.Tensor, qmax: float,
@@ -274,6 +313,17 @@ def quantize_dequant_block(x: torch.Tensor, u: torch.Tensor, qmax, *,
 quantize_dequant_block.launches = 0
 
 
+def _launch_pack(q: torch.Tensor) -> torch.Tensor:
+    """The CUDA pack of a contiguous int8 tensor: its flat wire bytes."""
+    m = q.numel()
+    packed = torch.empty((m + 1) // 2, dtype=torch.int8, device=q.device)
+    with current(q.device):
+        status = _lib().pack_int4(q.data_ptr(), packed.data_ptr(), m,
+                                  raw_stream(q.device))
+    check_status("pack_int4", status)
+    return packed
+
+
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
     """Pack int8-carried int4 values (any shape, row-major order) into a
     flat int8 tensor of ceil(numel / 2) wire bytes."""
@@ -282,12 +332,7 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
     _check("q", q, torch.int8, tuple(q.shape), q.device)
     if not on_card(q, "pack_int4"):
         return pack_int4_plain(q)
-    m = q.numel()
-    packed = torch.empty((m + 1) // 2, dtype=torch.int8, device=q.device)
-    with current(q.device):
-        status = _lib().pack_int4(q.data_ptr(), packed.data_ptr(), m,
-                                  raw_stream(q.device))
-    check_status("pack_int4", status)
+    packed = _launch_pack(q)
     pack_int4.launches += 1
     return packed
 
@@ -295,16 +340,21 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
 pack_int4.launches = 0
 
 
-def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
-    """Unpack :func:`pack_int4` wire bytes back to ``n`` int8-carried int4
-    values (flat; callers reshape)."""
+def _check_wire(packed: torch.Tensor, n: int) -> int:
     n = int(n)
     if n < 1:
-        raise ValueError(f"unpack_int4 needs n >= 1, got {n}")
+        raise ValueError(f"unpacking needs n >= 1, got {n}")
     if packed.dim() != 1 or packed.shape[0] != (n + 1) // 2:
         raise ValueError(f"{tuple(packed.shape)} packed bytes cannot hold "
                          f"{n} int4 values")
     _check("packed", packed, torch.int8, tuple(packed.shape), packed.device)
+    return n
+
+
+def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Unpack :func:`pack_int4` wire bytes back to ``n`` int8-carried int4
+    values (flat; callers reshape)."""
+    n = _check_wire(packed, n)
     if not on_card(packed, "unpack_int4"):
         return unpack_int4_plain(packed, n)
     q = torch.empty(n, dtype=torch.int8, device=packed.device)
@@ -317,3 +367,77 @@ def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
 
 
 unpack_int4.launches = 0
+
+
+def quantize_pack_int4(x: torch.Tensor, u: torch.Tensor, qmax, tile: int):
+    """The int4 codec's encode of a float32 payload ``x`` (any shape,
+    row-major) with rounding draws ``u`` of its shape, in tiles of ``tile``
+    contiguous elements that share a scale: ``(packed [ceil(numel / 2)]
+    int8, scales [numel / tile] f32)``, the wire of :func:`pack_int4` over
+    the quantize-dequant's q.  One launch, whose epilogue packs; a payload
+    of several odd tiles, or x or u off an 8-byte boundary, takes the
+    quantize-dequant and then the pack."""
+    qmax = _check_qmax(qmax, 7.0)
+    n = x.numel()
+    tile = _check_tile(n, tile)
+    _check("x", x, torch.float32, tuple(x.shape), x.device)
+    _check("u", u, torch.float32, tuple(x.shape), x.device)
+    if not on_card(x, "quantize_pack_int4"):
+        return quantize_pack_int4_plain(x, u, qmax, tile)
+    if (tile % 2 and n != tile) or x.data_ptr() % 8 or u.data_ptr() % 8:
+        # a byte's pair would straddle two CTAs, or x and u cannot be read
+        # in 8-byte pairs: quantize, then pack, each counted as its own
+        _, q, scales = _launch_quantize(x, u, qmax, tile)
+        qd = quantize_dequant_block if x.dim() == 2 else quantize_dequant_tiles
+        qd.launches += 1
+        packed = _launch_pack(q)
+        pack_int4.launches += 1
+        return packed, scales
+    dev = x.device
+    packed = torch.empty((n + 1) // 2, dtype=torch.int8, device=dev)
+    scales = torch.empty(n // tile, dtype=torch.float32, device=dev)
+    with current(dev):
+        p = plan(tile, cluster_limit(dev.index))
+        stream = raw_stream(dev)
+        if p.route != "large":
+            status = _lib().quantize_pack_int4(
+                x.data_ptr(), u.data_ptr(), packed.data_ptr(),
+                scales.data_ptr(), n, tile, p.cluster, p.per_cta, qmax,
+                inv_qmax(qmax), stream)
+        else:
+            chunks = torch.empty((n // tile) * -(-tile // CTA_TILE),
+                                 dtype=torch.float32, device=dev)
+            status = _lib().quantize_pack_int4_large(
+                x.data_ptr(), u.data_ptr(), packed.data_ptr(),
+                scales.data_ptr(), chunks.data_ptr(), n, tile, qmax,
+                inv_qmax(qmax), stream)
+    check_status("quantize_pack_int4", status)
+    quantize_pack_int4.launches += 1
+    return packed, scales
+
+
+quantize_pack_int4.launches = 0
+
+
+def unpack_dequant_int4(packed: torch.Tensor, scales: torch.Tensor, n: int,
+                        tile: int) -> torch.Tensor:
+    """The int4 codec's decode: the flat float32 xhat [n] of
+    :func:`quantize_pack_int4`'s wire, ``float(q_i) * scales[i // tile]``,
+    in one launch."""
+    n = _check_wire(packed, n)
+    tile = _check_tile(n, tile)
+    _check("scales", scales, torch.float32, (n // tile,), packed.device)
+    if not on_card(packed, "unpack_dequant_int4"):
+        return unpack_dequant_int4_plain(packed, scales, n, tile)
+    dev = packed.device
+    xhat = torch.empty(n, dtype=torch.float32, device=dev)
+    with current(dev):
+        status = _lib().unpack_dequant_int4(
+            packed.data_ptr(), scales.data_ptr(), xhat.data_ptr(), n, tile,
+            raw_stream(dev))
+    check_status("unpack_dequant_int4", status)
+    unpack_dequant_int4.launches += 1
+    return xhat
+
+
+unpack_dequant_int4.launches = 0

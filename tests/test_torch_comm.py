@@ -274,7 +274,8 @@ def test_fp16_roundtrip_is_exact(shape):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("shape", [(10500,), (1024,), (4500, 2), (2040, 10)])
+@pytest.mark.parametrize("shape", [(10500,), (1024,), (4500, 2), (2040, 10),
+                                   (3069, 3), (10501,)])
 def test_quant_codec_wire_matches_reference(bits, shape):
     """The int codecs' wire, given the reference's uniforms: q (or the
     packed int4 bytes) and scales exact; decode(encode(x)) equals the fused
