@@ -96,6 +96,41 @@
    against the plain loss's on the same logits (loss rtol 1e-5, global
    gradient norm rtol 1e-2).  Then ``--preset 100m --steps 300`` (float32,
    the reference example's run): its loss falls.
+12. The paper's other learners, on the card, through the session:
+   (a) the Fashion halves at full width with the paper's 3-layer network
+   (MLP(128, 64), 200 full-batch steps, 5 rounds): ASCII beats the single
+   agent, launches = hops; prints the session's seconds, ms a fit, peak
+   device memory and the accuracies beside phase 5's logistic run, and
+   ``mlp_fit_profile`` (one fit under torch.profiler); one fit on the card
+   and on the CPU from the same draws: logits within 3x the CPU's own
+   spread, read in the same run as the largest distance of the CPU's fit
+   on each of two row permutations from its fit in order (AdamW's
+   normalized steps carry the libraries' last-ulp sums into the
+   trajectory), predictions parted only at near-ties; the same card fit
+   with TF32 matmuls on is the control, and must fall outside that limit.
+   (b) Fig. 3's forest on the blob
+   (RandomForest(8 trees, depth 4), 4 agents, 8 rounds): the card's
+   session is the CPU's bit for bit (ledger, alphas, predictions, w).
+   (c) examples/heterogeneous_agents.py: tree + logistic + MLP agents with
+   the CV stop; ASCII beats the single tree.  (d) a NeuralBackbone agent at
+   qwen3-0.6b's layer width cut to 2 layers and 20 steps, beside three
+   trees; one backbone fit on the card and on the CPU: logits within
+   5e-4 max|logit|; the same card fit with the backbone computed in bf16
+   is the control, and must fall outside that limit.
+13. The control plane at MIMIC size through the session CLI's transport
+   and scheduler builders (the CLI has no MIMIC dataset): --controller
+   resid; --controller entropy
+   --serve-controller margin; --scheduler budget-aware with a
+   --byte-budget that walks the ladder to int4 and ends exhausted;
+   --variant async --codec int8.  Each on the card and on the CPU with the
+   same draws: rung sequences, round orders, ledgers, stop rounds and
+   predictions equal, alphas within rtol 1e-5; quantize launches = the
+   int-coded hops and blocks (read off the ledger's bits), the async
+   merges one unnormalized ignorance launch a positive alpha.  Then the
+   same four configs (the budget 30000 bytes) through ``cli.run`` itself
+   on its default blob3: the card's line and w equal the CPU's, launches
+   as above, and a run paused after 2 rounds and resumed from its
+   checkpoint ends with the uninterrupted run's w, bit for bit.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -106,6 +141,8 @@ run outside a checkout.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -117,6 +154,7 @@ import sys
 import tempfile
 import time
 import traceback
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
@@ -1919,6 +1957,559 @@ class Smoke:
         return "kernel step = plain step on the same logits: " + "; ".join(out)
 
 
+    # ------------------------------------------------- the paper's learners
+    def _fashion_data(self):
+        """Phase 5's split of the Fashion surrogate, or a fresh one when
+        phase 5 did not run (the same seed: the same data)."""
+        torch = self.torch
+        if self.fashion_fp32 is not None:
+            return self.fashion_fp32[:4]
+        from repro_torch.data.synthetic import fashion_surrogate
+        ds = fashion_surrogate(torch.Generator().manual_seed(0), n=60000,
+                               device="cuda")
+        return self._split(ds)
+
+    def _timed_fits(self, endpoints) -> list:
+        """Wrap each endpoint's fit with a synchronized host clock; returns
+        the list the fit times (ms) go into."""
+        torch = self.torch
+        times = []
+        for ep in endpoints:
+            inner = ep.fit_local
+
+            def fit_local(*a, _inner=inner, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _inner(*a, **kw)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                return out
+            ep.fit_local = fit_local
+        return times
+
+    @staticmethod
+    def _logits_gap(card, cpu, tol) -> dict:
+        """Card logits against the CPU's: the largest difference, and
+        whether every parted prediction is a row whose top-2 gap is within
+        ``tol``."""
+        top2 = cpu.topk(2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1]) <= tol
+        parted = card.argmax(-1) != cpu.argmax(-1)
+        return {"max_err": float((card - cpu).abs().max()),
+                "parted": int(parted.sum()),
+                "parted_off_near_ties": int((parted & ~near).sum())}
+
+    def learners(self) -> str:
+        out = [self._fashion_mlp(), self._blob_forest(),
+               self._heterogeneous(), self._neural_backbone()]
+        return "; ".join(out)
+
+    def _fashion_mlp(self) -> str:
+        """(a) The paper's 3-layer network on the Fashion halves (Fig. 5)
+        at full width, through the session, on the card."""
+        torch = self.torch
+        from repro_torch.comm.draws import ChannelDraws
+        from repro_torch.core import engine as E
+        from repro_torch.core.protocol import (ASCIIConfig,
+                                               fit_single_agent_adaboost)
+        from repro_torch.learners.mlp import MLP
+        Xtr, ctr, Xte, cte = self._fashion_data()
+        learner = MLP(hidden=(128, 64), steps=200, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        proto = E.Protocol(E.SessionConfig(num_classes=10, max_rounds=5),
+                           transport=E.MeteredTransport(), device="cuda")
+        eps = E.endpoints_for([learner] * 2, Xtr)
+        fit_ms = self._timed_fits(eps)
+        self.reset_counts()
+        t0 = time.perf_counter()
+        session = proto.start(0, eps, ctr)
+        session.run()
+        preds = session.fitted().predict(Xte)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        st = session.state
+        self.read_counts(len(st.components), "fashion mlp")
+        single = fit_single_agent_adaboost(
+            0, Xtr[0], ctr, learner, ASCIIConfig(num_classes=10,
+                                                 max_rounds=5),
+            device="cuda")
+        a_ascii = float((preds == cte).float().mean())
+        a_single = float((single.predict([Xte[0]]) == cte).float().mean())
+        self.require(all(math.isfinite(c.alpha) for c in st.components),
+                     "non-finite alpha")
+        self.require(a_ascii > a_single, f"ASCII acc {a_ascii} <= single-"
+                     f"agent acc {a_single}")
+        # one fit on the card and on the CPU from the same draws.  The limit
+        # is the float32 trajectory's own sensitivity, read in this run:
+        # the CPU's fit on row-permuted data (the same math summed in
+        # another order) is that far from its fit on the rows in order;
+        # the card may be 3x as far.  A card fit with TF32 matmuls on (a
+        # 10-bit mantissa) is the control the limit must refuse.
+        draws = ChannelDraws().fit(E.key_data(0), 0, 0)
+        w = torch.full((ctr.shape[0],), 1.0 / ctr.shape[0], device="cuda")
+        logits = {}
+        everything = slice(None)
+        fits = [("cuda", "cuda", everything, False),
+                ("cuda_tf32", "cuda", everything, True),
+                ("cpu", "cpu", everything, False)]
+        fits += [(f"cpu_perm{i}", "cpu", torch.randperm(
+            ctr.shape[0], generator=torch.Generator().manual_seed(i)), False)
+            for i in (1, 2)]
+        for name, dev, rows, tf32 in fits:
+            lr = MLP(hidden=(128, 64), steps=200, device=dev)
+            X, c, wd = (t.to(dev) for t in (Xtr[0], ctr, w))
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                params = lr.fit(draws, X[rows], c[rows], wd[rows], 10)
+                logits[name] = lr.core(10).logits(params, X).detach().cpu()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        spread = max(float((logits[f"cpu_perm{i}"] - logits["cpu"]).abs()
+                           .max()) for i in (1, 2))
+        tol = 3 * spread
+        scale = float(logits["cpu"].abs().max())
+        gap = self._logits_gap(logits["cuda"], logits["cpu"], tol)
+        control = self._logits_gap(logits["cuda_tf32"], logits["cpu"], tol)
+        self.require(0 < spread, "the permuted-row fits equal the fit: no "
+                     "yardstick")
+        self.require(gap["max_err"] <= tol and not gap["parted_off_near_ties"],
+                     f"MLP card vs CPU: {gap} beyond {tol:.3g} (3x the CPU's "
+                     f"permuted-row spread {spread:.3g})")
+        self.require(control["max_err"] > tol, f"the TF32 control is within "
+                     f"the limit {tol:.3g}: {control}; the check cannot see a "
+                     f"lower-precision fit")
+        prof = _device_profile(lambda: learner.fit(draws, Xtr[0], ctr, w, 10))
+        print("mlp_fit_profile " + json.dumps(prof), flush=True)
+        logistic = ("" if self.fashion_fp32 is None else
+                    f" (phase 5 logistic: ascii={self.fashion_fp32[4]:.4f})")
+        return (f"(a) fashion n_train=42000 agents=(392,392) MLP(128,64) "
+                f"steps=200 full batch rounds=5: components="
+                f"{len(st.components)} acc ascii={a_ascii:.4f} single="
+                f"{a_single:.4f}{logistic}; session {secs:.2f} s, "
+                f"{statistics.median(fit_ms):.1f} ms a fit (median of "
+                f"{len(fit_ms)}), peak device memory {peak_gib:.3f} GiB; "
+                f"one fit card vs cpu: max |logit err| {gap['max_err']:.6g} "
+                f"({gap['max_err'] / scale:.3g} of max|logit| {scale:.6g}) "
+                f"<= {tol:.6g} (3x the CPU against itself on permuted rows, "
+                f"{spread:.6g}), predictions parted {gap['parted']} (all at "
+                f"near-ties); TF32 control {control['max_err']:.6g} "
+                f"({control['max_err'] / scale:.3g}) > the limit, refused")
+
+    def _blob_forest(self) -> str:
+        """(b) Fig. 3's forest on the blob: card and CPU, the same bits."""
+        torch = self.torch
+        from repro_torch.core import engine as E
+        from repro_torch.data.synthetic import blob_fig3
+        from repro_torch.learners.forest import RandomForest
+        runs = {}
+        for device in ("cuda", "cpu"):
+            ds = blob_fig3(torch.Generator().manual_seed(0), n=1000,
+                           device=device)
+            Xtr, ctr, Xte, cte = self._split(ds)
+            proto = E.Protocol(E.SessionConfig(num_classes=10, max_rounds=8),
+                               transport=E.MeteredTransport(), device=device)
+            eps = E.endpoints_for([RandomForest(num_trees=8, depth=4,
+                                                device=device)
+                                   for _ in Xtr], Xtr)
+            if device == "cuda":
+                fit_ms = self._timed_fits(eps)
+                self.reset_counts()
+            t0 = time.perf_counter()
+            session = proto.start(0, eps, ctr)
+            session.run()
+            served = session.predict_distributed(Xte)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                self.read_counts(len(session.state.components), "blob forest")
+            runs[device] = (session, served.cpu(), cte.cpu(),
+                            time.perf_counter() - t0)
+        g, c = runs["cuda"][0], runs["cpu"][0]
+        self.require(g.transport.log.entries == c.transport.log.entries,
+                     "forest: ledgers differ between card and CPU")
+        self.require([(x.agent, x.round, x.alpha) for x in g.state.components]
+                     == [(x.agent, x.round, x.alpha)
+                         for x in c.state.components],
+                     "forest: components or alphas differ")
+        self.require(torch.equal(g.state.w.cpu(), c.state.w),
+                     "forest: final w differs")
+        self.require(torch.equal(runs["cuda"][1], runs["cpu"][1]),
+                     "forest: predictions differ")
+        acc = float((runs["cuda"][1] == runs["cuda"][2]).float().mean())
+        return (f"(b) blob n_train=700 agents=4x2 RandomForest(8 trees, "
+                f"depth 4) rounds=8: components={len(g.state.components)} "
+                f"acc={acc:.4f}; card = cpu bit for bit (ledger, alphas, "
+                f"predictions, w); card {runs['cuda'][3]:.2f} s "
+                f"({statistics.median(fit_ms):.1f} ms a fit), cpu "
+                f"{runs['cpu'][3]:.2f} s")
+
+    def _heterogeneous(self) -> str:
+        """(c) examples/heterogeneous_agents.py: tree, logistic and MLP
+        agents, the CV stop."""
+        torch = self.torch
+        from repro_torch.core import engine as E
+        from repro_torch.core.protocol import (ASCIIConfig,
+                                               fit_single_agent_adaboost)
+        from repro_torch.data.partition import train_test_split, vertical_split
+        from repro_torch.data.synthetic import blob_fig3
+        from repro_torch.learners.logistic import LogisticRegression
+        from repro_torch.learners.mlp import MLP
+        from repro_torch.learners.tree import DecisionTree
+        ds = blob_fig3(torch.Generator().manual_seed(3), n=900,
+                       device="cuda")
+        tr, te = train_test_split(0, 900)
+        tr, te = torch.as_tensor(tr, device="cuda"), torch.as_tensor(
+            te, device="cuda")
+        Xs = vertical_split(ds.X, (2, 3, 3))
+        Xtr, Xte = [x[tr] for x in Xs], [x[te] for x in Xs]
+        ctr, cte = ds.classes[tr], ds.classes[te]
+        learners = [DecisionTree(depth=4, device="cuda"),
+                    LogisticRegression(steps=200, device="cuda"),
+                    MLP(hidden=(64, 32), steps=200, device="cuda")]
+        Xfit, cfit, Xval, cval = E.holdout_split(Xtr, ctr, 0.2)
+        proto = E.Protocol(E.SessionConfig(num_classes=10, max_rounds=8,
+                                           cv_patience=2),
+                           transport=E.MeteredTransport(), device="cuda")
+        self.reset_counts()
+        t0 = time.perf_counter()
+        session = proto.start(1, E.endpoints_for(learners, Xfit), cfit,
+                              validation=(Xval, cval))
+        session.run()
+        preds = session.fitted().predict(Xte)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = session.state
+        self.read_counts(len(st.components), "heterogeneous")
+        single = fit_single_agent_adaboost(
+            2, Xtr[0], ctr, learners[0],
+            ASCIIConfig(num_classes=10, max_rounds=8, cv_fraction=0.2,
+                        cv_patience=2), device="cuda")
+        a_ascii = float((preds == cte).float().mean())
+        a_single = float((single.predict([Xte[0]]) == cte).float().mean())
+        self.require(all(math.isfinite(c.alpha) for c in st.components),
+                     "non-finite alpha")
+        self.require(a_ascii > a_single, f"ASCII acc {a_ascii} <= single "
+                     f"{a_single}")
+        vals = [round(h["val_acc"], 3) for h in st.history]
+        return (f"(c) heterogeneous blob n=900 blocks (2,3,3) tree(4) + "
+                f"logistic(200) + MLP(64,32; 200): CV-stopped after "
+                f"{st.round} rounds (val_acc {vals}), components="
+                f"{len(st.components)}, acc ascii={a_ascii:.4f} single "
+                f"tree={a_single:.4f}; {secs:.2f} s")
+
+    def _neural_backbone(self) -> str:
+        """(d) NeuralBackbone agents at qwen3-0.6b's layer width, cut to 2
+        layers, 20 steps."""
+        torch = self.torch
+        from repro_torch.comm.draws import ChannelDraws
+        from repro_torch.configs.registry import get_arch
+        from repro_torch.core import engine as E
+        from repro_torch.data.synthetic import blob_fig3
+        from repro_torch.learners import neural
+        from repro_torch.learners.neural import NeuralBackbone
+        from repro_torch.learners.tree import DecisionTree
+        cfg = get_arch("qwen3-0.6b").with_overrides(num_layers=2)
+        ds = blob_fig3(torch.Generator().manual_seed(0), n=1000,
+                       device="cuda")
+        Xtr, ctr, Xte, cte = self._split(ds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        learners = [NeuralBackbone(cfg=cfg, steps=20, device="cuda"),
+                    DecisionTree(depth=4, device="cuda"),
+                    DecisionTree(depth=4, device="cuda"),
+                    DecisionTree(depth=4, device="cuda")]
+        proto = E.Protocol(E.SessionConfig(num_classes=10, max_rounds=2),
+                           transport=E.MeteredTransport(), device="cuda")
+        eps = E.endpoints_for(learners, Xtr)
+        fit_ms = self._timed_fits(eps[:1])
+        self.reset_counts()
+        t0 = time.perf_counter()
+        session = proto.start(0, eps, ctr)
+        session.run()
+        preds = session.fitted().predict(Xte)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        st = session.state
+        self.read_counts(len(st.components), "neural backbone")
+        self.require(all(math.isfinite(c.alpha) for c in st.components),
+                     "non-finite alpha")
+        acc = float((preds == cte).float().mean())
+        # one fit on the card and on the CPU from the same draws, within
+        # 5e-4 max|logit| (the float32 forward's readings: ~4e-5); the
+        # control, the same fit on the card with the forward in bf16, must
+        # fall outside
+        draws = ChannelDraws().fit(E.key_data(0), 0, 0)
+        n = ctr.shape[0]
+        w = torch.full((n,), 1.0 / n)
+        logits = {}
+        for name, dev in (("cuda", "cuda"), ("cpu", "cpu"),
+                          ("cuda_bf16", "cuda")):
+            nb = NeuralBackbone(cfg=cfg, steps=20, device=dev)
+            X = Xtr[0].to(dev)
+            t1 = time.perf_counter()
+            with (mock.patch.object(neural, "logits", _bf16_backbone_logits)
+                  if name == "cuda_bf16" else contextlib.nullcontext()):
+                params = nb.fit(draws, X, ctr.to(dev), w.to(dev), 10)
+                logits[name] = nb.core(10).logits(params, X).detach().cpu()
+            logits[name + "_s"] = time.perf_counter() - t1
+        scale = float(logits["cpu"].abs().max())
+        tol = 5e-4 * scale
+        gap = self._logits_gap(logits["cuda"], logits["cpu"], tol)
+        control = self._logits_gap(logits["cuda_bf16"], logits["cpu"], tol)
+        self.require(gap["max_err"] <= tol and not gap["parted_off_near_ties"],
+                     f"backbone card vs CPU: {gap} beyond {tol:.3g}")
+        self.require(control["max_err"] > tol, f"the bf16-forward control is "
+                     f"within the limit {tol:.3g}: {control}; the check "
+                     f"cannot see a bf16 forward")
+        return (f"(d) NeuralBackbone qwen3-0.6b width (d_model 1024, 16/8 "
+                f"heads of 128, d_ff 3072, vocab 151936) cut to 2 layers and "
+                f"20 steps, agent 0 of blob n_train=700 beside 3 trees, 2 "
+                f"rounds: components={len(st.components)} acc={acc:.4f}; "
+                f"session {secs:.2f} s, {statistics.median(fit_ms):.0f} ms a "
+                f"backbone fit, peak device memory {peak_gib:.3f} GiB; one "
+                f"fit card vs cpu ({logits['cuda_s']:.2f} s / "
+                f"{logits['cpu_s']:.2f} s): max |logit err| "
+                f"{gap['max_err']:.6g} ({gap['max_err'] / scale:.3g} of "
+                f"max|logit| {scale:.6g}) <= {tol:.6g} (5e-4 max|logit|), "
+                f"predictions parted {gap['parted']}; bf16-forward control "
+                f"{control['max_err']:.6g} ({control['max_err'] / scale:.3g})"
+                f" > the limit, refused")
+
+    # ------------------------------------------------------ control plane
+    @staticmethod
+    def _coded_counts(transport, ladder, n: int, block: tuple) -> dict:
+        """Expected quantize launches from the ledger, each entry's codec
+        read off its bits (the ladder's rungs price each shape apart)."""
+        from repro_torch.comm.codecs import QuantCodec
+        counts = {"quantize_dequant_tiles": 0, "quantize_dequant_block": 0}
+        for e in transport.log.entries:
+            if e["kind"] not in ("ignorance", "score_block"):
+                continue
+            shape = n if e["kind"] == "ignorance" else block
+            codecs = [c for c in ladder if c.wire_bits(shape) == e["bits"]]
+            if not codecs:
+                continue                       # raw float32, no codec
+            if len(codecs) != 1:
+                raise AssertionError(f"bits {e['bits']} name no one rung")
+            if isinstance(codecs[0], QuantCodec):
+                name = ("quantize_dequant_tiles" if e["kind"] == "ignorance"
+                        else "quantize_dequant_block")
+                counts[name] += 1
+        return counts
+
+    def _read_control_counts(self, session, transport, ladder, n: int,
+                             block: tuple, where: str) -> None:
+        """Read a control-plane session's launches: a fused ignorance
+        update a shipped hop (an async merge instead: one unnormalized
+        launch a component), quantize launches off the ledger's bits."""
+        stale = session.scheduler.stale
+        comps = len(session.state.components)
+        self.read_counts(
+            0 if stale else sum(e["kind"] == "ignorance"
+                                for e in transport.log.entries), where,
+            ignorance_update_unnormalized=comps if stale else 0,
+            **self._coded_counts(transport, ladder, n, block))
+
+    def _control_cli(self, configs: list) -> str:
+        """Each control-plane config through ``cli.run`` itself, on its
+        default data (blob3, n 600, tree agents): on the card, on the CPU,
+        and on the card paused after 2 rounds and resumed from its
+        checkpoint (the run keys checked by the CLI).  The CPU's and the
+        resumed run's final w bit-equal the card's, the CPU's line the
+        card's."""
+        torch = self.torch
+        from repro_torch.comm.budget import DEFAULT_LADDER
+        from repro_torch.comm.codecs import make_codec
+        from repro_torch.launch import session as cli
+        out = []
+        for argv in configs:
+            name = " ".join(argv)
+            runs = {}
+            for device in ("cuda", "cpu"):
+                args = cli.parser().parse_args(["--device", device, *argv])
+                if device == "cuda":
+                    self.reset_counts()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runs[device] = cli.run(args)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    run = runs[device]
+                    n = int(run.session.state.w.shape[0])
+                    self._read_control_counts(
+                        run.session, run.transport,
+                        DEFAULT_LADDER if not args.codec
+                        else (make_codec(args.codec),), n,
+                        (args.n - n, run.session.cfg.num_classes),
+                        f"cli {name}")
+            card, cpu = runs["cuda"], runs["cpu"]
+            ckpt = tempfile.mkdtemp(dir=SMOKE_DIR)
+            try:
+                base = ["--device", "cuda", *argv, "--ckpt-dir", ckpt]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    paused = cli.run(cli.parser().parse_args(
+                        base + ["--stop-after", "2"]))
+                    resumed = cli.run(cli.parser().parse_args(
+                        base + ["--resume"]))
+            finally:
+                shutil.rmtree(ckpt, ignore_errors=True)
+            self.require(card.line == cpu.line, f"cli {name}: card line "
+                         f"{card.line} != cpu line {cpu.line}")
+            self.require(torch.equal(card.session.state.w.cpu(),
+                                     cpu.session.state.w),
+                         f"cli {name}: card and CPU w differ")
+            self.require(paused.paused, f"cli {name}: the run did not pause")
+            self.require(torch.equal(resumed.session.state.w,
+                                     card.session.state.w),
+                         f"cli {name}: resumed w is not bit-identical")
+            out.append(f"[{name}] {card.line}")
+        return ("blob3 through cli.run, card = cpu (line, w) and paused at "
+                "round 2 then resumed = uninterrupted (w): " + "; ".join(out))
+
+    def control(self) -> str:
+        torch = self.torch
+        from repro_torch.comm.budget import BudgetSpec
+        from repro_torch.comm.codecs import make_codec
+        from repro_torch.comm.budget import DEFAULT_LADDER
+        from repro_torch.core import engine as E
+        from repro_torch.data.synthetic import mimic_surrogate
+        from repro_torch.launch import session as cli
+        from repro_torch.learners.tree import DecisionTree
+
+        def data(device):
+            ds = mimic_surrogate(torch.Generator().manual_seed(0), n=15000,
+                                 device=device)
+            return self._split(ds)
+
+        n, m, n_te = 10500, 2, 4500
+        costs = BudgetSpec().hop_costs(n)
+        budget_bits = (m - 1) * 2 * n * 32 + sum(costs) + 100
+        configs = [["--controller", "resid"],
+                   ["--controller", "entropy", "--serve-controller",
+                    "margin"],
+                   ["--scheduler", "budget-aware", "--byte-budget",
+                    str(-(-budget_bits // 8))],
+                   ["--variant", "async", "--codec", "int8"]]
+        out = []
+        for argv in configs:
+            name = " ".join(argv)
+            runs = {}
+            for device in ("cuda", "cpu"):
+                args = cli.parser().parse_args(["--device", device, *argv])
+                cli.check_args(args)
+                transport = cli.make_transport(args)
+                scheduler, upstream = cli.make_scheduler(args)
+                rungs = []
+                if transport.controller is not None:
+                    inner = transport._controller_rung
+
+                    def step(w_prev, w_out, _inner=inner, _rungs=rungs):
+                        _rungs.append(int(_inner(w_prev, w_out)))
+                        return _rungs[-1]
+                    transport._controller_rung = step
+                Xtr, ctr, Xte, cte = data(device)
+                proto = E.Protocol(E.SessionConfig(num_classes=2,
+                                                   max_rounds=10,
+                                                   upstream=upstream),
+                                   scheduler=scheduler, transport=transport,
+                                   device=device)
+                eps = E.endpoints_for([DecisionTree(depth=4,
+                                                    num_thresholds=16,
+                                                    device=device)
+                                       for _ in Xtr], Xtr)
+                if device == "cuda":
+                    self.reset_counts()
+                t0 = time.perf_counter()
+                session = proto.start(0, eps, ctr)
+                session.run()
+                served = session.predict_distributed(Xte)
+                fitted = session.fitted().predict(Xte)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    self._read_control_counts(
+                        session, transport,
+                        DEFAULT_LADDER if not args.codec
+                        else (make_codec(args.codec),), n, (n_te, 2),
+                        f"mimic {name}")
+                runs[device] = (session, transport, rungs, served.cpu(),
+                                fitted.cpu(), cte.cpu(),
+                                time.perf_counter() - t0)
+            (gs, gt, grungs, gserve, gfit, cte, gsec), \
+                (cs, ct, crungs, cserve, cfit, _, csec) = (runs["cuda"],
+                                                            runs["cpu"])
+            self.require(grungs == crungs,
+                         f"{name}: rung sequences differ between card and "
+                         f"CPU: {grungs} vs {crungs}")
+            self.require(gt.log.entries == ct.log.entries,
+                         f"{name}: card and CPU ledgers differ")
+            self.require((gs.state.round, gs.state.stopped)
+                         == (cs.state.round, cs.state.stopped),
+                         f"{name}: stop rounds differ")
+            self.require([(c.agent, c.round) for c in gs.state.components]
+                         == [(c.agent, c.round) for c in cs.state.components],
+                         f"{name}: round orders or components differ")
+            torch.testing.assert_close(
+                torch.tensor([c.alpha for c in gs.state.components]),
+                torch.tensor([c.alpha for c in cs.state.components]),
+                rtol=1e-5, atol=0)
+            self.require(torch.equal(gserve, cserve)
+                         and torch.equal(gfit, cfit),
+                         f"{name}: predictions differ between card and CPU")
+            extra = ""
+            if grungs:
+                extra += f" rungs={grungs}"
+                self.require(len(set(grungs)) > 1,
+                             f"{name}: the controller never moved")
+            if hasattr(gt, "budget"):
+                used = sorted({e["rung"] for e in gt.log.entries
+                               if "rung" in e})
+                self.require(3 in used, f"{name}: the walk never reached "
+                             f"int4: rungs {used}")
+                orders: dict = {}
+                for c in gs.state.components:
+                    orders.setdefault(c.round, []).append(c.agent)
+                extra += (f" ladder_rungs={used} skipped={len(gt.skipped)}"
+                          f" exhausted={gt.exhausted} orders="
+                          f"{list(orders.values())}")
+            if gs.scheduler.stale:
+                extra += (f" barrier_releases="
+                          f"{sum(e['src'] == 'barrier' for e in gt.log.entries)}")
+            kinds = gt.log.bits_by_kind()
+            acc = float((gserve == cte).float().mean())
+            out.append(f"[{name}] components={len(gs.state.components)} "
+                       f"rounds={gs.state.round}{extra} ignorance_bits="
+                       f"{kinds.get('ignorance', 0)} score_block_bits="
+                       f"{kinds.get('score_block', 0)} serve_acc={acc:.4f} "
+                       f"w_bit_equal={torch.equal(gs.state.w.cpu(), cs.state.w)}"
+                       f" card {gsec:.2f} s cpu {csec:.2f} s")
+        cli_configs = [a if a[0] != "--scheduler" else
+                       ["--scheduler", "budget-aware", "--byte-budget",
+                        "30000"] for a in configs]
+        return ("mimic through the CLI's transport and scheduler builders, "
+                "card = cpu (rungs, orders, ledgers, stops, predictions "
+                "exact; alphas rtol 1e-5): " + "; ".join(out) + "; "
+                + self._control_cli(cli_configs))
+
+
+def _bf16_backbone_logits(params: dict, X, cfg):
+    """``learners.neural.logits`` with the backbone computed in bf16 (the
+    params and features cast down, not up): phase 12(d)'s control."""
+    import torch
+    from dataclasses import replace
+    from repro_torch.models import classifier, transformer
+    from repro_torch.optim.optimizers import tree_map
+    cfg16 = replace(cfg, dtype="bfloat16")
+    p16 = tree_map(lambda t: t.to(torch.bfloat16),
+                   {**params, "embed": {"embedding":
+                                        params["embed"]["embedding"][:1]}})
+    emb = (X.to(torch.bfloat16) @ p16["proj"])[:, None, :]
+    tokens = torch.zeros((X.shape[0], 1), dtype=torch.long, device=X.device)
+    x = emb + transformer.embed_inputs(p16, {"tokens": tokens}, cfg16)
+    return classifier.pooled_logits(p16, transformer.hidden_states(
+        p16, x, cfg16))
+
+
 def main(argv: list[str]) -> int:
     """``--phases 1,8`` runs those phases only (they need phase 1's build
     first), for work on one part; with no arguments, all of them."""
@@ -1946,7 +2537,7 @@ def main(argv: list[str]) -> int:
     phases = {1: s.build, 2: s.kernel_vs_plain, 3: s.cli_path, 4: s.mimic,
               5: s.fashion, 6: s.mimic_channel, 7: s.fashion_channel,
               8: s.flash_vs_plain, 9: s.serve, 10: s.ce_vs_plain,
-              11: s.train}
+              11: s.train, 12: s.learners, 13: s.control}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])

@@ -13,10 +13,13 @@ spend, and :class:`BudgetedTransport` enforces it per hop in two stages:
      rounds.
 
 Ladder codecs must be stateless.  Setup messages count against the session
-budget, interchange hops against both budgets.  The async barrier's
-release (``barrier_release``) and protocol-variant hops (``ship``) belong
-to later slices and raise (the base transport's methods); so do adaptive
-controllers.  ``TenantBudget`` comes with the serve engine.
+budget, interchange hops against both budgets, an async barrier's release
+against the session budget alone (it is a broadcast, not a link).  An
+adaptive controller or a serve controller on a budgeted transport shares
+the budget's ladder, and its rung is a floor on the walk: the budget may
+degrade further, never finer.  Protocol-variant hops (``ship``) belong to
+a later slice and raise (the base transport's method); ``TenantBudget``
+comes with the serve engine.
 """
 from __future__ import annotations
 
@@ -71,8 +74,9 @@ class BudgetSpec:
 
     def choose_costs(self, costs, remaining_session: float,
                      remaining_link: float, floor: int = 0) -> int | None:
-        """First ladder index from ``floor`` on that both remaining budgets
-        afford, or None when the hop must be skipped."""
+        """First ladder index from ``floor`` on (a controller's rung) that
+        both remaining budgets afford, or None when the hop must be
+        skipped."""
         remaining = min(remaining_session, remaining_link)
         for i in range(floor, len(costs)):
             if costs[i] <= remaining:
@@ -92,8 +96,18 @@ class BudgetedTransport(MeteredTransport):
 
     def __init__(self, budget: BudgetSpec, log=None, privacy=None,
                  controller=None, accountant=None, serve_controller=None):
-        super().__init__(log=log, codec=budget.ladder[0], privacy=privacy,
-                         controller=controller, accountant=accountant,
+        for name, ctrl in (("an adaptive controller", controller),
+                           ("a serve controller", serve_controller)):
+            if ctrl is not None and tuple(ctrl.ladder) != tuple(budget.ladder):
+                raise ValueError(
+                    f"{name} on a budgeted transport must share the "
+                    f"budget's ladder (its rung is a floor on the same "
+                    f"walk); got {ctrl.ladder} vs {budget.ladder}")
+        super().__init__(log=log,
+                         codec=None if controller is not None
+                         else budget.ladder[0],
+                         privacy=privacy, controller=controller,
+                         accountant=accountant,
                          serve_controller=serve_controller)
         self.budget = budget
         self.link_spent: dict = {}      # (src, dst) -> bits
@@ -121,6 +135,7 @@ class BudgetedTransport(MeteredTransport):
     @property
     def effective_serve_codec(self):
         # serve_block walks the ladder and sets ``codec`` before shipping
+        # (under a controller too: the serve ladder is the budget's)
         return self.serve_codec if self.serve_codec is not None else self.codec
 
     def _remaining(self, link) -> tuple[float, float]:
@@ -131,11 +146,16 @@ class BudgetedTransport(MeteredTransport):
                  else self.budget.link_bits - self.link_spent.get(link, 0))
         return rem_s, rem_l
 
-    def _walk(self, costs, link) -> int | None:
-        """The ladder walk: the rung to ship at (its spend booked), or None
-        for a skip (booked; a session-budget skip flips ``exhausted``)."""
+    def _walk(self, costs, link, floor: int = 0,
+              link_cap: bool = True) -> int | None:
+        """The ladder walk from rung ``floor``: the rung to ship at (its
+        spend booked), or None for a skip (booked; a session-budget skip
+        flips ``exhausted``).  ``link_cap`` False walks against the session
+        budget alone."""
         rem_s, rem_l = self._remaining(link)
-        idx = self.budget.choose_costs(costs, rem_s, rem_l)
+        if not link_cap:
+            rem_l = math.inf
+        idx = self.budget.choose_costs(costs, rem_s, rem_l, floor)
         if idx is None:
             if rem_s < min(costs):
                 self.exhausted = True
@@ -144,20 +164,33 @@ class BudgetedTransport(MeteredTransport):
         self.record_spend(link, costs[idx], idx)   # degrades codec too
         return idx
 
-    def interchange(self, src, dst, w, r, alpha, reweight, standard=True, *,
-                    draws=None, codec_state=None):
-        link = (src.name, dst.name)
-        if self._walk(self.budget.hop_costs(int(w.shape[0])), link) is None:
-            return w, codec_state      # the receiver keeps its stale score
-        return super().interchange(src, dst, w, r, alpha, reweight, standard,
-                                   draws=draws, codec_state=codec_state)
+    def _admit(self, src, dst, w, rung) -> bool:
+        """The hop's ladder walk from the controller's rung (0 without
+        one): degrade, then skip (booked; the receiver keeps its stale
+        score)."""
+        return self._walk(self.budget.hop_costs(int(w.shape[0])),
+                          (src.name, dst.name), rung) is not None
 
     def serve_block(self, src, dst, block, *, draws=None):
         """Budgeted serve hop: the same ladder walk over the [n, K] block's
-        costs.  A skipped block is not delivered (None): the head predicts
-        without this agent's votes and no bits are booked."""
+        costs, from a serve controller's rung when there is one.  A skipped
+        block is not delivered (None): the head predicts without this
+        agent's votes and no bits are booked."""
+        floor = (0 if self.serve_controller is None
+                 else self.serve_controller.rung_for(block))
         link = (src.name, dst.name)
-        if self._walk(self.budget.serve_costs(tuple(block.shape)),
-                      link) is None:
+        if self._walk(self.budget.serve_costs(tuple(block.shape)), link,
+                      floor) is None:
             return None
         return super().serve_block(src, dst, block, draws=draws)
+
+    def barrier_release(self, head, w_bar, *, draws=None, codec_state=None):
+        """Budgeted async release: one session-level ladder walk over the
+        bare payload's costs (no link cap: the barrier is a broadcast).  A
+        skip leaves the published score stale and flips ``exhausted``."""
+        link = ("barrier", head.name)
+        if self._walk(self.budget.payload_costs(int(w_bar.shape[0])), link,
+                      link_cap=False) is None:
+            return None, codec_state
+        return super().barrier_release(head, w_bar, draws=draws,
+                                       codec_state=codec_state)

@@ -1,15 +1,24 @@
-"""Where the wire channel's random draws come from.
+"""Where the session's random draws come from: the wire channel's and the
+learners'.
 
-No counterpart module in the reference, which derives every channel draw
-from its session key with ``fold_in`` tags (``repro/comm/codecs.py``:
-``channel_apply`` and ``serve_key``).  The port's functions take their
+No counterpart module in the reference, which derives every draw from its
+session key: the channel's with ``fold_in`` tags (``repro/comm/codecs.py``:
+``channel_apply`` and ``serve_key``), a learner's from the per-fit subkey
+it is handed (``repro/core/engine.py``: one split per hop, and one more
+per async barrier under a channel).  The port's functions take their
 draws as arguments instead; this module supplies them.
 
 :class:`ChannelDraws` is the source.  For one training hop
-(:meth:`ChannelDraws.hop`) or one prediction-time score block
+(:meth:`ChannelDraws.hop`), one async barrier's release
+(:meth:`ChannelDraws.barrier`) or one prediction-time score block
 (:meth:`ChannelDraws.serve`) it returns a :class:`HopDraws`, which hands the
 channel its uniform ``u`` (stochastic rounding in the int codecs) and its
-normal ``z`` (the Gaussian mechanism) on request.
+normal ``z`` (the Gaussian mechanism) on request.  For one learner fit
+(:meth:`ChannelDraws.fit`, the fit at a hop's coordinates) it returns a
+:class:`FitDraws`: the init's normals, the minibatch indices, the forest's
+bootstrap counts and feature permutations, each purpose on a stream of
+its own, so that one draw never shifts another.  The engine hands it to
+the learner in the ``key`` slot of ``Learner.fit``.
 
 The default source seeds a CPU ``torch.Generator`` per stream from a fixed
 integer mix of the session's key data, a stream tag (codec, privacy) and
@@ -35,9 +44,17 @@ import torch
 # come from separate generators, so drawing one never shifts the other
 CODEC_STREAM = 1
 PRIVACY_STREAM = 2
-# what a draw is for: a training hop or a prediction-time serve block
+# a fit's streams, one a purpose
+INIT_STREAM = 3
+MINIBATCH_STREAM = 4
+BOOTSTRAP_STREAM = 5
+FEATURE_STREAM = 6
+# what a draw is for: a training hop, a prediction-time serve block, a
+# learner's fit, an async barrier's release
 HOP_SPACE = 0x484F50        # "HOP"
 SERVE_SPACE = 0x535256      # "SRV"
+FIT_SPACE = 0x464954        # "FIT"
+BARRIER_SPACE = 0x424152    # "BAR"
 
 _MASK64 = (1 << 64) - 1
 
@@ -83,6 +100,68 @@ class HopDraws:
         return z.to(device)
 
 
+class FitDraws:
+    """The draws of one learner fit.  Each request is indexed (a layer, a
+    step, a tree) and seeds its own generator from the fit's coordinates,
+    its purpose's stream tag and the index, so asking twice gives the same
+    numbers and the order of requests does not matter.  Drawn on the CPU
+    and copied to ``device``."""
+
+    def __init__(self, seed_words: tuple[int, ...]) -> None:
+        self.seed_words = tuple(int(w) for w in seed_words)
+
+    def generator(self, stream: int = INIT_STREAM,
+                  index: int = 0) -> torch.Generator:
+        """The CPU generator of ``stream``'s draw ``index`` (a model's init
+        draws its whole tree from one)."""
+        return torch.Generator().manual_seed(
+            mix_seed(*self.seed_words, stream, int(index)))
+
+    def normal(self, shape, index: int = 0, device="cpu") -> torch.Tensor:
+        """Standard normals, float32: init draw ``index`` (a layer)."""
+        z = torch.randn(tuple(shape), generator=self.generator(
+            INIT_STREAM, index), dtype=torch.float32)
+        return z.to(device)
+
+    def randint(self, shape, high: int, step: int,
+                device="cpu") -> torch.Tensor:
+        """Integers uniform in [0, high), int64: minibatch ``step``'s rows."""
+        idx = torch.randint(int(high), tuple(shape), generator=self.generator(
+            MINIBATCH_STREAM, step), dtype=torch.int64)
+        return idx.to(device)
+
+    def poisson(self, shape, index: int = 0, device="cpu") -> torch.Tensor:
+        """Poisson(1) counts, int32: bootstrap ``index`` (a tree)."""
+        counts = torch.poisson(torch.ones(tuple(shape), dtype=torch.float32),
+                               generator=self.generator(BOOTSTRAP_STREAM,
+                                                        index))
+        return counts.to(torch.int32).to(device)
+
+    def permutation(self, n: int, index: int = 0,
+                    device="cpu") -> torch.Tensor:
+        """A permutation of range(n), int64: feature draw ``index`` (a
+        tree)."""
+        perm = torch.randperm(int(n), generator=self.generator(
+            FEATURE_STREAM, index), dtype=torch.int64)
+        return perm.to(device)
+
+
+def fit_draws(key) -> "FitDraws":
+    """``key`` as a learner's draws: an int seed or uint32 key data gives
+    the default source's draws of the fit at (0, 0); anything else is a
+    draw object (a :class:`FitDraws`, or a test's replay of the
+    reference's keys) and is taken as it is."""
+    if key is None:
+        raise ValueError("this learner draws random numbers: pass a FitDraws "
+                         "(ChannelDraws().fit(key, round, position)) or a "
+                         "seed as its key")
+    if isinstance(key, (int, np.integer)):
+        key = np.array([0, int(key) & 0xFFFFFFFF], dtype=np.uint32)
+    if isinstance(key, (np.ndarray, torch.Tensor, list, tuple)):
+        return ChannelDraws().fit(key, 0, 0)
+    return key
+
+
 class ChannelDraws:
     """The default draw source (see the module note).  ``key`` is the
     session's uint32 key data."""
@@ -95,6 +174,18 @@ class ChannelDraws:
         """Draws of the hop at ``position`` in round ``round_idx``."""
         return HopDraws((*self._key_words(key), HOP_SPACE, int(round_idx),
                          int(position)))
+
+    def fit(self, key, round_idx: int, position: int) -> FitDraws:
+        """Draws of the learner fit at ``position`` in round ``round_idx``
+        (the hop's coordinates; in an async round, the agent's place in
+        the round's order)."""
+        return FitDraws((*self._key_words(key), FIT_SPACE, int(round_idx),
+                         int(position)))
+
+    def barrier(self, key, round_idx: int) -> HopDraws:
+        """Draws of round ``round_idx``'s async barrier release."""
+        return HopDraws((*self._key_words(key), BARRIER_SPACE,
+                         int(round_idx)))
 
     def serve(self, key, agent_index: int, request=None) -> HopDraws:
         """Draws of agent ``agent_index``'s score block in the prediction

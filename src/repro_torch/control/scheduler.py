@@ -1,0 +1,129 @@
+"""Budget-aware round scheduling: spend the same bits in a better order.
+
+Counterpart of ``repro/control/scheduler.py``.  Each round
+:class:`BudgetAwareScheduler` orders the active agents by the ascending key
+
+  1. bits the agent has spent as a sender: per-link spend on a
+     :class:`~repro_torch.comm.budget.BudgetedTransport`, else the metered
+     ledger's interchange tally by sender, else 0;
+  2. minus an EMA of the agent's observed weighted accuracy (the
+     ``Scheduler.observe`` hook the session calls after each fit), so ties
+     break toward agents whose components earned more;
+  3. the agent id,
+
+so degradation and skips rotate across the cohort instead of starving a
+fixed tail of the chain.  The EMA step is the reference's compiled
+float32 arithmetic (``control.adaptive.ema_step``), so the stored EMAs are the
+reference's values, bit for bit.  The order itself is
+:func:`traced_round_order`, the rule as one tensor program (the
+reference's in-scan twin, which its compiled backend lowers; the eager
+``round_order`` calls it too).  The scheduler's state (the EMAs, and on a plain metered
+transport the per-sender spend of the paused run) crosses a checkpoint
+through ``SessionState.comm`` (``state_dict`` / ``load_state_dict``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.control.adaptive import ema_step
+from repro_torch.core.engine import Scheduler
+
+#: The reward EMA's coefficient (the reference's default; no caller of
+#: the port sets another).
+REWARD_SMOOTHING = 0.5
+
+
+def reward_ema_update(beta, prev, acc, fresh) -> np.float32:
+    """One observed-reward EMA step in float32: ``acc`` on the first
+    observation (``fresh``), else :func:`ema_step`."""
+    if fresh:
+        return np.float32(acc)
+    return ema_step(beta, prev, acc)
+
+
+def traced_round_order(spent: torch.Tensor,
+                       ema: torch.Tensor) -> torch.Tensor:
+    """The round permutation as a tensor program: agents sorted by
+    ``(spent bits, -reward EMA, agent id)`` ascending (stable sorts from
+    the last key to the first).  Returns int32 agent ids."""
+    order = torch.arange(spent.shape[0], device=spent.device)
+    neg = -ema.to(torch.float32)
+    order = order[torch.sort(neg[order], stable=True).indices]
+    order = order[torch.sort(spent[order], stable=True).indices]
+    return order.to(torch.int32)
+
+
+class BudgetAwareScheduler(Scheduler):
+    """Order the active agents by remaining outgoing-link budget (module
+    note)."""
+
+    def __init__(self) -> None:
+        self._transport = None
+        self._reward_ema: dict[int, float] = {}
+        # per-sender spend a paused run booked into a plain metered ledger
+        # (the resumed transport's log starts empty); a budgeted transport
+        # restores its link spend itself
+        self._spent_baseline: dict[str, int] = {}
+
+    # ---- engine hooks -------------------------------------------------------
+    def bind_transport(self, transport) -> None:
+        self._transport = transport
+
+    def reset(self) -> None:
+        self._reward_ema = {}
+        self._spent_baseline = {}
+
+    def observe(self, agent_id: int, acc: float) -> None:
+        prev = self._reward_ema.get(agent_id)
+        self._reward_ema[agent_id] = float(reward_ema_update(
+            REWARD_SMOOTHING, 0.0 if prev is None else prev, acc,
+            prev is None))
+
+    # ---- the ordering rule --------------------------------------------------
+    def _by_src(self) -> dict[str, int]:
+        t = self._transport
+        by_src: dict[str, int] = {}
+        if hasattr(t, "link_spent"):
+            for (src, _dst), bits in t.link_spent.items():
+                by_src[src] = by_src.get(src, 0) + int(bits)
+        elif hasattr(t, "log"):
+            by_src = dict(t.log.bits_by_src(("ignorance", "model_weight")))
+            for src, bits in self._spent_baseline.items():
+                by_src[src] = by_src.get(src, 0) + bits
+        return by_src
+
+    def _spent_by_agent(self, active: list[int]) -> dict[int, int]:
+        t = self._transport
+        if t is None:
+            return {m: 0 for m in active}
+        names = {ep.agent_id: ep.name for ep in t._endpoints.values()}
+        by_src = self._by_src()
+        return {m: by_src.get(names.get(m, ""), 0) for m in active}
+
+    def round_order(self, round_idx: int, active: list[int]) -> list[int]:
+        ids = sorted(active)   # ascending: an index tie-break is the id's
+        spent = self._spent_by_agent(ids)
+        order = traced_round_order(
+            torch.tensor([spent.get(m, 0) for m in ids], dtype=torch.int64),
+            torch.tensor([self._reward_ema.get(m, 0.0) for m in ids],
+                         dtype=torch.float32))
+        return [ids[i] for i in order.tolist()]
+
+    # ---- checkpointing ------------------------------------------------------
+    def state_dict(self) -> dict:
+        """JSON-able state for ``SessionState.comm``: the reward EMAs and,
+        on a plain metered transport, the per-sender spend so far."""
+        state: dict = {"reward_ema": {str(m): v for m, v
+                                      in sorted(self._reward_ema.items())}}
+        t = self._transport
+        if t is not None and not hasattr(t, "link_spent") \
+                and hasattr(t, "log"):
+            state["spent_by_src"] = dict(sorted(self._by_src().items()))
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        self._reward_ema = {int(m): float(v)
+                            for m, v in state.get("reward_ema", {}).items()}
+        self._spent_baseline = {s: int(b) for s, b
+                                in state.get("spent_by_src", {}).items()}

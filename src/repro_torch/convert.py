@@ -9,7 +9,8 @@ with its per-link top-k residuals (``codec_state``) and its budget spend
 and DP release counts (``comm``), which ``Protocol.resume_state`` restores
 onto the port's transport.  ``params_from_numpy`` converts one learner's fitted
 params the same way, ``model_params_from_numpy`` a model-zoo parameter
-tree (the serve and training paths' weights) and ``opt_state_from_numpy``
+tree (the serve and training paths' weights), ``neural_params_from_numpy``
+a classifier's or neural backbone's tree and ``opt_state_from_numpy``
 an optimizer state over such a tree (the reference trainer's
 ``{"params", "opt"}`` checkpoints).
 """
@@ -95,6 +96,27 @@ def model_params_from_numpy(cfg: ArchConfig, params: Mapping, *,
         return out
 
     return walk(want, params, "")
+
+
+def neural_params_from_numpy(cfg: ArchConfig, params: Mapping, *,
+                             device: str | torch.device = "cuda") -> dict:
+    """A classifier's or a neural backbone's params (the reference's
+    ``models.classifier.init_params`` tree, plus ``proj`` for
+    ``learners.neural``) as the port's: the backbone through
+    :func:`model_params_from_numpy`, ``cls_head.w`` in ``cfg.dtype`` and
+    ``proj`` in float32."""
+    from repro_torch.models import transformer
+    dev = resolve_device(device)
+    extra = {"cls_head", "proj"}
+    out = model_params_from_numpy(
+        cfg, {k: v for k, v in params.items() if k not in extra},
+        device=dev)
+    out["cls_head"] = {"w": _tensor(params["cls_head"]["w"]).to(
+        device=dev, dtype=transformer.DTYPES[cfg.dtype])}
+    if "proj" in params:
+        out["proj"] = _tensor(params["proj"]).to(device=dev,
+                                                 dtype=torch.float32)
+    return out
 
 
 def opt_state_from_numpy(cfg: ArchConfig, opt_state: Mapping, *,

@@ -6,9 +6,14 @@ pluggable Scheduler, and the protocol state is an explicit checkpointable
 SessionState.  Every transport optionally carries a wire channel
 (``repro_torch.comm``): a codec, whose encoded size the ledger books and
 whose decoded tensor the protocol continues from; a Gaussian mechanism with
-its accountant; a serve codec for prediction-time score blocks; and, on
-:class:`~repro_torch.comm.budget.BudgetedTransport`, a bit budget.  Adaptive
-controllers, telemetry, scenarios, the async variant and the compiled
+its accountant; a serve codec for prediction-time score blocks; on
+:class:`~repro_torch.comm.budget.BudgetedTransport`, a bit budget; and the
+control plane (``repro_torch.control``): an adaptive controller that picks
+the codec's rung hop by hop, a serve controller that picks it block by
+block, and the budget-aware scheduler.  The async variant
+(:class:`AsyncStaleScheduler`) runs the stale-read round with its barrier
+merge and, under a channel, one release a round (``barrier_release``).
+Telemetry, scenarios, protocol variants, the mesh ring and the compiled
 backend belong to later slices of the port; their arguments raise
 ``NotImplementedError``.
 
@@ -20,12 +25,16 @@ reference runs its Pallas kernel on ``MeshRingTransport`` only and when n
 tiles its grid; the function is the same within float32 rounding.
 
 The session's PRNG key is carried as opaque uint32 key data (the
-reference's ``jax.random.key_data``), saved and restored with the state.
-The port's learners are deterministic and never read it, so it is not
-advanced.  The channel's random draws come from a
+reference's ``jax.random.key_data``), saved and restored with the state,
+and never advanced.  Every random draw comes from a
 :class:`~repro_torch.comm.draws.ChannelDraws` source, indexed by the key
-data and the hop's (round, position) or the serve block's (agent, request),
-so a resumed session draws what the uninterrupted one would.
+data and coordinates: a learner's fit draws and a hop's channel draws by
+the hop's (round, position), an async barrier's by its round, a serve
+block's by its (agent, request).  A resumed session draws what the
+uninterrupted one would, and a session on the card what it draws on the
+CPU.  Where the reference splits its key once a hop and hands the subkey
+to the learner, the port hands the learner the fit's draws in the same
+``key`` slot of ``Learner.fit``.
 
 Quickstart::
 
@@ -57,7 +66,7 @@ from repro_torch.learners.base import Learner
 
 Params = Any
 
-VARIANTS = ("ascii", "simple", "random")
+VARIANTS = ("ascii", "simple", "random", "async")
 
 
 def _later_slice(what: str) -> NotImplementedError:
@@ -180,20 +189,35 @@ class Transport(abc.ABC):
     priced at its encoded size, and the protocol continues from the decoded
     tensor), ``privacy`` (a Gaussian mechanism on the outgoing vector, each
     release tallied per agent in ``accountant``), and ``serve_codec`` (the
-    prediction-time score blocks' codec; ``codec`` when unset).
+    prediction-time score blocks' codec; ``codec`` when unset).  A
+    ``controller`` (:class:`~repro_torch.control.adaptive.
+    AdaptiveController`) replaces a fixed codec: each hop ships at the rung
+    its EMA (``ctrl_state``) picks.  A ``serve_controller`` replaces a
+    fixed serve codec: each block ships at the rung its statistic picks.
     """
 
     def __init__(self, codec=None, privacy=None, serve_codec=None,
                  controller=None, accountant=None,
                  serve_controller=None) -> None:
-        for name, value in (("controller", controller),
-                            ("serve_controller", serve_controller)):
-            if value is not None:
-                raise _later_slice(f"adaptive controllers ({name}=)")
         self._endpoints: dict[str, AgentEndpoint] = {}
+        if controller is not None:
+            if codec is not None:
+                raise ValueError(
+                    "an adaptive controller drives codec choice through its "
+                    "ladder; drop codec= (or pass the codec as a one-rung "
+                    "controller ladder)")
+            codec = controller.ladder[0]
+        if serve_controller is not None and serve_codec is not None:
+            raise ValueError(
+                "a serve controller picks the serve rung per score block "
+                "through its ladder; drop serve_codec=")
         self.codec = codec
         self.privacy = privacy
         self.serve_codec = serve_codec
+        self.controller = controller
+        self.ctrl_state = (None if controller is None
+                           else controller.init_state())
+        self.serve_controller = serve_controller
         if accountant is not None and privacy is None:
             raise ValueError("an accountant without a privacy mechanism has "
                              "nothing to account; pass privacy= too")
@@ -210,11 +234,20 @@ class Transport(abc.ABC):
 
     @property
     def effective_serve_codec(self):
-        return self.serve_codec if self.serve_codec is not None else self.codec
+        """The one serve codec, if there is one: ``serve_codec``, else
+        ``codec`` unless a controller drives it (the training controller's
+        statistic reads ignorance vectors, so its serve traffic ships raw,
+        as the reference's) or a serve controller picks it per block."""
+        if self.serve_codec is not None:
+            return self.serve_codec
+        if self.serve_controller is not None or self.controller is not None:
+            return None
+        return self.codec
 
     @property
     def has_serve_channel(self) -> bool:
         return (self.effective_serve_codec is not None
+                or self.serve_controller is not None
                 or self.privacy is not None)
 
     def bind(self, endpoints: Sequence["AgentEndpoint"]) -> None:
@@ -239,6 +272,23 @@ class Transport(abc.ABC):
             return reweight(w, r, alpha)
         return ops.ignorance_update(w, r, alpha.to(w.dtype))
 
+    def _controller_rung(self, w_prev: torch.Tensor,
+                         w_out: torch.Tensor) -> int:
+        """One controller step: observe the hop (the receiver's vector and
+        the outgoing one), advance the EMA, return the rung."""
+        rung, self.ctrl_state = self.controller.step(w_prev, w_out,
+                                                     self.ctrl_state)
+        return rung
+
+    def _admit(self, src: "AgentEndpoint", dst: "AgentEndpoint",
+               w: torch.Tensor, rung: int) -> bool:
+        """Set the hop's codec from ``rung`` (the controller's, 0 without
+        one); False drops the hop.  A budgeted transport walks its ladder
+        from ``rung`` instead (the rung a floor)."""
+        if self.controller is not None:
+            self.codec = self.controller.ladder[rung]
+        return True
+
     def interchange(self, src: "AgentEndpoint", dst: "AgentEndpoint",
                     w: torch.Tensor, r: torch.Tensor, alpha: torch.Tensor,
                     reweight: Callable, standard: bool = True, *,
@@ -247,9 +297,20 @@ class Transport(abc.ABC):
         (DP noise, then the codec), shipped src -> dst with its model
         weight.  Returns ``(w_received, codec_state)``: what the receiver
         decodes and the link's updated codec state (the top-k residual;
-        None for stateless codecs).  ``draws`` are the hop's channel draws
-        (:class:`~repro_torch.comm.draws.HopDraws`)."""
-        w_next = self._execute_update(w, r, alpha, reweight, standard)
+        None for stateless codecs); a dropped hop returns ``(w,
+        codec_state)``, the receiver keeping its stale score.  ``draws``
+        are the hop's channel draws
+        (:class:`~repro_torch.comm.draws.HopDraws`).  A controller observes
+        the outgoing vector, so with one the update runs before
+        :meth:`_admit`, else only once the hop is admitted."""
+        w_next, rung = None, 0
+        if self.controller is not None:
+            w_next = self._execute_update(w, r, alpha, reweight, standard)
+            rung = self._controller_rung(w, w_next)
+        if not self._admit(src, dst, w, rung):
+            return w, codec_state
+        if w_next is None:
+            w_next = self._execute_update(w, r, alpha, reweight, standard)
         wire_bits = None
         if self.has_channel:
             n = int(w.shape[0])
@@ -274,8 +335,12 @@ class Transport(abc.ABC):
         the serve codec), priced at its encoded size.  Returns the decoded
         block the head sums, or None when a budgeted transport drops it.
         A stateful codec runs with a fresh residual: serve calls are
-        independent."""
+        independent.  A serve controller picks the block's rung from the
+        raw block (before any noise)."""
         codec = self.effective_serve_codec
+        if self.serve_controller is not None and codec is None:
+            codec = self.serve_controller.ladder[
+                self.serve_controller.rung_for(block)]
         wire_bits = None
         if codec is not None or self.privacy is not None:
             block, _ = channel_apply(codec, self.privacy, block, draws, None)
@@ -290,8 +355,28 @@ class Transport(abc.ABC):
     def ship(self, src, dst, payload, wrap, *, draws=None):
         raise _later_slice("protocol-variant hops (ship)")
 
-    def barrier_release(self, head, w_bar, *, draws=None, codec_state=None):
-        raise _later_slice("the async barrier's release (barrier_release)")
+    def barrier_release(self, head: "AgentEndpoint", w_bar: torch.Tensor,
+                        *, draws=None, codec_state=None):
+        """One async barrier's release: the merged, renormalized score
+        crosses the wire channel once a round (DP noise, then the codec),
+        priced at its encoded size, and goes to the round's head as one
+        IgnoranceMsg from the sender ``"barrier"``.  Returns ``(w_released,
+        codec_state)``; a budgeted transport may skip the release
+        (``(None, codec_state)``).  ``draws`` are the barrier's channel
+        draws, ``codec_state`` the barrier link's top-k residual."""
+        n = int(w_bar.shape[0])
+        if (self.codec is not None and self.codec.stateful
+                and codec_state is None):
+            codec_state = self.codec.init_state(n, w_bar.device)
+        w_rel, codec_state = channel_apply(self.codec, self.privacy, w_bar,
+                                           draws, codec_state)
+        if self.privacy is not None:
+            self.accountant.record("barrier")
+        wire_bits = (self.codec.wire_bits(n) if self.codec is not None
+                     else None)
+        self.send(IgnoranceMsg("barrier", head.name, w_rel,
+                               wire_bits=wire_bits))
+        return w_rel, codec_state
 
 
 class InProcessTransport(Transport):
@@ -346,12 +431,22 @@ class MeshRingTransport(Transport):
 
 # =================================================================== schedulers
 class Scheduler(abc.ABC):
-    """Round-order policy: which active agents act, in what order."""
+    """Round-order policy: which active agents act, in what order.
+    ``stale`` selects the async execution model (every agent reads the
+    same round-t score; the updates merge at the round's barrier)."""
 
     stale = False
 
     def reset(self) -> None:
         """Called at session start; clears any per-run RNG state."""
+
+    def bind_transport(self, transport: "Transport") -> None:
+        """The session hands its transport to schedulers that order by
+        live channel state; stateless schedulers ignore it."""
+
+    def observe(self, agent_id: int, acc: float) -> None:
+        """The session reports each agent's weighted accuracy after its
+        fit; stateless schedulers ignore it."""
 
     @abc.abstractmethod
     def round_order(self, round_idx: int, active: list[int]) -> list[int]:
@@ -385,6 +480,14 @@ class RandomScheduler(Scheduler):
     def round_order(self, round_idx: int, active: list[int]) -> list[int]:
         perm = self._rng.permutation(len(active))
         return [active[i] for i in perm]
+
+
+class AsyncStaleScheduler(SequentialScheduler):
+    """Beyond-paper asynchronous rounds: every agent fits against the same
+    stale round-t score, and the positive updates merge multiplicatively,
+    damped by 1/M, at the round's barrier (``Session._step_stale``)."""
+
+    stale = True
 
 
 # ======================================================================= agents
@@ -487,7 +590,7 @@ class FittedASCII:
 # ============================================================ protocol variant
 class ASCIIVariant:
     """The paper's protocol: ignorance-score interchange around the chain
-    (Algorithm 1 lines 3-11)."""
+    (Algorithm 1 lines 3-11), and the stale-read async barrier."""
 
     name = "ascii"
 
@@ -498,6 +601,8 @@ class ASCIIVariant:
         eps = {ep.agent_id: ep for ep in session.endpoints}
         rec.setdefault("alphas", [])
         rec.setdefault("accs", [])
+        if session.scheduler.stale:
+            return session._step_stale(order, eps, rec)
         reweight, standard = session._reweight()
         k = cfg.num_classes
         t = st.round
@@ -505,7 +610,8 @@ class ASCIIVariant:
         u = torch.ones_like(st.w)
         for j, m in enumerate(order):
             dst = eps[order[(j + 1) % len(order)]]
-            params = eps[m].fit_local(st.key, session.classes, st.w, k)
+            params = eps[m].fit_local(session.draws.fit(st.key, t, j),
+                                      session.classes, st.w, k)
             r = eps[m].reward(params, session.classes)
             a, rbar = scores.model_weight(
                 st.w, r, k, u=u if cfg.upstream and j > 0 else None,
@@ -513,6 +619,7 @@ class ASCIIVariant:
             alpha = float(a)
             rec["alphas"].append(alpha)
             rec["accs"].append(float(rbar))
+            session.scheduler.observe(m, float(rbar))
             if cfg.stop_on_negative_alpha and alpha <= 0:
                 return True        # Algorithm 1, line 8
             st.components.append(Component(m, st.round, alpha, params))
@@ -536,9 +643,10 @@ class ASCIIVariant:
 
 
 # ================================================================ session state
-#: The channel bookkeeping the port restores (``SessionState.comm``); the
-#: reference's controller EMA and scheduler state belong to later slices.
-COMM_KEYS = ("releases", "ledger_bits", "link_spent", "exhausted")
+#: The channel bookkeeping the port restores (``SessionState.comm``): DP
+#: releases, budget spend, the controller's EMA and the scheduler's state.
+COMM_KEYS = ("releases", "ledger_bits", "link_spent", "exhausted",
+             "ctrl_state", "scheduler")
 
 
 @dataclass
@@ -676,8 +784,13 @@ class Session:
             raise _later_slice("scenarios (scenario=)")
         if telemetry is not None:
             raise _later_slice("telemetry (telemetry=)")
-        if scheduler.stale:
-            raise _later_slice("the stale-read async variant")
+        if scheduler.stale and transport.controller is not None:
+            raise ValueError(
+                "adaptive controllers do not apply to the stale-read async "
+                "path: their EMA statistic is defined on per-hop "
+                "interchange, and the barrier releases once per round; "
+                "drop controller= (codec/privacy/budget channels release "
+                "per barrier and are supported)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scheduler = scheduler
@@ -705,6 +818,7 @@ class Session:
             state.codec_state = {name: self._place(x)
                                  for name, x in state.codec_state.items()}
         transport.bind(self.endpoints)
+        scheduler.bind_transport(transport)
         if _send_setup:
             self._send_setup()
 
@@ -767,6 +881,69 @@ class Session:
             st.stopped = True
         return not st.stopped and st.round < cfg.max_rounds
 
+    def _step_stale(self, order: list[int], eps: dict, rec: dict) -> bool:
+        """An async round: every agent in ``order`` fits against the same
+        score (fit draws at (round, its place in the order)), then each
+        positive alpha's update w * exp((alpha / M)(1 - r)) merges into one
+        product (the unnormalized ignorance kernel), renormalized at the
+        barrier.  Under a channel only the alphas cross per agent and the
+        merged score is released once (``Transport.barrier_release``, with
+        the barrier's draws); without one every agent ships its running
+        product to the next.  True when no alpha was positive (the stop)."""
+        st, cfg = self.state, self.cfg
+        k = cfg.num_classes
+        t = st.round
+        fits = []
+        for j, m in enumerate(order):
+            params = eps[m].fit_local(self.draws.fit(st.key, t, j),
+                                      self.classes, st.w, k)
+            r = eps[m].reward(params, self.classes)
+            a, rbar = scores.model_weight(st.w, r, k,
+                                          alpha_cap=cfg.alpha_cap)
+            fits.append((m, params, r, a, rbar))
+        w_next, partials = st.w, None
+        any_pos = False
+        total = len(order)
+        channel = self.transport.has_channel
+        for j, (m, params, r, a, rbar) in enumerate(fits):
+            alpha = float(a)
+            rec["alphas"].append(alpha)
+            rec["accs"].append(float(rbar))
+            self.scheduler.observe(m, float(rbar))
+            if alpha <= 0:
+                continue
+            any_pos = True
+            st.components.append(Component(m, t, alpha, params))
+            # the 1/M damping keeps the product of M stale updates to the
+            # sequential chain's movement per round
+            w_next, partials = ops.ignorance_update_unnormalized(
+                w_next, r, a / total)
+            if channel:
+                self.transport.send(ModelWeightMsg(eps[m].name, "barrier",
+                                                   alpha))
+            else:
+                dst = eps[order[(j + 1) % total]]
+                self.transport.send(IgnoranceMsg(eps[m].name, dst.name,
+                                                 w_next))
+                self.transport.send(ModelWeightMsg(eps[m].name, dst.name,
+                                                   alpha))
+        w_bar = ops.ignorance_normalize(w_next, partials)
+        if not channel:
+            st.w = w_bar
+        else:
+            link_state = (None if st.codec_state is None
+                          else st.codec_state.get("barrier"))
+            released, link_state = self.transport.barrier_release(
+                eps[order[0]], w_bar, draws=self.draws.barrier(st.key, t),
+                codec_state=link_state)
+            if link_state is not None:
+                if st.codec_state is None:
+                    st.codec_state = {}
+                st.codec_state["barrier"] = link_state
+            if released is not None:
+                st.w = released        # a skipped release stays stale
+        return not any_pos and cfg.stop_on_negative_alpha
+
     def run(self, max_rounds: int | None = None) -> SessionState:
         """Drive ``step()`` to completion (or for ``max_rounds`` more)."""
         budget = float("inf") if max_rounds is None else max_rounds
@@ -810,8 +987,9 @@ class Session:
     # ---- checkpointing ------------------------------------------------------
     def _comm_snapshot(self) -> dict | None:
         """JSON-able channel bookkeeping that must survive pause/resume:
-        budget spend (the cap covers the whole session) and DP release
-        counts (epsilon composes across the resume)."""
+        budget spend (the cap covers the whole session), DP release counts
+        (epsilon composes across the resume), the controller's EMA (a
+        float32, exact through JSON's float) and the scheduler's state."""
         t = self.transport
         snap: dict = {}
         if t.accountant is not None:
@@ -822,6 +1000,11 @@ class Session:
             snap["link_spent"] = [[s, d, int(b)]
                                   for (s, d), b in t.link_spent.items()]
             snap["exhausted"] = bool(t.exhausted)
+        if t.controller is not None:
+            snap["ctrl_state"] = float(t.ctrl_state)
+        state_dict = getattr(self.scheduler, "state_dict", None)
+        if state_dict is not None:
+            snap["scheduler"] = state_dict()
         return snap or None
 
     def _comm_restore(self, snap: dict | None) -> None:
@@ -837,6 +1020,11 @@ class Session:
             t.link_spent = {(s, d): b
                             for s, d, b in snap.get("link_spent", [])}
             t.exhausted = bool(snap.get("exhausted", False))
+        if t.controller is not None and snap.get("ctrl_state") is not None:
+            t.ctrl_state = np.float32(snap["ctrl_state"])
+        load_state = getattr(self.scheduler, "load_state_dict", None)
+        if load_state is not None and snap.get("scheduler") is not None:
+            load_state(snap["scheduler"])
 
     def checkpoint(self, directory: str, step: int | None = None) -> str:
         """Save the live SessionState mid-run (resumable via
@@ -942,13 +1130,14 @@ def variant_setup(variant: str, seed: int = 0) -> tuple[Scheduler, bool]:
       ascii  -> sequential chain, upstream side info (eqs. 11/13)
       simple -> sequential chain, own-loss alphas only
       random -> random order per round, upstream side info
+      async  -> stale-read parallel rounds (beyond the paper)
     """
-    if variant == "async":
-        raise _later_slice("the stale-read async variant")
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected {VARIANTS}")
     if variant == "random":
         return RandomScheduler(seed), True
+    if variant == "async":
+        return AsyncStaleScheduler(), True
     return SequentialScheduler(), variant != "simple"
 
 

@@ -5,20 +5,21 @@ Counterpart of ``repro/core/protocol.py``: ``fit`` maps the legacy
 ``ASCIIConfig`` (variant strings, cv_fraction, a raw ``TransportLog``) onto
 the engine in :mod:`repro_torch.core.engine` on ``device``.  Variants:
 ``ascii`` (upstream side information, eqs. 11/13), ``simple`` (own-loss
-alphas) and ``random`` (random agent order each round).  The ``async``
-variant is a later slice.
+alphas), ``random`` (random agent order each round) and ``async``
+(stale-read rounds merged at a barrier).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.engine import (Component, FittedASCII,
                                      InProcessTransport, MeteredTransport,
                                      Protocol, SessionConfig, Transport,
-                                     endpoints_for, holdout_split,
+                                     endpoints_for, holdout_split, key_data,
                                      variant_setup)
 from repro_torch.core.transport import TransportLog
 from repro_torch.learners.base import Learner
@@ -31,7 +32,7 @@ __all__ = ["ASCIIConfig", "Component", "FittedASCII", "EnsembleAdaBoost",
 class ASCIIConfig:
     num_classes: int
     max_rounds: int = 20
-    variant: str = "ascii"              # ascii | simple | random
+    variant: str = "ascii"              # ascii | simple | random | async
     stop_on_negative_alpha: bool = True
     # the paper's second stop criterion (Section III-C): hold out a fraction
     # of the collated rows, stop when A's out-sample error stops improving
@@ -94,11 +95,14 @@ def fit_ensemble_adaboost(key, Xs: Sequence[torch.Tensor],
                           device: str | torch.device = "cuda"
                           ) -> "EnsembleAdaBoost":
     """Method 3 (Ensemble-AdaBoost): no interchange; each agent runs its own
-    AdaBoost and prediction is a majority vote across agents.  Every member
-    gets the same key: this slice's learners never read it."""
-    fitted = [fit_single_agent_adaboost(key, X, classes, learner, cfg,
-                                        device=device)
-              for X, learner in zip(Xs, learners)]
+    AdaBoost and prediction is a majority vote across agents.  Member m's
+    session key is the key data with m appended (the reference splits its
+    key once a member), so random learners draw apart."""
+    base = key_data(key)
+    fitted = [fit_single_agent_adaboost(
+                  np.append(base, np.uint32(m)).astype(np.uint32), X,
+                  classes, learner, cfg, device=device)
+              for m, (X, learner) in enumerate(zip(Xs, learners))]
     return EnsembleAdaBoost(fitted, cfg.num_classes)
 
 

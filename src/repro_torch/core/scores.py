@@ -91,6 +91,18 @@ def ignorance_update_exact(w: torch.Tensor, r: torch.Tensor,
     return w_new / torch.clamp(torch.sum(w_new), min=_EPS)
 
 
+def head_agent_alpha(w: torch.Tensor, r: torch.Tensor, num_classes: int,
+                     alpha_cap: float = 20.0) -> AlphaResult:
+    """Eq. (9): alpha^(A) = log(rbar/(1-rbar)) + log(K-1)."""
+    return model_weight(w, r, num_classes, u=None, alpha_cap=alpha_cap)
+
+
+def assistant_alpha(w: torch.Tensor, r: torch.Tensor, u: torch.Tensor,
+                    num_classes: int, alpha_cap: float = 20.0) -> AlphaResult:
+    """Eqs. (11)/(13): an assistant's alpha given the upstream factor u."""
+    return model_weight(w, r, num_classes, u=u, alpha_cap=alpha_cap)
+
+
 def init_ignorance(n: int, device: str | torch.device = "cuda",
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Line 1 of Algorithm 1, kept normalized: w_1 = [1/n, ..., 1/n]."""

@@ -1,6 +1,6 @@
 """Bit ledger for the metered transport (paper Fig. 4).
 
-Counterpart of ``repro/core/transport.py`` (main-path subset): ASCII
+Counterpart of ``repro/core/transport.py`` (its eager subset): ASCII
 transmits per hop the length-n ignorance score plus one scalar model
 weight, and once at setup the numeric labels and sample IDs; under a wire
 codec the score is booked at its encoded size.  Every booking
@@ -67,7 +67,23 @@ class TransportLog:
             out[kind] = out.get(kind, 0) + bits
         return dict(sorted(out.items()))
 
+    def bits_by_src(self, kinds=None) -> dict:
+        """Per-sender totals (name-ordered), optionally of the given
+        message kinds only: what the budget-aware scheduler orders by."""
+        out: dict = {}
+        for (kind, src, _dst), bits in self._by.items():
+            if kinds is not None and kind not in kinds:
+                continue
+            out[src] = out.get(src, 0) + bits
+        return dict(sorted(out.items()))
+
 
 def oracle_bits(n: int, p_remote: int, bits_per_element: int = 32) -> int:
     """Cost of the oracle: shipping the remote agents' raw features."""
     return n * p_remote * bits_per_element
+
+
+def oracle_bits_codec(n: int, p_remote: int, codec) -> int:
+    """The oracle under a wire codec: the remote [n, p] raw features
+    shipped through the same codec the protocol uses."""
+    return int(codec.wire_bits((n, p_remote)))

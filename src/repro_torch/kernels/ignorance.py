@@ -112,6 +112,11 @@ def normalize_plain(w_new: torch.Tensor, partials: torch.Tensor) -> torch.Tensor
     return w_new / torch.clamp(_total_plain(partials), min=_EPS)
 
 
+def tile_sums(x: torch.Tensor) -> torch.Tensor:
+    """Pass 1's per-tile partial sums of x, in the kernel's order."""
+    return _tree_sum(_tiles(x))
+
+
 def ignorance_update_plain(w: torch.Tensor, r: torch.Tensor,
                            alpha: torch.Tensor) -> torch.Tensor:
     """Both passes in PyTorch ops: the normalized update."""

@@ -53,6 +53,25 @@ def ignorance_update(w: torch.Tensor, r: torch.Tensor,
     return _ig.ignorance_update(w, r, alpha)
 
 
+def ignorance_update_unnormalized(w: torch.Tensor, r: torch.Tensor,
+                                  alpha: torch.Tensor):
+    """Eqs. (10)/(12) without the normalizer, the async barrier's merge
+    step: one launch of the CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors; returns (w * exp(alpha(1-r)) [n], per-tile partial
+    sums)."""
+    return _ig.ignorance_update_unnormalized(w, r, alpha)
+
+
+def ignorance_normalize(w: torch.Tensor,
+                        partials: torch.Tensor | None = None) -> torch.Tensor:
+    """w / max(sum w, 1e-12), the sum taken from ``partials`` (the tile sums
+    of :func:`ignorance_update_unnormalized`, or of ``w`` when None) in the
+    kernel's order, so the card and the CPU give the same bits."""
+    if partials is None:
+        partials = _ig.tile_sums(w)
+    return _ig.normalize_plain(w, partials)
+
+
 def quantize_dequant(x: torch.Tensor, u: torch.Tensor, qmax, *,
                      bn: int = 1024):
     """Fused per-tile quantize-dequant for the wire codecs: returns

@@ -15,11 +15,17 @@ checkpointing and resume.
   PYTHONPATH=src python -m repro_torch.launch.session --codec int4 \
       --serve-codec int8 --dp-epsilon 1 --accountant rdp   # a wire channel
   PYTHONPATH=src python -m repro_torch.launch.session --byte-budget 20000
+  PYTHONPATH=src python -m repro_torch.launch.session --controller entropy \
+      --serve-controller margin            # the control plane
+  PYTHONPATH=src python -m repro_torch.launch.session --variant async \
+      --codec int8                         # stale-read async rounds
+  PYTHONPATH=src python -m repro_torch.launch.session --learner mlp
   PYTHONPATH=src python -m repro_torch.launch.session --device cpu
 
 It prints the reference's ``dataset,variant,transport,rounds=..,
 components=..,acc=..[,bits=..]`` line, its ``serve:`` line and its channel
-lines (``codec=..``, ``serve_codec=..``, ``budget: ..``, ``dp: ..``).  The
+lines (``controller: ..``, ``codec=..``, ``serve_codec=..``,
+``serve_controller: ..``, ``budget: ..``, ``dp: ..``).  The
 data are drawn from a ``torch.Generator`` seeded with ``--seed``, so the
 numbers differ from the reference CLI's.
 """
@@ -34,7 +40,10 @@ import torch
 
 from repro_torch.comm import (BudgetSpec, BudgetedTransport,
                               GaussianMechanism, make_codec)
-from repro_torch.control import make_accountant
+from repro_torch.control import (AdaptiveController, BudgetAwareScheduler,
+                                  ServeController, make_accountant)
+from repro_torch.control.adaptive import SERVE_STATS
+from repro_torch.control.adaptive import STATS as CONTROLLER_STATS
 from repro_torch.core.engine import (InProcessTransport, MeshRingTransport,
                                      MeteredTransport, Protocol, Session,
                                      SessionConfig, Transport, endpoints_for,
@@ -43,6 +52,7 @@ from repro_torch.data import synthetic
 from repro_torch.data.partition import train_test_split, vertical_split
 from repro_torch.device import resolve_device
 from repro_torch.learners.logistic import LogisticRegression
+from repro_torch.learners.mlp import MLP
 from repro_torch.learners.tree import DecisionTree
 
 DATASETS = {
@@ -63,14 +73,18 @@ LEARNERS = {
                                       device=args.device),
     "logistic": lambda args: LogisticRegression(steps=args.steps,
                                                 device=args.device),
+    "mlp": lambda args: MLP(hidden=(32, 16), steps=args.steps,
+                            device=args.device),
 }
 
 # the run config that must match across pause/resume, with the defaults a
 # manifest written before a key existed implies
 RUN_KEYS = ("dataset", "n", "variant", "learner", "depth", "steps", "seed",
-            "codec", "serve_codec", "byte_budget", "dp_epsilon", "accountant")
+            "codec", "serve_codec", "byte_budget", "dp_epsilon", "controller",
+            "accountant", "scheduler", "serve_controller")
 RUN_DEFAULTS = {"codec": "", "serve_codec": "", "byte_budget": 0,
-                "dp_epsilon": 0.0, "accountant": "basic"}
+                "dp_epsilon": 0.0, "controller": "", "accountant": "basic",
+                "scheduler": "", "serve_controller": ""}
 CODEC_NAMES = ["", "fp32", "fp16", "int8", "int4", "topk"]
 
 
@@ -79,7 +93,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--dataset", default="blob3", choices=sorted(DATASETS))
     ap.add_argument("--n", type=int, default=600)
     ap.add_argument("--variant", default="ascii",
-                    choices=["ascii", "simple", "random"])
+                    choices=["ascii", "simple", "random", "async"])
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--transport", default="metered",
                     choices=sorted(TRANSPORTS))
@@ -87,7 +101,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--depth", type=int, default=3,
                     help="tree depth (tree learner only)")
     ap.add_argument("--steps", type=int, default=150,
-                    help="optimizer steps (logistic learner)")
+                    help="optimizer steps (logistic/mlp learners)")
     ap.add_argument("--codec", default="", choices=CODEC_NAMES,
                     help="wire codec for outgoing ignorance scores (the "
                          "ledger books encoded bits; empty = raw fp32)")
@@ -102,6 +116,23 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp-epsilon", type=float, default=0.0,
                     help="per-release DP epsilon: Gaussian-mechanism noise "
                          "on every outgoing vector, accounted per agent")
+    ap.add_argument("--controller", default="",
+                    choices=[""] + list(CONTROLLER_STATS),
+                    help="adaptive codec controller: pick the codec rung "
+                         "per hop from this statistic of the outgoing "
+                         "ignorance vector (resid = hop innovation, "
+                         "entropy/l2 = concentration); replaces --codec "
+                         "and floors the --byte-budget walk")
+    ap.add_argument("--serve-controller", default="",
+                    choices=[""] + list(SERVE_STATS),
+                    help="serve-path controller: pick each score block's "
+                         "codec rung from its uncertainty (margin = mean "
+                         "top-2 gap, entropy = row entropy); replaces "
+                         "--serve-codec and floors the --byte-budget walk")
+    ap.add_argument("--scheduler", default="", choices=["", "budget-aware"],
+                    help="round-order override: budget-aware orders the "
+                         "agents each round by the bits they have spent "
+                         "(sequential variants)")
     ap.add_argument("--accountant", default="basic",
                     choices=["basic", "rdp", "subsampled-rdp"],
                     help="privacy accountant for --dp-epsilon releases: "
@@ -146,6 +177,22 @@ def check_args(args: argparse.Namespace) -> None:
         if args.transport != "metered":
             raise SystemExit("--byte-budget needs the (budgeted) metered "
                              "transport; drop --transport")
+    if args.variant == "async" and args.controller:
+        raise SystemExit("adaptive controllers are per-hop rung policies "
+                         "with no async analogue; --variant async releases "
+                         "its barrier merge once per round (--codec/"
+                         "--byte-budget/--dp-epsilon apply per barrier and "
+                         "are supported)")
+    if args.controller and args.codec:
+        raise SystemExit("--controller drives codec choice through its "
+                         "ladder; drop --codec")
+    if args.serve_controller and args.serve_codec:
+        raise SystemExit("--serve-controller drives serve codec choice "
+                         "through its ladder; drop --serve-codec")
+    if args.scheduler == "budget-aware" \
+            and args.variant not in ("ascii", "simple"):
+        raise SystemExit("--scheduler budget-aware replaces the round "
+                         "order; use a sequential variant (ascii|simple)")
     if args.accountant != "basic" and args.dp_epsilon <= 0:
         raise SystemExit(f"--accountant {args.accountant} accounts "
                          f"--dp-epsilon releases; set --dp-epsilon too")
@@ -161,18 +208,39 @@ def make_transport(args: argparse.Namespace) -> Transport:
                if args.dp_epsilon > 0 else None)
     accountant = (make_accountant(args.accountant)
                   if privacy is not None else None)
+    controller = (AdaptiveController(stat=args.controller)
+                  if args.controller else None)
+    serve_controller = (ServeController(stat=args.serve_controller)
+                        if args.serve_controller else None)
     if args.byte_budget > 0:
         return BudgetedTransport(BudgetSpec(session_bits=args.byte_budget * 8),
-                                 privacy=privacy, accountant=accountant)
+                                 privacy=privacy, controller=controller,
+                                 accountant=accountant,
+                                 serve_controller=serve_controller)
     return TRANSPORTS[args.transport](
         codec=make_codec(args.codec) if args.codec else None,
         privacy=privacy,
         serve_codec=make_codec(args.serve_codec) if args.serve_codec else None,
-        accountant=accountant)
+        controller=controller, accountant=accountant,
+        serve_controller=serve_controller)
+
+
+def make_scheduler(args: argparse.Namespace):
+    """The CLI's scheduler and upstream flag: the variant's, or the
+    budget-aware override."""
+    scheduler, upstream = variant_setup(args.variant, args.seed)
+    if args.scheduler == "budget-aware":
+        scheduler = BudgetAwareScheduler()
+    return scheduler, upstream
 
 
 def _print_comm(transport: Transport) -> None:
-    """Wire-channel summary lines (codec ledger, budget state, DP spend)."""
+    """Wire-channel summary lines (controller, codec ledger, budget state,
+    DP spend)."""
+    if transport.controller is not None:
+        print(f"controller: stat={transport.controller.stat},"
+              f"rungs={len(transport.controller.ladder)},"
+              f"ema={float(transport.ctrl_state):.4f}")
     if transport.codec is not None:
         line = f"codec={type(transport.codec).__name__}"
         if isinstance(transport, MeteredTransport):
@@ -181,6 +249,9 @@ def _print_comm(transport: Transport) -> None:
         print(line)
     if transport.serve_codec is not None:
         print(f"serve_codec={type(transport.serve_codec).__name__}")
+    if transport.serve_controller is not None:
+        print(f"serve_controller: stat={transport.serve_controller.stat},"
+              f"rungs={len(transport.serve_controller.ladder)}")
     if isinstance(transport, BudgetedTransport):
         print(f"budget: spent={transport.total_bits}b,"
               f"skipped_hops={len(transport.skipped)},"
@@ -216,7 +287,7 @@ def run(args: argparse.Namespace) -> Run:
     Xtr, Xte = [x[tr] for x in Xs], [x[te] for x in Xs]
     ctr, cte = ds.classes[tr], ds.classes[te]
 
-    scheduler, upstream = variant_setup(args.variant, args.seed)
+    scheduler, upstream = make_scheduler(args)
     transport = make_transport(args)
     engine = Protocol(SessionConfig(num_classes=ds.num_classes,
                                     max_rounds=args.rounds,

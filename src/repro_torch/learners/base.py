@@ -5,8 +5,11 @@ weighted supervised training (Algorithm 2 / WST): ``fit(key, X, classes, w,
 num_classes) -> params`` minimizing the w-weighted training loss, plus
 ``predict(params, X) -> class indices``.  Learners are stateless frozen
 dataclasses; fitted params are dicts of tensors on the learner's
-``device``.  The ``key`` argument keeps the reference's signature: this
-slice's learners are deterministic and never read it.
+``device``.  The ``key`` argument keeps the reference's signature; where
+the reference hands a learner its per-fit subkey, the port hands it the
+fit's draws (:class:`~repro_torch.comm.draws.FitDraws`, from the session's
+draw source).  The tree and logistic learners never read it; the MLP,
+the forest and the neural backbone draw from it.
 
 The reference's ``jitted_fresh_fit`` has no counterpart: PyTorch runs
 eagerly, so ``fit`` calls ``core.fit(core.init(...))`` directly.
@@ -60,6 +63,9 @@ class Learner(abc.ABC):
 
     device: str = "cuda"
     param_dtypes: dict[str, torch.dtype] = {}
+    #: True when :meth:`core` returns a functional LearnerCore (the
+    #: reference's adapter flag; the tree and the forest are eager-only).
+    functional = False
 
     def __post_init__(self) -> None:
         resolve_device(self.device)
@@ -79,6 +85,11 @@ class Learner(abc.ABC):
     @abc.abstractmethod
     def predict(self, params: Params, X: torch.Tensor) -> torch.Tensor:
         """Hard class predictions, shape [n]."""
+
+    def core(self, num_classes: int) -> LearnerCore | None:
+        """The pure functional core of this learner, or None when the
+        learner is eager-only (``functional = False``)."""
+        return None
 
     def reward(self, params: Params, X: torch.Tensor,
                classes: torch.Tensor) -> torch.Tensor:

@@ -64,6 +64,7 @@ class LogisticRegression(Learner):
     device: str = "cuda"
 
     param_dtypes = {"w": torch.float32, "b": torch.float32}
+    functional = True
 
     def core(self, num_classes: int) -> LogisticCore:
         return LogisticCore(num_classes, self.steps, self.lr, self.l2,

@@ -1,0 +1,127 @@
+"""Neural-backbone ASCII agent: an assigned architecture (through the
+classifier head) as a Learner, fitted on the w-weighted cross-entropy per
+Algorithm 2.
+
+Counterpart of ``repro/learners/neural.py``.  Tabular features [n, p] are
+projected into d_model by ``proj`` [p, d_model] and taken as a length-1
+sequence, to which token 0's embedding is added; then the backbone's
+layers, its final norm, the mean pool and the float32 ``cls_head``.  The
+fit is ``steps`` full-batch AdamW steps, with gradients from autograd.
+
+The backbone runs the einsum attention: the fit needs a backward, and the
+flash kernels (``cfg.use_flash``) have none (``models/api.py`` raises for
+training with them too), so a config with ``use_flash`` is refused.  The
+forward is float32 throughout: the params are cast up at use, which is
+what the reference's promotion of its float32 features against
+``cfg.dtype`` weights computes; the gradients flow back into the params'
+own dtype.
+
+The init draws its whole tree from one generator of the fit's draws
+(``FitDraws.generator()``, on the CPU, then moved to the learner's
+device): the classifier's params (``classifier.init_params``), then
+``proj`` (he init, float32).  They are not the reference's draws; a parity
+test carries the reference's init across (``convert.model_params_from_
+numpy``) and starts ``NeuralCore.fit`` from it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from repro_torch.comm.draws import fit_draws
+from repro_torch.configs.base import ArchConfig
+from repro_torch.learners.base import Learner, LearnerCore
+from repro_torch.models import classifier, transformer
+from repro_torch.models.layers import he_init
+from repro_torch.optim.optimizers import adamw, tree_leaves, tree_map
+
+
+def _float32(cfg: ArchConfig) -> ArchConfig:
+    if cfg.use_flash:
+        raise ValueError(
+            f"{cfg.name}: the neural backbone's fit needs a backward, and "
+            f"the flash kernels have none; set use_flash=False")
+    return replace(cfg, dtype="float32")
+
+
+def _or_zeros(g, like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(like) if g is None else g
+
+
+def logits(params: dict, X: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Class logits [n, K] of features X [n, p]."""
+    cfg32 = _float32(cfg)
+    # token 0 is the only row read: cast that row, not the whole table
+    p32 = tree_map(lambda t: t.to(torch.float32),
+                   {**params, "embed": {"embedding":
+                                        params["embed"]["embedding"][:1]}})
+    emb = (X @ p32["proj"])[:, None, :]
+    tokens = torch.zeros((X.shape[0], 1), dtype=torch.long, device=X.device)
+    x = emb + transformer.embed_inputs(p32, {"tokens": tokens}, cfg32)
+    return classifier.pooled_logits(p32, transformer.hidden_states(
+        p32, x, cfg32))
+
+
+@dataclass(frozen=True)
+class NeuralCore(LearnerCore):
+    num_classes: int
+    cfg: ArchConfig = None
+    steps: int = 200
+    lr: float = 1e-3
+    device: str = "cuda"
+
+    def init(self, key, shapes):
+        _float32(self.cfg)
+        gen = fit_draws(key).generator()
+        params = classifier.init_params(self.cfg, self.num_classes, gen)
+        params["proj"] = he_init(gen, (shapes[0], self.cfg.d_model),
+                                 torch.float32, device=gen.device)
+        return tree_map(lambda t: t.to(self.device), params)
+
+    def fit(self, params, key, X, onehot, w):
+        del key  # full-batch fit is deterministic
+        opt = adamw(self.lr)
+        opt_state = opt.init(params)
+        for i in range(self.steps):
+            leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+            out = logits(leaves, X, self.cfg)
+            ll = (torch.sum(onehot * out, dim=-1)
+                  - torch.logsumexp(out, dim=-1))
+            loss = -torch.sum(w * ll) / torch.clamp(torch.sum(w), min=1e-12)
+            # an untied lm_head is a leaf the classifier never reads
+            grad_it = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                               allow_unused=True))
+            grads = tree_map(lambda t: _or_zeros(next(grad_it), t), leaves)
+            with torch.no_grad():
+                params, opt_state = opt.update(grads, opt_state, params, i)
+        return params
+
+    def logits(self, params, X):
+        return logits(params, X, self.cfg)
+
+
+@dataclass(frozen=True)
+class NeuralBackbone(Learner):
+    cfg: ArchConfig = None
+    steps: int = 200
+    lr: float = 1e-3
+    device: str = "cuda"
+
+    functional = True
+
+    def core(self, num_classes: int) -> NeuralCore:
+        return NeuralCore(num_classes, self.cfg, self.steps, self.lr,
+                          self.device)
+
+    def fit(self, key, X, classes, w, num_classes):
+        core = self.core(num_classes)
+        X, w = self._place(X), self._place(w)
+        onehot = torch.nn.functional.one_hot(
+            self._place(classes).long(), num_classes).to(torch.float32)
+        return core.fit(core.init(key, tuple(X.shape[1:])), key, X, onehot,
+                        w)
+
+    def predict(self, params, X):
+        return torch.argmax(logits(params, self._place(X), self.cfg), dim=-1)

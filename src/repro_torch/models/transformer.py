@@ -19,6 +19,8 @@ the backward pass (``torch.utils.checkpoint``), as the reference's
 Entry points, as in the reference:
   * ``forward(params, batch, cfg)``              -> logits, caches, aux
   * ``forward_train(params, batch, cfg)``        -> logits, aux (no caches)
+  * ``hidden_states(params, x, cfg)``            -> final normed hidden
+    states of embeddings x (no head; ``models/classifier.py``)
   * ``decode_step(params, caches, tokens, pos, cfg, cache_mode)``
                                                  -> logits, caches
   * ``init_params(cfg, gen)`` / ``init_cache(cfg, batch, s_cache)``
@@ -146,13 +148,14 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return embed(params["embed"], batch["tokens"], cfg.embed_scale)
 
 
-def _run(params: dict, batch: dict, cfg: ArchConfig, keep_caches: bool):
-    """Embed, the layers, the head: (logits, K/V of every layer or None)."""
+def _stack(params: dict, x: torch.Tensor, cfg: ArchConfig,
+           keep_caches: bool):
+    """The layers over embeddings x [B, S, d]: (x, K/V of every layer or
+    None)."""
     check_supported(cfg)
     if cfg.remat not in ("none", "block"):
         raise ValueError(f"remat must be 'none' or 'block', got "
                          f"{cfg.remat!r}")
-    x = embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -169,7 +172,24 @@ def _run(params: dict, batch: dict, cfg: ArchConfig, keep_caches: bool):
             x = _block_train(layer, x, cfg, positions, rope)
     caches = ({"sub0": attn.KVCache(k=torch.stack(ks), v=torch.stack(vs))}
               if keep_caches else None)
+    return x, caches
+
+
+def _run(params: dict, batch: dict, cfg: ArchConfig, keep_caches: bool):
+    """Embed, the layers, the head: (logits, K/V of every layer or None)."""
+    check_supported(cfg)
+    x, caches = _stack(params, embed_inputs(params, batch, cfg), cfg,
+                       keep_caches)
     return _logits(params, x, cfg), caches
+
+
+def hidden_states(params: dict, x: torch.Tensor,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """The final hidden states [B, S, d] of embeddings x: the layers and
+    the final norm, no head (the classifier's and the neural backbone's
+    forward; the reference's ``scan`` of ``_unit_forward``)."""
+    x, _ = _stack(params, x, cfg, keep_caches=False)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig):

@@ -91,15 +91,59 @@ class _ReplayHop:
         return torch.from_numpy(np.array(z)).to(device)
 
 
+class _ReplayFit:
+    """The reference's draws for one per-fit subkey, as the port's
+    learners ask for them (``repro_torch.comm.draws.FitDraws``): the MLP's
+    init normals (layer i: the i-th split of ``split(key)[1]``) and
+    minibatch rows (``randint`` under ``fold_in(split(key)[0], step)``),
+    the forest's bootstrap counts and feature permutations (tree t: the
+    boot and feature keys of ``split(key, trees)[t]``)."""
+
+    def __init__(self, sub, trees: int | None = None):
+        self.sub = sub
+        self.trees = trees
+
+    def normal(self, shape, index=0, device=CPU):
+        key = jax.random.split(self.sub)[1]
+        for _ in range(index + 1):
+            key, layer = jax.random.split(key)
+        z = jax.random.normal(layer, tuple(shape), jnp.float32)
+        return torch.from_numpy(np.array(z)).to(device)
+
+    def randint(self, shape, high, step, device=CPU):
+        key = jax.random.fold_in(jax.random.split(self.sub)[0], step)
+        idx = jax.random.randint(key, tuple(shape), 0, high)
+        return torch.from_numpy(np.array(idx)).long().to(device)
+
+    def _tree_keys(self, t):
+        return jax.random.split(jax.random.split(self.sub, self.trees)[t])
+
+    def poisson(self, shape, index=0, device=CPU):
+        counts = jax.random.poisson(self._tree_keys(index)[0], 1.0,
+                                    tuple(shape))
+        return torch.from_numpy(np.array(counts)).to(device)
+
+    def permutation(self, n, index=0, device=CPU):
+        perm = jax.random.permutation(self._tree_keys(index)[1], n)
+        return torch.from_numpy(np.array(perm)).long().to(device)
+
+
 class ReplayDraws:
     """A draw source that replays the reference's keys: its session key is
     split once per hop (hop h of a sequential session with M agents is
-    round * M + position), and a serve block's key is
+    round * M + position), and the subkey seeds both the hop's fit and its
+    channel; a serve block's key is
     ``fold_in(serve_key(final_key, request), agent)``, where ``final_key``
-    is the reference session's key after its run."""
+    is the reference session's key after its run.  An async round splits
+    once per agent and, under a channel, once more for its barrier
+    (``per_round`` = M + 1).  ``trees`` is a forest's tree count (its
+    per-tree keys depend on it)."""
 
-    def __init__(self, key, agents: int, first_hop: int = 0):
+    def __init__(self, key, agents: int, first_hop: int = 0,
+                 per_round: int | None = None, trees: int | None = None):
         self.agents = agents
+        self.per_round = agents if per_round is None else per_round
+        self.trees = trees
         self._key = key
         self._subs: dict = {}
         self._next = first_hop
@@ -113,7 +157,16 @@ class ReplayDraws:
         return self._subs[h]
 
     def hop(self, key, round_idx, position):
-        return _ReplayHop(self._hop_key(round_idx * self.agents + position))
+        return _ReplayHop(self._hop_key(round_idx * self.per_round
+                                        + position))
+
+    def fit(self, key, round_idx, position):
+        return _ReplayFit(self._hop_key(round_idx * self.per_round
+                                        + position), self.trees)
+
+    def barrier(self, key, round_idx):
+        return _ReplayHop(self._hop_key(round_idx * self.per_round
+                                        + self.agents))
 
     def serve(self, key, agent_index, request=None):
         return _ReplayHop(jax.random.fold_in(
@@ -251,7 +304,7 @@ def _assert_split_decided_by_rounding(jh, th, X, ctr, k):
     _assert_tied_split(X, ctr, th["w"], jp, tp, k)
 
 
-def _assert_tied_split(X, ctr, w, jp, tp, k, depth=3):
+def _assert_tied_split(X, ctr, w, jp, tp, k, depth=3, q=8):
     """Two trees fit on the same weights part at a node.  In float64 the
     port's split there scores no worse than the reference's, and either the
     two tie (within 1e-5 of the node's mass) or the reference's float32
@@ -284,7 +337,8 @@ def _assert_tied_split(X, ctr, w, jp, tp, k, depth=3):
                          for f, t in ((jf[i], jt[i]), (tf[i], tt[i]))]
             tol = 1e-5 * max(w64[sel].sum(), 1e-12)
             ref_f32 = reference_chosen_scores(
-                jnp.asarray(X), jnp.asarray(ctr), jnp.asarray(w), k=k)[i]
+                jnp.asarray(X), jnp.asarray(ctr), jnp.asarray(w),
+                depth=depth, q=q, k=k)[i]
             assert port <= ref + tol, (level, node, ref, port)
             assert abs(ref - port) <= tol or ref_f32 < ref - tol, \
                 (level, node, ref, port, ref_f32)

@@ -81,7 +81,11 @@ def report() -> dict:
 def test_the_walk_finds_the_port():
     for name in ("repro_torch.kernels.quantize", "repro_torch.comm.codecs",
                  "repro_torch.launch.session", "repro_torch.models.api",
-                 "repro_torch.train.trainer"):
+                 "repro_torch.train.trainer", "repro_torch.learners.mlp",
+                 "repro_torch.learners.forest", "repro_torch.learners.neural",
+                 "repro_torch.models.classifier",
+                 "repro_torch.control.adaptive",
+                 "repro_torch.control.scheduler"):
         assert name in MODULES
     assert not any(m.startswith("repro.") for m in MODULES)
 

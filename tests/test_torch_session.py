@@ -409,31 +409,30 @@ def test_entry_points_raise_without_card(blob):
 
 
 def test_later_slice_arguments_raise(blob):
-    """What later slices of the port bring raises NotImplementedError (the
-    wire channel's codec/privacy/serve_codec arguments are ported, see
-    tests/test_torch_comm_session.py)."""
+    """What later slices of the port bring raises NotImplementedError: the
+    compiled backend, telemetry, scenarios, protocol-variant hops and the
+    mesh ring.  The wire channel (tests/test_torch_comm_session.py) and
+    the control plane with the async variant (tests/test_torch_control.py)
+    are ported: their arguments construct."""
     from repro_torch.comm import BudgetedTransport, BudgetSpec
+    from repro_torch.control import AdaptiveController, ServeController
     Xtr, ctr, _, _, k = blob
     cfg = T.SessionConfig(num_classes=k)
     for kwargs in ({"backend": "compiled"}, {"telemetry": object()},
                    {"scenario": object()}):
         with pytest.raises(NotImplementedError):
             T.Protocol(cfg, device=CPU, **kwargs)
-    for kwargs in ({"controller": object()}, {"serve_controller": object()}):
-        with pytest.raises(NotImplementedError):
-            T.MeteredTransport(**kwargs)
-        with pytest.raises(NotImplementedError):
-            BudgetedTransport(BudgetSpec(), **kwargs)
+    for kwargs in ({"controller": AdaptiveController()},
+                   {"serve_controller": ServeController()}):
+        T.MeteredTransport(**kwargs)
+        BudgetedTransport(BudgetSpec(), **kwargs)
     for transport in (T.MeteredTransport(), BudgetedTransport(BudgetSpec())):
-        with pytest.raises(NotImplementedError):
-            transport.barrier_release(None, torch.zeros(3))
         with pytest.raises(NotImplementedError):
             transport.ship(None, None, torch.zeros(3), T.IgnoranceMsg)
     with pytest.raises(SystemExit):
         cli.run(cli.parser().parse_args(["--device", CPU, "--dp-epsilon",
                                          "1", "--accountant",
                                          "subsampled-rdp"]))
-    with pytest.raises(NotImplementedError):
-        T.variant_setup("async")
+    assert T.variant_setup("async")[0].stale
     with pytest.raises(NotImplementedError):
         T.MeshRingTransport(mesh=object())
