@@ -20,10 +20,11 @@
    (quantize with the pack as its epilogue) and decode (unpack with the
    dequantize), also from offset views of the wire.  Prints each plan
    (``ignorance_plans``,
-   ``quantize_plans``: cluster size and CTAs), checks with torch.profiler
-   that the update at n = 42000, the quantize-dequant and the int4 encode
-   at 42000 and [18000, 10] and the int4 decode at 42000 are one device
-   kernel a call, and times kernel (call ms and device ms), plain version
+   ``quantize_plans``: cluster size and CTAs), checks, by capturing one
+   call into a CUDA graph and counting its nodes, that the update at
+   n = 42000, the quantize-dequant and the int4 encode at 42000 and
+   [18000, 10] and the int4 decode at 42000 are one device kernel a call,
+   and times kernel (call ms and device ms), plain version
    and bound (``kernel_table``, ``quantize_table``; ``int4_wire_table``
    beside the parent route: quantize then pack, unpack then a cast and a
    product) and an empty kernel launched the same way (``launch_floor``,
@@ -131,6 +132,34 @@
    on its default blob3: the card's line and w equal the CPU's, launches
    as above, and a run paused after 2 rounds and resumed from its
    checkpoint ends with the uninterrupted run's w, bit for bit.
+14. The compiled backend (``Protocol(backend="compiled")``,
+   ``core.compiled``: the session as one fixed-shape program with no host
+   read, its ledger replayed; ``fleet_run``: F sessions in one vmapped
+   program).  (a) Fashion at full width with the paper's MLP(128, 64), 200
+   steps, 5 rounds, compiled against eager on the card: components, stop
+   round, predictions equal, w bit-equal; the session's seconds, ms a fit
+   and peak memory for both.  (b) MIMIC size, LogisticRegression agents
+   (``--steps 50``), built through the CLI's parse_args and check_args
+   with --backend compiled: fp32, phase 6's five channels,
+   --controller resid, --controller entropy, --scheduler budget-aware
+   under the budget; compiled = eager on the card: ledgers, rungs, round
+   orders, stop rounds, predictions exact, w bit-equal; async under
+   --backend compiled raises NotImplementedError.  (c) Fleets: 32 MIMIC
+   int8 sessions (keys 0..31) and 8 Fashion-MLP sessions on shared data;
+   every Fashion session and 8 of the 32 MIMIC ones (0-6 and 31) against
+   compiled_session with the same key (bit-equal; an MLP session may
+   part only at a hop that rounding decides: w and alphas bit-equal
+   before it, its fits within 12(a)'s limit, every parted prediction a
+   near-tie, held-out predictions agreeing >= 0.999); one batched
+   ignorance launch a hop; sessions per second for the fleet, for those
+   compiled_session calls and for as many eager sessions.  (d) The
+   batched ignorance kernel against its plain version and against F single launches, bit for bit, at
+   [32, 15000], [8, 42000], n above 2^16 and rows above the grid's 65535;
+   its call and device ms beside the bytes bound and the launch floor
+   (``batched_table``); and the fleet's int4 decode at an odd n (the
+   row-strided launch) against its plain version.  (e) One compiled
+   session and one fleet under torch.cuda.set_sync_debug_mode("error"),
+   after a warm-up: no host read inside the program.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -161,6 +190,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core rate
 SMOKE_DIR = os.path.join(ROOT, "build", "chip_smoke")
+# phase 14's MIMIC logistic agents' steps (the CLI's default is 150): a
+# step took ~2 ms of host time on an H100 80GB HBM3 at 700 W (PERF.md),
+# so at 50 the phase's MIMIC sessions and fleets take about a
+# minute there
+MIMIC_STEPS = 50
 
 
 def _cuda_time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
@@ -187,6 +221,7 @@ def _counters() -> dict:
     from repro_torch.kernels import weighted_ce as wce
     return {"ignorance_update": ig.ignorance_update,
             "ignorance_update_unnormalized": ig.ignorance_update_unnormalized,
+            "ignorance_update_batched": ig.ignorance_update_batched,
             "quantize_dequant_tiles": q.quantize_dequant_tiles,
             "quantize_dequant_block": q.quantize_dequant_block,
             "pack_int4": q.pack_int4,
@@ -251,27 +286,57 @@ def _kernel_device_ms(fn, key: str, reps: int = 100) -> float:
     return total / count * max(1, round(count / reps))
 
 
-def _device_kernels_per_call(fn, reps: int = 20) -> tuple[float, dict]:
-    """Device kernels a call of ``fn``: torch.profiler's kernel events over
-    ``reps`` calls (after a warm-up), divided by ``reps``; and the count of
-    each kernel by name."""
+# CUgraphNodeType, cuda.h
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+               5: "empty", 6: "wait_event", 7: "event_record",
+               10: "mem_alloc", 11: "mem_free"}
+
+
+def _device_kernels_per_call(fn) -> tuple[int, dict]:
+    """Device operations a call of ``fn`` enqueues, and their count by
+    kind: one call (after a warm-up) captured into a CUDA graph on a side
+    stream through the driver API, its nodes counted.  Unlike the
+    profiler's tracer, which can drop a short kernel from its window, the
+    count does not depend on timing; the graph is never launched."""
+    import ctypes
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # a window where the tracer dropped a kernel
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        seen = {evt.key[:60]: evt.count for evt in prof.key_averages()
-                if evt.device_type == DeviceType.CUDA}
-        if seen and sum(seen.values()) % reps == 0:
-            break
-    return sum(seen.values()) / reps, seen
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(what, status):
+        if status != 0:
+            raise RuntimeError(f"{what} returned CUresult {status}")
+    stream, graph = torch.cuda.Stream(), ctypes.c_void_p()
+    handle = ctypes.c_void_p(stream.cuda_stream)
+    with torch.cuda.stream(stream):
+        # CU_STREAM_CAPTURE_MODE_RELAXED: the caching allocator may still
+        # reach cudaMalloc inside the call
+        check("cuStreamBeginCapture", cu.cuStreamBeginCapture_v2(handle, 2))
+        try:
+            fn()
+        finally:
+            check("cuStreamEndCapture",
+                  cu.cuStreamEndCapture(handle, ctypes.byref(graph)))
+    try:
+        count = ctypes.c_size_t(0)
+        check("cuGraphGetNodes",
+              cu.cuGraphGetNodes(graph, None, ctypes.byref(count)))
+        nodes = (ctypes.c_void_p * count.value)()
+        check("cuGraphGetNodes",
+              cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)))
+        kinds: dict = {}
+        for node in nodes[:count.value]:
+            kind = ctypes.c_int(-1)
+            check("cuGraphNodeGetType", cu.cuGraphNodeGetType(
+                ctypes.c_void_p(node), ctypes.byref(kind)))
+            name = _NODE_TYPES.get(kind.value, str(kind.value))
+            kinds[name] = kinds.get(name, 0) + 1
+    finally:
+        check("cuGraphDestroy", cu.cuGraphDestroy(graph))
+    torch.cuda.synchronize()
+    return sum(kinds.values()), kinds
 
 
 def _live_tiles(s: int, t: int, causal: bool, window) -> int:
@@ -439,6 +504,8 @@ class Smoke:
         self.kernels: dict[str, dict] = {}
         self.launches = {name: 0 for name in _counters()}
         self.fashion_fp32 = None       # phase 5's data and accuracy
+        self.mlp_limit = None          # phase 12a's logits limit
+        self.floor_ms = None           # phase 2's launch floor
 
     def phase(self, num: int, fn) -> None:
         t0 = time.perf_counter()
@@ -558,7 +625,7 @@ class Smoke:
               f"ctas, tiles_per_cta] " + json.dumps(plans),
               flush=True)
         print("kernel_table " + json.dumps(rows), flush=True)
-        floor = self._launch_floor()
+        floor = self.floor_ms = self._launch_floor()
         return (f"ignorance n in {ns}: update and unnormalized mode equal to "
                 f"the plain versions bit for bit, two runs identical, one "
                 f"device kernel a call at n = 42000 (cluster limit {limit}); "
@@ -1999,6 +2066,34 @@ class Smoke:
                 "parted": int(parted.sum()),
                 "parted_off_near_ties": int((parted & ~near).sum())}
 
+    def _mlp_fit_limit(self, Xtr, ctr):
+        """12(a)'s limit on an MLP fit's logits: 3x the CPU's own spread,
+        the largest distance of the CPU's fit (agent 0's half, uniform w,
+        the draws of fit (0, 0) of key 0) on each of two row permutations
+        from its fit on the rows in order.  Returns (limit, spread, {"cpu":
+        the CPU's logits}), read once a run."""
+        if self.mlp_limit is not None:
+            return self.mlp_limit
+        torch = self.torch
+        from repro_torch.comm.draws import ChannelDraws
+        from repro_torch.core import engine as E
+        from repro_torch.learners.mlp import MLP
+        draws = ChannelDraws().fit(E.key_data(0), 0, 0)
+        w = torch.full((ctr.shape[0],), 1.0 / ctr.shape[0])
+        X, c = Xtr[0].cpu(), ctr.cpu()
+        lr = MLP(hidden=(128, 64), steps=200, device="cpu")
+        logits = {}
+        fits = [("cpu", slice(None))] + [(f"cpu_perm{i}", torch.randperm(
+            c.shape[0], generator=torch.Generator().manual_seed(i)))
+            for i in (1, 2)]
+        for name, rows in fits:
+            params = lr.fit(draws, X[rows], c[rows], w[rows], 10)
+            logits[name] = lr.core(10).logits(params, X).detach()
+        spread = max(float((logits[f"cpu_perm{i}"] - logits["cpu"]).abs()
+                           .max()) for i in (1, 2))
+        self.mlp_limit = (3 * spread, spread, {"cpu": logits["cpu"]})
+        return self.mlp_limit
+
     def learners(self) -> str:
         out = [self._fashion_mlp(), self._blob_forest(),
                self._heterogeneous(), self._neural_backbone()]
@@ -2049,26 +2144,16 @@ class Smoke:
         # 10-bit mantissa) is the control the limit must refuse.
         draws = ChannelDraws().fit(E.key_data(0), 0, 0)
         w = torch.full((ctr.shape[0],), 1.0 / ctr.shape[0], device="cuda")
-        logits = {}
-        everything = slice(None)
-        fits = [("cuda", "cuda", everything, False),
-                ("cuda_tf32", "cuda", everything, True),
-                ("cpu", "cpu", everything, False)]
-        fits += [(f"cpu_perm{i}", "cpu", torch.randperm(
-            ctr.shape[0], generator=torch.Generator().manual_seed(i)), False)
-            for i in (1, 2)]
-        for name, dev, rows, tf32 in fits:
-            lr = MLP(hidden=(128, 64), steps=200, device=dev)
-            X, c, wd = (t.to(dev) for t in (Xtr[0], ctr, w))
+        tol, spread, cpu = self._mlp_fit_limit(Xtr, ctr)
+        logits = dict(cpu)
+        for name, tf32 in (("cuda", False), ("cuda_tf32", True)):
             torch.backends.cuda.matmul.allow_tf32 = tf32
             try:
-                params = lr.fit(draws, X[rows], c[rows], wd[rows], 10)
-                logits[name] = lr.core(10).logits(params, X).detach().cpu()
+                params = learner.fit(draws, Xtr[0], ctr, w, 10)
+                logits[name] = learner.core(10).logits(
+                    params, Xtr[0]).detach().cpu()
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = False
-        spread = max(float((logits[f"cpu_perm{i}"] - logits["cpu"]).abs()
-                           .max()) for i in (1, 2))
-        tol = 3 * spread
         scale = float(logits["cpu"].abs().max())
         gap = self._logits_gap(logits["cuda"], logits["cpu"], tol)
         control = self._logits_gap(logits["cuda_tf32"], logits["cpu"], tol)
@@ -2491,6 +2576,552 @@ class Smoke:
                 "exact; alphas rtol 1e-5): " + "; ".join(out) + "; "
                 + self._control_cli(cli_configs))
 
+    # ---------------------------------------------------- compiled backend
+    def compiled(self) -> str:
+        """Phase 14: (a)-(e) of the module note; every part runs, then the
+        phase fails if one did."""
+        out, failed = [], []
+        for part in (self._batched_kernel, self._compiled_fashion,
+                     self._compiled_mimic, self._fleets,
+                     self._no_host_reads):
+            t0 = time.perf_counter()
+            try:
+                out.append(part())
+                print(f"phase 14 part ({time.perf_counter() - t0:.1f} s): "
+                      f"{out[-1]}", flush=True)
+            except Exception as e:  # the phase fails below, after the rest
+                traceback.print_exc()
+                failed.append(f"{part.__name__}: {type(e).__name__}: {e}")
+        if failed:
+            raise AssertionError("; ".join(failed))
+        return "; ".join(out)
+
+    def _compiled_counts(self, plan, fleet: bool, where: str,
+                         served=None) -> None:
+        """A compiled run's launches: every slot's update (one batched
+        launch a hop for a fleet), every slot's quantize for each int rung
+        of the ladder, and the serve blocks' quantize read off the
+        ledger."""
+        from repro_torch.comm.codecs import QuantCodec
+        hops = plan.max_rounds * plan.num_agents
+        quant = sum(isinstance(c, QuantCodec) for c in plan.ladder)
+        channel = {"quantize_dequant_tiles": hops * quant}
+        if fleet:
+            channel["ignorance_update_batched"] = hops
+        if served is not None:
+            transport, n, block = served
+            codecs = [c for c in (*plan.ladder, transport.serve_codec)
+                      if c is not None]
+            channel["quantize_dequant_block"] = self._coded_counts(
+                transport, codecs, n, block)["quantize_dequant_block"]
+        self.read_counts(0 if fleet else hops, where, **channel)
+
+    def _batched_kernel(self) -> str:
+        """(d) the batched update against its plain version and F single
+        launches, bit for bit; its times beside its bound."""
+        torch = self.torch
+        from repro_torch.kernels import ignorance as ig
+        from repro_torch.kernels import ops
+        gen = torch.Generator(device=self.dev).manual_seed(14)
+        floor = self.floor_ms
+        if floor is None:
+            floor = self.floor_ms = self._launch_floor()
+        rows_out, checked = [], []
+        for rows, n in ((32, 15000), (8, 42000), (32, 10500), (8, 420),
+                        (3, 2 ** 17 + 5), (ig.MAX_ROWS + 2, 3)):
+            w = torch.rand((rows, n), generator=gen, device=self.dev) + 0.01
+            w /= w.sum(dim=1, keepdim=True)
+            r = (torch.rand((rows, n), generator=gen, device=self.dev)
+                 > 0.4).float()
+            a = torch.rand(rows, generator=gen, device=self.dev) * 3 - 0.5
+            got = ig.ignorance_update_batched(w, r, a)
+            plain = ig.ignorance_update_batched_plain(w, r, a)
+            singles = torch.stack([ops.ignorance_update(w[f], r[f], a[f])
+                                   for f in range(min(rows, 64))])
+            torch.cuda.synchronize()
+            self.require(torch.equal(got, plain), f"[{rows}, {n}]: the "
+                         f"batched update differs from its plain version "
+                         f"(max abs {float((got - plain).abs().max())})")
+            self.require(torch.equal(got[:singles.shape[0]], singles),
+                         f"[{rows}, {n}]: a row differs from its single "
+                         f"launch")
+            self.require(torch.equal(ig.ignorance_update_batched(w, r, a),
+                                     got), f"[{rows}, {n}]: two runs differ")
+            checked.append([rows, n])
+            if (rows, n) not in ((32, 15000), (8, 42000), (3, 2 ** 17 + 5)):
+                continue
+            bound, by = _bound_ms(4 * (3 * rows * n + rows), 4 * rows * n)
+
+            def batched(w=w, r=r, a=a):
+                ig.ignorance_update_batched(w, r, a)
+
+            def single_launches(w=w, r=r, a=a, rows=rows):
+                for f in range(rows):
+                    ops.ignorance_update(w[f], r[f], a[f])
+            row = {"shape": [rows, n],
+                   "ms": _cuda_time_ms(batched),
+                   "device_ms": _kernel_device_ms(batched, ""),
+                   "plain_ms": _cuda_time_ms(
+                       lambda w=w, r=r, a=a:
+                       ig.ignorance_update_batched_plain(w, r, a)),
+                   "singles_ms": _cuda_time_ms(single_launches, reps=20),
+                   "bound_ms": bound, "bound_by": by,
+                   "launch_floor_device_ms": floor}
+            if (rows, n) == (32, 15000):
+                per_call, seen = _device_kernels_per_call(batched)
+                self.require(per_call == 1, f"the batched update at [32, "
+                             f"15000]: {per_call} device kernels a call "
+                             f"{seen}")
+                self.kernels["ignorance_update_batched"] = {
+                    "source": "src/repro_torch/csrc/ignorance.cu",
+                    "replaces": "src/repro/kernels/ignorance.py:46",
+                    "max_abs_err": float((got - plain).abs().max()),
+                    "ms": row["ms"], "device_ms": row["device_ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": bound,
+                    "bound_by": by, "library_ms": None}
+            rows_out.append(row)
+        print("batched_table " + json.dumps(rows_out), flush=True)
+        from repro_torch.kernels import quantize as tq
+        decoded = []
+        for rows, n in ((32, 10501), (8, 7)):
+            x = torch.randn((rows, n), generator=gen, device=self.dev)
+            u = torch.rand((rows, n), generator=gen, device=self.dev)
+            tile = tq.tile_for(n)
+            packed, scales = tq.quantize_pack_int4_rows(x, u, 7.0, tile)
+            got = tq.unpack_dequant_int4_rows(packed, scales, n, tile)
+            self.require(torch.equal(got, tq.unpack_dequant_int4_rows_plain(
+                packed, scales, n, tile)), f"the int4 rows decode at "
+                f"[{rows}, {n}] differs from its plain version")
+            decoded.append([rows, n])
+        return (f"(d) batched ignorance update at {checked} = plain = single "
+                f"launches bit for bit, two runs identical, one device "
+                f"kernel a call; [32, 15000] device "
+                f"{rows_out[0]['device_ms']:.5f} ms (bound "
+                f"{rows_out[0]['bound_ms']:.5f}, launch floor {floor:.5f}); "
+                f"the int4 rows decode at odd n {decoded} = plain bit for "
+                f"bit")
+
+    def _timed_fit(self, backend, key, learners, Xtr, ctr, cfg,
+                   transport=None, scheduler=None):
+        """One session through Protocol.fit on the card: (protocol, fitted,
+        seconds, peak GiB, fit ms list for eager)."""
+        torch = self.torch
+        from repro_torch.core import engine as E
+        proto = E.Protocol(cfg, scheduler=scheduler, transport=transport
+                           if transport is not None
+                           else E.MeteredTransport(), backend=backend,
+                           device="cuda")
+        eps = E.endpoints_for(learners, Xtr)
+        fit_ms = self._timed_fits(eps) if backend == "eager" else []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fitted = proto.fit(key, eps, ctr)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return (proto, fitted, secs,
+                torch.cuda.max_memory_allocated() / 2 ** 30, fit_ms)
+
+    def _compiled_fashion(self) -> str:
+        """(a) the Fashion MLP session, compiled against eager."""
+        torch = self.torch
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.learners.mlp import MLP
+        Xtr, ctr, Xte, cte = self._fashion_data()
+        cfg = E.SessionConfig(num_classes=10, max_rounds=5)
+        runs = {}
+        for backend in ("eager", "compiled"):
+            self.reset_counts()
+            runs[backend] = self._timed_fit(
+                backend, 0, [MLP(hidden=(128, 64), steps=200,
+                                 device="cuda")] * 2, Xtr, ctr, cfg)
+            proto = runs[backend][0]
+            if backend == "eager":
+                self.read_counts(len(proto._session.state.components),
+                                 "fashion mlp eager")
+            else:
+                plan = C.plan_for([MLP(hidden=(128, 64), steps=200,
+                                       device="cuda")] * 2, 10,
+                                  max_rounds=5)
+                self._compiled_counts(plan, False, "fashion mlp compiled")
+        (ep, ef, esec, epeak, fit_ms), (cp, cf, csec, cpeak, _) = (
+            runs["eager"], runs["compiled"])
+        self.require([(c.agent, c.round) for c in cf.components]
+                     == [(c.agent, c.round) for c in ef.components],
+                     "fashion mlp: components differ, compiled vs eager")
+        self.require(len(cf.history) == len(ef.history),
+                     "fashion mlp: stop rounds differ")
+        self.require(torch.equal(cf.predict(Xte), ef.predict(Xte)),
+                     "fashion mlp: predictions differ")
+        same_w = torch.equal(cp._compiled_result.w, ep._session.state.w)
+        self.require(same_w, "fashion mlp: compiled w is not the eager w "
+                     "bit for bit (the same ops in the same order)")
+        acc = float((cf.predict(Xte) == cte).float().mean())
+        fits = 5 * 2
+        return (f"(a) fashion MLP(128,64) 200 steps 5 rounds: compiled = "
+                f"eager (components {len(cf.components)}, stop, "
+                f"predictions, w bit-equal), acc {acc:.4f}; eager "
+                f"{esec:.2f} s ({statistics.median(fit_ms):.1f} ms a fit, "
+                f"peak {epeak:.3f} GiB), compiled {csec:.2f} s "
+                f"({csec * 1e3 / fits:.1f} ms a fit slot, {fits} slots, "
+                f"peak {cpeak:.3f} GiB)")
+
+    def _mimic_data(self, device="cuda"):
+        from repro_torch.data.synthetic import mimic_surrogate
+        ds = mimic_surrogate(self.torch.Generator().manual_seed(0), n=15000,
+                             device=device)
+        return self._split(ds)
+
+    def _compiled_mimic(self) -> str:
+        """(b) MIMIC's nine configs through the CLI's builders, compiled =
+        eager on the card; async raises."""
+        torch = self.torch
+        from repro_torch.comm.budget import BudgetSpec
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.launch import session as cli
+        Xtr, ctr, Xte, cte = self._mimic_data()
+        n, m, n_te = 10500, 2, 4500
+        costs = BudgetSpec().hop_costs(n)
+        budget = str(-(-((m - 1) * 2 * n * 32 + sum(costs) + 100) // 8))
+        configs = [[], ["--codec", "int8"],
+                   ["--codec", "int4", "--serve-codec", "int8"],
+                   ["--codec", "topk"],
+                   ["--dp-epsilon", "1.0", "--accountant", "rdp"],
+                   ["--byte-budget", budget],
+                   ["--controller", "resid"], ["--controller", "entropy"],
+                   ["--scheduler", "budget-aware", "--byte-budget", budget]]
+        out = []
+        for argv in configs:
+            name = " ".join(argv) or "fp32"
+            runs = {}
+            for backend in ("eager", "compiled"):
+                args = cli.parser().parse_args(
+                    ["--device", "cuda", "--learner", "logistic", "--steps",
+                     str(MIMIC_STEPS), "--backend", backend, *argv])
+                cli.check_args(args)
+                transport = cli.make_transport(args)
+                scheduler, upstream = cli.make_scheduler(args)
+                rungs = []
+                if backend == "eager" and transport.controller is not None:
+                    inner = transport._controller_rung
+
+                    def step(w_prev, w_out, _inner=inner, _rungs=rungs):
+                        _rungs.append(int(_inner(w_prev, w_out)))
+                        return _rungs[-1]
+                    transport._controller_rung = step
+                cfg = E.SessionConfig(num_classes=2, max_rounds=10,
+                                      upstream=upstream)
+                self.reset_counts()
+                proto, fitted, secs, _, _ = self._timed_fit(
+                    backend, 0, [cli.LEARNERS["logistic"](args)
+                                 for _ in Xtr], Xtr, ctr, cfg,
+                    transport=transport, scheduler=scheduler)
+                served = proto.predict_distributed(Xte)
+                torch.cuda.synchronize()
+                ladder = (transport.budget.ladder if hasattr(transport,
+                                                            "budget")
+                          else transport.controller.ladder
+                          if transport.controller is not None
+                          else (transport.codec,))
+                if backend == "eager":
+                    self._read_control_counts(
+                        proto._session, transport,
+                        [c for c in (*ladder, transport.serve_codec)
+                         if c is not None], n, (n_te, 2),
+                        f"mimic eager {name}")
+                else:
+                    res = proto._compiled_result
+                    sent = res.sent.cpu()
+                    rungs = [int(x) for x in res.codec_idx.cpu()[sent]]
+                    plan = C.plan_for(
+                        [cli.LEARNERS["logistic"](args) for _ in Xtr], 2,
+                        max_rounds=10, codec=transport.codec,
+                        privacy=transport.privacy,
+                        budget=getattr(transport, "budget", None),
+                        controller=transport.controller,
+                        serve_codec=transport.serve_codec,
+                        serve_controller=transport.serve_controller)
+                    self._compiled_counts(
+                        plan, False, f"mimic compiled {name}",
+                        served=(transport, n, (n_te, 2)))
+                w = (proto._compiled_result.w if backend == "compiled"
+                     else proto._session.state.w)
+                runs[backend] = (proto, fitted, transport, rungs,
+                                 served.cpu(), fitted.predict(Xte).cpu(), w,
+                                 secs)
+            (ep, ef, et, er, eserve, efit, ew, esec), \
+                (cp, cf, ct, cr, cserve, cfit, cw, csec) = (
+                    runs["eager"], runs["compiled"])
+            self.require(et.log.entries == ct.log.entries,
+                         f"{name}: compiled and eager ledgers differ")
+            self.require([(c.agent, c.round) for c in cf.components]
+                         == [(c.agent, c.round) for c in ef.components],
+                         f"{name}: components or round orders differ")
+            self.require(len(cf.history) == len(ef.history),
+                         f"{name}: stop rounds differ")
+            self.require(torch.equal(cserve, eserve)
+                         and torch.equal(cfit, efit),
+                         f"{name}: predictions differ")
+            self.require(torch.equal(cw, ew), f"{name}: w is not bit-equal")
+            if hasattr(et, "budget"):
+                erungs = [e["rung"] for e in et.log.entries if "rung" in e
+                          and e["kind"] == "ignorance"]
+                self.require(cr == erungs, f"{name}: rungs {cr} != eager "
+                             f"{erungs}")
+                self.require((ct.skipped, ct.exhausted)
+                             == (et.skipped, et.exhausted),
+                             f"{name}: skips or exhaustion differ")
+            elif et.controller is not None:
+                self.require(cr == er, f"{name}: controller rungs {cr} != "
+                             f"eager {er}")
+            if et.accountant is not None:
+                self.require(ct.accountant.releases
+                             == et.accountant.releases,
+                             f"{name}: DP releases differ")
+            acc = float((cserve == cte.cpu()).float().mean())
+            out.append(f"[{name}] components={len(cf.components)} "
+                       f"rounds={len(cf.history)} acc={acc:.4f} "
+                       f"bits={ct.total_bits} eager {esec:.2f} s compiled "
+                       f"{csec:.2f} s")
+        args = cli.parser().parse_args(["--device", "cuda", "--learner",
+                                        "logistic", "--steps",
+                                        str(MIMIC_STEPS), "--backend",
+                                        "compiled", "--variant", "async",
+                                        "--codec", "int8"])
+        cli.check_args(args)
+        scheduler, upstream = cli.make_scheduler(args)
+        try:
+            E.Protocol(E.SessionConfig(num_classes=2, max_rounds=10),
+                       scheduler=scheduler,
+                       transport=cli.make_transport(args),
+                       backend="compiled", device="cuda").fit(
+                0, E.endpoints_for([cli.LEARNERS["logistic"](args)
+                                    for _ in Xtr], Xtr), ctr)
+            raised = False
+        except NotImplementedError:
+            raised = True
+        self.require(raised, "--variant async --backend compiled did not "
+                     "raise NotImplementedError")
+        return (f"(b) mimic logistic({MIMIC_STEPS}) 10 rounds, compiled = "
+                "eager on the "
+                "card (ledgers, rungs, orders, stops, predictions, w "
+                "bit-equal); async raises: " + "; ".join(out))
+
+    def _fleet_vs_single(self, plan, fleet, keys, held, Xs, ctr, Xte,
+                         learners, name, logits_limit=None):
+        """The fleet's sessions ``held`` (positions in ``keys``) against
+        compiled_session with their keys (timed): the slots run, the
+        sends, rungs and orders exact; w and the alphas bit-equal.  With ``logits_limit`` (an MLP:
+        the fleet's vmapped backward sums its gradients in another order
+        than a lone fit's, fleet_bits.json) a session may part instead, at
+        a hop that rounding decides (``_parting_hop``), and its held-out
+        predictions must still agree >= 0.999.  Returns (notes, seconds of
+        the single sessions)."""
+        torch = self.torch
+        from repro_torch.core import compiled as C
+        notes, secs, exact_count = [], [], 0
+        for f in held:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single = C.compiled_session(plan, keys[f], Xs, ctr)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            part = C.SessionResult(*[
+                C.tree_map(lambda x, _f=f: x[_f], v) for v in fleet])
+            for field in ("executed", "valid", "sent", "codec_idx",
+                          "order"):
+                self.require(torch.equal(getattr(part, field),
+                                         getattr(single, field)),
+                             f"{name} session {f}: {field} differs from "
+                             f"compiled_session")
+            if (torch.equal(part.w, single.w)
+                    and torch.equal(part.alphas, single.alphas)
+                    and torch.equal(part.w_trace, single.w_trace)):
+                exact_count += 1
+                continue
+            self.require(logits_limit is not None, f"{name} session {f}: "
+                         f"w or alphas differ from compiled_session")
+            reading = self._parting_hop(plan, part, single, Xs, ctr,
+                                        logits_limit, f"{name} session {f}")
+            agree = float((C.fitted_from_result(plan, single, learners)
+                           .predict(Xte)
+                           == C.fitted_from_result(plan, part, learners)
+                           .predict(Xte)).float().mean())
+            self.require(agree >= 0.999, f"{name} session {f}: {reading}; "
+                         f"held-out predictions agree {agree:.4f} < 0.999")
+            notes.append(f"session {f}: {reading}; held-out predictions "
+                         f"agree {agree:.4f}")
+        notes.insert(0, f"{exact_count} of {len(held)} sessions bit-equal "
+                     f"to compiled_session (w, alphas, w after every hop)")
+        return notes, secs
+
+    def _parting_hop(self, plan, part, single, Xs, ctr, limit,
+                     where) -> str:
+        """The first hop (in visit order) where a fleet's session and its
+        compiled_session differ in alpha or in w after the hop.  Before it
+        both are bit-equal, so the hop's two fits had the same inputs and
+        differ by the products' rounding alone: their logits must lie
+        within ``limit`` (12(a)'s), their reward vectors must differ (else
+        alpha and w would be equal), and every row whose prediction parted
+        must be a near-tie, its top-2 logit gap within ``limit`` in both
+        fits.  Returns the reading."""
+        torch = self.torch
+        from repro_torch.core import compiled as C
+        T, M = single.alphas.shape
+        hop = next((t, j) for t in range(T) for j in range(M)
+                   if not (torch.equal(part.alphas[t, j], single.alphas[t, j])
+                           and torch.equal(part.w_trace[t, j],
+                                           single.w_trace[t, j])))
+        t, j = hop
+        core = plan.cores[j]
+        logits = [core.logits(C.tree_map(lambda x: x[t], r.params[j]),
+                              Xs[j]).detach() for r in (single, part)]
+        rewards = [(lg.argmax(-1) == ctr) for lg in logits]
+        gaps = [self._logits_gap(a, b, limit)
+                for a, b in ((logits[1], logits[0]), (logits[0], logits[1]))]
+        reading = (f"parts at hop (round {t}, slot {j}): its fits' max"
+                   f"|dlogit| {gaps[0]['max_err']:.4g} (limit {limit:.4g}), "
+                   f"{gaps[0]['parted']} predictions parted, "
+                   f"{int((rewards[0] != rewards[1]).sum())} rewards, "
+                   f"{gaps[0]['parted_off_near_ties']}/"
+                   f"{gaps[1]['parted_off_near_ties']} off near-ties; after "
+                   f"it max|dw| {float((part.w - single.w).abs().max()):.3g}")
+        self.require(gaps[0]["max_err"] <= limit,
+                     f"{where}: {reading}: beyond 12(a)'s limit")
+        self.require(not torch.equal(rewards[0], rewards[1]),
+                     f"{where}: {reading}: the rewards are equal, so the "
+                     f"hop's inputs, not its fits, differ")
+        self.require(gaps[0]["parted_off_near_ties"] == 0
+                     and gaps[1]["parted_off_near_ties"] == 0,
+                     f"{where}: {reading}: a parted prediction is no "
+                     f"near-tie")
+        return reading
+
+    def _eager_sessions(self, learners, Xtr, ctr, cfg, keys,
+                        transport_fn, where) -> list:
+        """One eager Protocol.fit on the card a key; their seconds.  A
+        session's launches are read off its ledger."""
+        torch = self.torch
+        from repro_torch.core import engine as E
+        secs = []
+        for key in keys:
+            transport = transport_fn()
+            proto = E.Protocol(cfg, transport=transport, backend="eager",
+                               device="cuda")
+            eps = E.endpoints_for(learners, Xtr)
+            self.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            proto.fit(key, eps, ctr)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            hops = sum(e["kind"] == "ignorance"
+                       for e in transport.log.entries)
+            quant = ({"quantize_dequant_tiles": hops}
+                     if transport.codec is not None else {})
+            self.read_counts(hops, where, **quant)
+        self.reset_counts()
+        return secs
+
+    def _fleets(self) -> str:
+        """(c) a MIMIC int8 seed fleet of 32 and a Fashion-MLP fleet of 8 on
+        shared data; each against compiled_session calls and eager
+        sessions: all 8 Fashion sessions, and 8 of the 32 MIMIC ones (the
+        first 7 and the last; 32 of each took 150 s on the card, more
+        than phase 14's share of the script's time limit)."""
+        torch = self.torch
+        from repro_torch.comm.codecs import QuantCodec
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.learners.logistic import LogisticRegression
+        from repro_torch.learners.mlp import MLP
+        out = []
+        fleets = (
+            ("mimic int8", 32, self._mimic_data(),
+             [LogisticRegression(steps=MIMIC_STEPS, device="cuda")] * 2, 2,
+             10, lambda: QuantCodec(8)),
+            ("fashion MLP", 8, self._fashion_data(),
+             [MLP(hidden=(128, 64), steps=200, device="cuda")] * 2, 10, 5,
+             lambda: None))
+        for name, F, (Xtr, ctr, Xte, _), learners, k, rounds, codec \
+                in fleets:
+            plan = C.plan_for(learners, k, max_rounds=rounds, codec=codec())
+            keys = list(range(F))
+            held = list(range(7)) + [F - 1] if F > 8 else keys
+            self.reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fleet = C.fleet_run(plan, keys, Xtr, ctr)
+            torch.cuda.synchronize()
+            fsec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            self._compiled_counts(plan, True, f"{name} fleet")
+            limit = (self._mlp_fit_limit(Xtr, ctr)[0]
+                     if name.startswith("fashion") else None)
+            notes, ssec = self._fleet_vs_single(plan, fleet, keys, held,
+                                                Xtr, ctr, Xte, learners,
+                                                f"{name} fleet",
+                                                logits_limit=limit)
+            esec = self._eager_sessions(
+                learners, Xtr, ctr, E.SessionConfig(num_classes=k,
+                                                    max_rounds=rounds),
+                [keys[f] for f in held],
+                lambda: E.MeteredTransport(codec=codec()), f"{name} eager")
+            h = len(held)
+            out.append(
+                f"{name} F={F}: fleet {fsec:.3f} s = {F / fsec:.4g} "
+                f"sessions/s (peak {peak:.3f} GiB), {h} compiled_session "
+                f"calls {sum(ssec):.3f} s = {h / sum(ssec):.4g} sessions/s "
+                f"(range {min(ssec):.3f}-{max(ssec):.3f} s), {h} eager "
+                f"sessions {sum(esec):.3f} s = {h / sum(esec):.4g} "
+                f"sessions/s (range {min(esec):.3f}-{max(esec):.3f} s); "
+                + "; ".join(notes))
+        return "(c) fleets, one batched update a hop: " + " | ".join(out)
+
+    def _no_host_reads(self) -> str:
+        """(e) a compiled session and a fleet under sync debug mode
+        "error": any host read inside raises."""
+        torch = self.torch
+        from repro_torch.comm.codecs import QuantCodec
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.learners.logistic import LogisticRegression
+        Xtr, ctr, _, _ = self._mimic_data()
+        plan = C.plan_for([LogisticRegression(steps=MIMIC_STEPS,
+                                              device="cuda")] * 2,
+                          2, max_rounds=10, codec=QuantCodec(8))
+        shapes = tuple(tuple(x.shape[1:]) for x in Xtr)
+        fn = C.make_session_fn(plan, shapes)
+        single = C._draws_for(plan, E.key_data(0), int(ctr.shape[0]), shapes,
+                              ctr.device, None, fleet=False)
+        fleet = C._draws_for(plan, [E.key_data(k) for k in range(4)],
+                             int(ctr.shape[0]), shapes, ctr.device, None,
+                             fleet=True)
+        vfn = torch.func.vmap(fn, in_dims=(0, None, None))
+        results = {}
+        for name, run in (("session", lambda: fn(single, tuple(Xtr), ctr)),
+                          ("fleet", lambda: vfn(fleet, tuple(Xtr), ctr))):
+            run()                       # warm-up: first-use set-up syncs
+            torch.cuda.synchronize()
+            self.reset_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                results[name] = run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            self._compiled_counts(plan, name == "fleet",
+                                  f"sync-checked {name}")
+        self.require(torch.equal(results["fleet"].executed[0],
+                                 results["session"].executed),
+                     "the sync-checked fleet's session 0 did not run as the "
+                     "session did")
+        return ("(e) a compiled session and a 4-session fleet (mimic int8) "
+                "ran under set_sync_debug_mode('error'): no host read")
+
 
 def _bf16_backbone_logits(params: dict, X, cfg):
     """``learners.neural.logits`` with the backbone computed in bf16 (the
@@ -2537,7 +3168,8 @@ def main(argv: list[str]) -> int:
     phases = {1: s.build, 2: s.kernel_vs_plain, 3: s.cli_path, 4: s.mimic,
               5: s.fashion, 6: s.mimic_channel, 7: s.fashion_channel,
               8: s.flash_vs_plain, 9: s.serve, 10: s.ce_vs_plain,
-              11: s.train, 12: s.learners, 13: s.control}
+              11: s.train, 12: s.learners, 13: s.control,
+              14: s.compiled}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])

@@ -243,13 +243,15 @@ class TopKCodec(Codec):
         order = torch.sort(y.abs(), descending=True, stable=True).indices
         idx = order[:self.k_for(m)]
         vals = y[idx]
-        dense = torch.zeros_like(y).index_put_((idx,), vals)
+        # out-of-place scatters (distinct indices: the bits of index_put),
+        # which torch.func.vmap batches over a fleet of sessions
+        dense = torch.zeros_like(y).scatter(0, idx, vals)
         return (vals, idx, shape), (y - dense).reshape(shape)
 
     def decode(self, wire):
         vals, idx, shape = wire
         dense = torch.zeros(numel(shape), dtype=torch.float32,
-                            device=vals.device).index_put_((idx,), vals)
+                            device=vals.device).scatter(0, idx, vals)
         return dense.reshape(shape)
 
 
@@ -273,7 +275,12 @@ def make_codec(name: str, **kw) -> Codec:
 def channel_apply(codec, privacy, w: torch.Tensor, draws, state):
     """One hop through the wire: DP noise on the outgoing payload (the
     draws' normals), then the codec roundtrip (the draws' uniforms, for a
-    stochastic codec).  Returns (what the receiver decodes, codec state)."""
+    stochastic codec).  Returns (what the receiver decodes, codec state).
+    ``draws`` is the hop's draw source: an eager hop's
+    :class:`~repro_torch.comm.draws.HopDraws`, or in a compiled session
+    the hop's slice of the draws taken before the program
+    (:class:`~repro_torch.comm.draws.TensorHopDraws`), so nothing is drawn
+    on the host inside the session."""
     if privacy is not None:
         if draws is None:
             raise ValueError("the Gaussian mechanism needs the hop's draws")

@@ -34,6 +34,17 @@ holds a session to the reference passes a source that replays JAX's keys.
 A hop's draws are indexed by the hop, never by how often the channel was
 called: a hop that a budget skips still owns its coordinates, so the hops
 after it draw the same numbers whether or not it shipped.
+
+A compiled session (``core.compiled``) reads nothing from the host once it
+runs, so :func:`session_draws` takes all of a session's draws before it:
+every hop's uniforms and normals ``[round, slot, n]`` and every fit's draws
+(its init and what else the learner reads), ``[F, round, slot, ...]`` for
+a fleet of F keys.  They are the values ``hop(key, t, j)`` and
+``fit(key, t, j)`` give, so a compiled session draws what the eager one
+draws.  Every slot gets its draws, a hop that will be skipped or comes
+after the stop included: the draws are indexed by coordinates, never by
+what ran.  :class:`TensorHopDraws` hands one hop's slice to
+``channel_apply``.
 """
 from __future__ import annotations
 
@@ -193,3 +204,74 @@ class ChannelDraws:
         tag = (0, 0) if request is None else (1, int(request))
         return HopDraws((*self._key_words(key), SERVE_SPACE, *tag,
                          int(agent_index)))
+
+
+# ============================================================ a whole session
+class TensorHopDraws:
+    """One hop's draws as tensors taken ahead (a compiled session's slice
+    of :func:`session_draws`): ``uniform`` and ``normal`` return them."""
+
+    def __init__(self, u: torch.Tensor | None, z: torch.Tensor | None):
+        self.u, self.z = u, z
+
+    @staticmethod
+    def _take(x, shape, what):
+        if x is None or tuple(x.shape) != tuple(shape):
+            raise ValueError(f"no {what} draws of shape {tuple(shape)} were "
+                             f"taken for this hop")
+        return x
+
+    def uniform(self, shape, device=None) -> torch.Tensor:
+        return self._take(self.u, shape, "uniform")
+
+    def normal(self, shape, device=None) -> torch.Tensor:
+        return self._take(self.z, shape, "normal")
+
+
+def stack_trees(trees: list):
+    """Stack matching trees (dicts, lists, tuples of tensors) along a new
+    leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(stack_trees([t[i] for t in trees])
+                           for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def session_draws(keys, rounds: int, slots: int, n: int, fit, *,
+                  uniform: bool = False, normal: bool = False,
+                  device="cpu", source=None, fleet: bool = False) -> dict:
+    """Every draw of a session, taken before it runs: ``{"fit": [slot j's
+    fit draws, each leaf [rounds, ...]], "u": [rounds, slots, n],
+    "z": [rounds, slots, n]}`` (``u``, the codecs' uniforms, when
+    ``uniform``; ``z``, the mechanism's normals, when ``normal``).
+    ``fit(j, fit_draws)`` turns slot j's :class:`FitDraws` into its tree
+    of tensors (``LearnerCore.draw``).  ``keys`` is the session's key
+    data, or with ``fleet`` a sequence of F keys, and then every leaf has
+    a leading [F] axis.  ``source`` is the draw source (default
+    :class:`ChannelDraws`), or with ``fleet`` one source a key."""
+    if not fleet:
+        keys, source = [keys], [source]
+    elif not isinstance(source, (list, tuple)):
+        source = [source] * len(keys)
+    sessions = []
+    for key, src in zip(keys, source):
+        src = ChannelDraws() if src is None else src
+        out = {"fit": [stack_trees([fit(j, src.fit(key, t, j))
+                                    for t in range(rounds)])
+                       for j in range(slots)]}
+        hops = [[src.hop(key, t, j) for j in range(slots)]
+                for t in range(rounds)]
+        # drawn on the host, then one copy to the device
+        if uniform:
+            out["u"] = torch.stack([torch.stack([h.uniform((n,), "cpu")
+                                                 for h in row])
+                                    for row in hops]).to(device)
+        if normal:
+            out["z"] = torch.stack([torch.stack([h.normal((n,), "cpu")
+                                                 for h in row])
+                                    for row in hops]).to(device)
+        sessions.append(out)
+    return stack_trees(sessions) if fleet else sessions[0]

@@ -29,6 +29,14 @@ Under a bit budget the rung is a floor on the ladder walk
 never finer.  The EMA is protocol state: it lives on the transport
 (``Transport.ctrl_state``) and crosses a checkpoint in
 ``SessionState.comm``.
+
+The compiled session (``core.compiled``) runs the same step as tensors
+on the device, with no read to the host: :meth:`AdaptiveController.
+step_tensor` (:func:`controller_rung`, the reference's name) takes the
+statistic in float64 on the device and rounds it, :func:`ema_step_tensor`
+rounds where :func:`ema_step` does, and the rung is the count of float32
+cuts the EMA lies below, so both backends pick the same rungs bit for
+bit.
 """
 from __future__ import annotations
 
@@ -93,6 +101,26 @@ def ema_step(beta, prev, x) -> np.float32:
                       + np.float64(tail))
 
 
+def ema_step_tensor(beta, prev: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """:func:`ema_step` on 0-d float32 tensors, on their device: the same
+    roundings (``(1 - beta) * x`` in float32, then the exact float32
+    product ``beta * prev`` added in float64 and rounded once)."""
+    b = np.float32(beta)
+    tail = x * float(np.float32(np.float32(1.0) - b))
+    return (prev.to(torch.float64) * float(b)
+            + tail.to(torch.float64)).to(torch.float32)
+
+
+def rung_tensor(value: torch.Tensor, cuts: tuple) -> torch.Tensor:
+    """:func:`_rung` as a 0-d int64 tensor on ``value``'s device: how many
+    float32 cuts the float32 ``value`` lies below."""
+    rung = torch.zeros((), dtype=torch.int64, device=value.device)
+    for c in cuts:
+        rung = rung + (value < float(np.float32(c))).to(torch.int64)
+    return rung
+
+
 def _rung(value: np.float32, cuts: tuple) -> int:
     """How many cuts (as float32) the float32 ``value`` lies below."""
     return int(sum(value < np.float32(c) for c in cuts))
@@ -131,6 +159,12 @@ class AdaptiveController:
         """The raw per-hop statistic in [0, 1], taken in float64 and
         rounded to float32.  ``w_out`` is the outgoing vector, ``w_prev``
         the one the receiver holds (only ``"resid"`` reads it)."""
+        return np.float32(float(self.observe_tensor(w_prev, w_out)))
+
+    def observe_tensor(self, w_prev: torch.Tensor,
+                       w_out: torch.Tensor) -> torch.Tensor:
+        """:meth:`observe` as a 0-d float32 tensor on the vectors' device,
+        read by no host."""
         n = int(w_out.shape[0])
         p = _normalized(w_out)
         if self.stat == "resid":
@@ -142,7 +176,7 @@ class AdaptiveController:
             s = h / math.log(max(n, 2))
         else:
             s = 1.0 / (n * torch.clamp(torch.sum(p * p), min=1e-12))
-        return np.float32(float(s))
+        return s.to(torch.float32)
 
     def step(self, w_prev: torch.Tensor, w_out: torch.Tensor,
              ema) -> tuple[int, np.float32]:
@@ -150,6 +184,21 @@ class AdaptiveController:
         s = self.observe(w_prev, w_out)
         ema = ema_step(self.beta, ema, s)
         return _rung(ema, self.thresholds), ema
+
+    def step_tensor(self, w_prev: torch.Tensor, w_out: torch.Tensor,
+                    ema: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`step` as tensors on the device: ``(rung int64, new_ema
+        float32)``, both 0-d, the bits :meth:`step` gives."""
+        ema = ema_step_tensor(self.beta, ema,
+                              self.observe_tensor(w_prev, w_out))
+        return rung_tensor(ema, self.thresholds), ema
+
+
+def controller_rung(controller: AdaptiveController, w_prev: torch.Tensor,
+                    w_out: torch.Tensor, ema: torch.Tensor):
+    """The reference's functional entry point: one controller step as
+    tensors (:meth:`AdaptiveController.step_tensor`)."""
+    return controller.step_tensor(w_prev, w_out, ema)
 
 
 @dataclass(frozen=True)

@@ -20,13 +20,20 @@ reference's in-scan twin, which its compiled backend lowers; the eager
 ``round_order`` calls it too).  The scheduler's state (the EMAs, and on a plain metered
 transport the per-sender spend of the paused run) crosses a checkpoint
 through ``SessionState.comm`` (``state_dict`` / ``load_state_dict``).
+
+The compiled session takes :class:`BudgetAwarePlan`
+(:meth:`BudgetAwareScheduler.plan`), carries the spend and the EMAs as
+tensors, orders each round with :func:`traced_round_order` and advances
+the EMAs with :func:`reward_ema_tensor`, the EMA step on the device.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from repro_torch.control.adaptive import ema_step
+from repro_torch.control.adaptive import ema_step, ema_step_tensor
 from repro_torch.core.engine import Scheduler
 
 #: The reward EMA's coefficient (the reference's default; no caller of
@@ -40,6 +47,30 @@ def reward_ema_update(beta, prev, acc, fresh) -> np.float32:
     if fresh:
         return np.float32(acc)
     return ema_step(beta, prev, acc)
+
+
+def reward_ema_tensor(beta, prev: torch.Tensor, acc: torch.Tensor,
+                      fresh: torch.Tensor) -> torch.Tensor:
+    """:func:`reward_ema_update` on 0-d tensors, on their device: ``acc``
+    where ``fresh``, else :func:`ema_step_tensor`; the same bits."""
+    acc = acc.to(torch.float32)
+    return torch.where(fresh, acc, ema_step_tensor(beta, prev, acc))
+
+
+@dataclass(frozen=True)
+class BudgetAwarePlan:
+    """The static twin of :class:`BudgetAwareScheduler` that the compiled
+    session lowers.  ``spend_signal`` names what the carried per-agent
+    spend tracks: ``"link"`` (a budgeted transport's per-link spend),
+    ``"wire"`` (a metered ledger's interchange bits by sender) or
+    ``"none"`` (an unmetered transport: order by EMA and id alone).
+    The reward EMA steps by :data:`REWARD_SMOOTHING`, as the eager
+    scheduler's does."""
+    spend_signal: str = "link"
+
+    def __post_init__(self):
+        if self.spend_signal not in ("link", "wire", "none"):
+            raise ValueError(f"unknown spend_signal {self.spend_signal!r}")
 
 
 def traced_round_order(spent: torch.Tensor,
@@ -79,6 +110,14 @@ class BudgetAwareScheduler(Scheduler):
         self._reward_ema[agent_id] = float(reward_ema_update(
             REWARD_SMOOTHING, 0.0 if prev is None else prev, acc,
             prev is None))
+
+    def plan(self) -> BudgetAwarePlan:
+        """The static twin for the compiled backend, its spend signal from
+        the transport this scheduler is bound to."""
+        t = self._transport
+        signal = ("link" if hasattr(t, "link_spent")
+                  else "wire" if hasattr(t, "log") else "none")
+        return BudgetAwarePlan(spend_signal=signal)
 
     # ---- the ordering rule --------------------------------------------------
     def _by_src(self) -> dict[str, int]:

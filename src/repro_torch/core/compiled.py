@@ -1,0 +1,669 @@
+"""Compiled interchange rounds: a whole ASCII session as one fixed-shape
+program, and a fleet of sessions as one batched program.
+
+Counterpart of ``repro/core/compiled.py``, its synchronous lowering.  The
+eager engine (:mod:`repro_torch.core.engine`) drives Algorithm 1 as a host
+loop that reads alpha back after every fit to decide the stop; here the
+round recurrence
+
+    params_m = WST(X_m, y, w_t)             -> LearnerCore.fit
+    r_i      = I{g_m(x_i) = y_i}            -> LearnerCore.predict
+    alpha    = model_weight(w, r[, u])      -> scores.model_weight
+    w_{t+1}  = reweight(w, r, alpha)        -> kernels.ops.ignorance_update
+
+runs for every round and every agent with fixed shapes, and the alpha <= 0
+stop (Algorithm 1, line 8) is a ``stopped`` mask: the fits run in every
+round, and the mask freezes ``w`` (and the channel's state) once the stop
+fired, as the reference's ``lax.scan`` does.  From its first launch to its
+return a session reads nothing back to the host (no ``.item()``, no
+``float(tensor)``, no boolean-mask indexing, no ``nonzero``): its draws are
+taken before it (:func:`repro_torch.comm.draws.session_draws`), its
+controller, budget and budget-aware order are tensors on the device, and
+the result is read afterwards (:func:`fitted_from_result`, the engine's
+replay of the ledger).  That is what lets a later change capture it in a
+CUDA graph.
+
+:func:`fleet_run` runs F sessions as one program: ``torch.func.vmap`` over
+the session function, with per-session draws and shared or per-session
+data.  The learners' fits take their gradients from ``torch.func.grad`` so
+that vmap batches them, and the hop's kernels are custom ops whose vmap
+rules launch once for all F sessions (``kernels/ops.py``): a fleet's
+ignorance launches equal its hops, not hops x F.
+
+PyTorch runs eagerly: "compiled" names the fixed-shape, host-read-free
+program, not a compiler.  The asynchronous lowering, the serve step
+(``serve_batch``), the quantization and control sweeps, the live taps and
+``shard_axis`` are later slices of the port and raise
+``NotImplementedError``.
+
+Quickstart::
+
+    plan = plan_for(learners, num_classes=k, max_rounds=6)
+    result = compiled_session(plan, 0, Xs, classes)
+    fitted = fitted_from_result(plan, result, learners)    # FittedASCII
+    fleet = fleet_run(plan, list(range(32)), Xs, classes)  # 32 sessions
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.comm.budget import MODEL_WEIGHT_BITS
+from repro_torch.comm.codecs import channel_apply
+from repro_torch.comm.draws import (TensorHopDraws, session_draws,
+                                    stack_trees)
+from repro_torch.control.scheduler import (REWARD_SMOOTHING,
+                                           BudgetAwarePlan,
+                                           reward_ema_tensor,
+                                           traced_round_order)
+from repro_torch.core import scores
+from repro_torch.core.engine import (LabelsMsg, SampleIdsMsg, _later_slice,
+                                     key_data)
+from repro_torch.kernels import ops
+
+
+# ========================================================================= plan
+@dataclass(frozen=True)
+class SessionPlan:
+    """The static half of a session.  ``cores`` are the agents'
+    :class:`~repro_torch.learners.base.LearnerCore` in chain order; the
+    other fields mirror :class:`repro_torch.core.engine.SessionConfig` and
+    the transport's wire channel: ``codec``, ``privacy``, ``budget`` (its
+    ladder replaces ``codec``), ``serve_codec``, ``controller`` (a rung a
+    hop from its EMA, which rides the session's state; with a budget, a
+    floor on the ladder walk), ``serve_controller`` and ``scheduler`` (a
+    :class:`~repro_torch.control.scheduler.BudgetAwarePlan`: the agents
+    re-permuted every round in the program).
+    The reference's ``use_kernel`` and ``kernel_interpret`` have no
+    counterpart: every hop of the port runs ``kernels.ops``."""
+    cores: tuple
+    num_classes: int
+    max_rounds: int = 20
+    upstream: bool = True
+    stop_on_negative_alpha: bool = True
+    alpha_cap: float = 20.0
+    exact_reweight: bool = False
+    codec: Any = None
+    privacy: Any = None
+    budget: Any = None
+    serve_codec: Any = None
+    controller: Any = None
+    serve_controller: Any = None
+    scheduler: Any = None
+
+    @property
+    def num_agents(self) -> int:
+        return len(self.cores)
+
+    @property
+    def ladder(self) -> tuple:
+        """The codec rungs a hop evaluates: the budget's or the
+        controller's ladder, else the one codec (None: no codec)."""
+        if self.budget is not None:
+            return self.budget.ladder
+        if self.controller is not None:
+            return self.controller.ladder
+        return (self.codec,)
+
+    @property
+    def has_channel(self) -> bool:
+        return (self.codec is not None or self.privacy is not None
+                or self.budget is not None or self.controller is not None)
+
+
+@dataclass(frozen=True)
+class AsyncStalePlan:
+    """Marker for the stale-read asynchronous lowering (the reference's
+    ``make_async_session_fn``), a later slice of the port."""
+
+
+class SessionResult(NamedTuple):
+    """Fixed-shape output of one session (with a leading [F] axis from
+    :func:`fleet_run`).  ``alphas``/``accs`` [T, M]; ``executed`` marks the
+    (round, slot) pairs the eager loop reaches, ``valid`` those that give a
+    component; ``params`` is a length-M tuple of param trees with a
+    leading round axis, slot j's without a scheduler, agent m's with one
+    (its fit of the round, whichever slot it took); ``w_trace`` [T, M, n]
+    the score after each slot;
+    ``w`` the final score.  ``sent`` [T, M] marks hops that crossed the
+    wire, ``codec_idx`` [T, M] their ladder rung (-1: not sent),
+    ``exhausted`` whether the session budget ran dry; ``order`` [T, M] the
+    agent of each slot (identity rows without a permuting scheduler).
+    ``ctrl_ema`` is the controller's final EMA (1.0 without one), which the
+    engine hands back to the transport, as the eager hops leave it."""
+    alphas: torch.Tensor
+    accs: torch.Tensor
+    executed: torch.Tensor
+    valid: torch.Tensor
+    params: tuple
+    w_trace: torch.Tensor
+    w: torch.Tensor
+    sent: torch.Tensor
+    codec_idx: torch.Tensor
+    exhausted: torch.Tensor
+    order: torch.Tensor
+    ctrl_ema: torch.Tensor
+
+
+def plan_for(learners: Sequence, num_classes: int, *, max_rounds: int = 20,
+             upstream: bool = True, stop_on_negative_alpha: bool = True,
+             alpha_cap: float = 20.0, exact_reweight: bool = False,
+             codec=None, privacy=None, budget=None, serve_codec=None,
+             controller=None, serve_controller=None,
+             scheduler=None) -> SessionPlan:
+    """A SessionPlan from eager learners, which must all have a core
+    (``functional``); the tree and the forest are eager-only."""
+    cores = []
+    for m, lr in enumerate(learners):
+        core = lr.core(num_classes)
+        if core is None:
+            raise ValueError(
+                f"agent {m}: {type(lr).__name__} has no LearnerCore "
+                f"(functional=False): eager-only learners (tree/forest) "
+                f"cannot ride the compiled backend")
+        cores.append(core)
+    if budget is not None or controller is not None:
+        codec = None       # the budget's or the controller's ladder decides
+    if (budget is not None and serve_controller is not None
+            and tuple(serve_controller.ladder) != tuple(budget.ladder)):
+        raise ValueError(
+            "a serve controller on a budgeted plan must share the budget's "
+            f"ladder, got {serve_controller.ladder} vs {budget.ladder}")
+    return SessionPlan(cores=tuple(cores), num_classes=num_classes,
+                       max_rounds=max_rounds, upstream=upstream,
+                       stop_on_negative_alpha=stop_on_negative_alpha,
+                       alpha_cap=alpha_cap, exact_reweight=exact_reweight,
+                       codec=codec, privacy=privacy, budget=budget,
+                       serve_codec=serve_codec, controller=controller,
+                       serve_controller=serve_controller,
+                       scheduler=scheduler)
+
+
+# ==================================================================== lowering
+def _make_reweight(plan: SessionPlan):
+    """Eqs. (10)/(12): the exact-reweight surrogate (plain ops in both
+    packages), else ``kernels.ops.ignorance_update``.  The reference picks
+    its Pallas kernel only on the mesh-ring transport (``use_kernel``);
+    the port's kernel and its plain version are bit-equal, so every hop
+    of the port calls ``ops``, as the eager transports do."""
+    if plan.exact_reweight:
+        k = plan.num_classes
+        return lambda w, r, a: scores.ignorance_update_exact(w, r, a, k)
+    return ops.ignorance_update
+
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _full(value: int, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d int64 tensor on ``like``'s device, filled there."""
+    return torch.full((), value, dtype=torch.int64, device=like.device)
+
+
+def ladder_walk(costs, rem: torch.Tensor, floor=None) -> torch.Tensor:
+    """The degrade-then-skip ladder walk as tensors (the twin of
+    :meth:`repro_torch.comm.budget.BudgetSpec.choose_costs`): the first
+    rung from ``floor`` on whose cost (``costs``: ints, best rung first)
+    fits the remaining ``rem`` bits, -1 for a skip; 0-d int64."""
+    rung = _full(-1, rem)
+    for i in reversed(range(len(costs))):
+        ok = rem >= int(costs[i])
+        if floor is not None:
+            ok = ok & (floor <= i)
+        rung = torch.where(ok, _full(i, rem), rung)
+    return rung
+
+
+def rung_select(rung: torch.Tensor, values: Sequence[torch.Tensor],
+                default: torch.Tensor) -> torch.Tensor:
+    """``values[rung]``, ``default`` at rung -1; a one-rung ladder is its
+    rung."""
+    if len(values) == 1:
+        return values[0]
+    out = default
+    for i in reversed(range(len(values))):
+        out = torch.where(rung == i, values[i], out)
+    return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _pick(x: torch.Tensor, i) -> torch.Tensor:
+    """``x[i]`` for an int or a 0-d index tensor (a gather, no host read)."""
+    if isinstance(i, int):
+        return x[i]
+    return torch.index_select(x, 0, i.reshape(1)).squeeze(0)
+
+
+def _put(x: torch.Tensor, i, value: torch.Tensor,
+         mask: torch.Tensor) -> torch.Tensor:
+    """``x`` with row ``i`` set to ``value`` where ``mask``, out of
+    place."""
+    hit = torch.arange(x.shape[0], device=x.device) == i
+    hit = hit.reshape(-1, *([1] * (x.dim() - 1))) & mask
+    return torch.where(hit, value, x)
+
+
+class SlotDraws:
+    """A fit's draws taken ahead, handed to ``LearnerCore.fit`` in its
+    ``key`` slot: ``randint`` returns step i's minibatch rows."""
+
+    def __init__(self, rows: torch.Tensor | None) -> None:
+        self.rows = rows
+
+    def randint(self, shape, high, step, device=None) -> torch.Tensor:
+        return self.rows[step]
+
+
+def _check_lowering(plan: SessionPlan, feature_shapes: tuple) -> None:
+    if len(feature_shapes) != plan.num_agents:
+        raise ValueError(f"{plan.num_agents} cores but "
+                         f"{len(feature_shapes)} feature shapes")
+    scheduler = plan.scheduler
+    if isinstance(scheduler, AsyncStalePlan):
+        raise _later_slice("the compiled async-stale lowering")
+    if scheduler is not None:
+        if not isinstance(scheduler, BudgetAwarePlan):
+            raise ValueError(
+                f"SessionPlan.scheduler must be a BudgetAwarePlan for the "
+                f"sequential lowering, got {type(scheduler).__name__}")
+        if scheduler.spend_signal == "link" and plan.budget is None:
+            raise ValueError("spend_signal='link' orders by budgeted link "
+                             "spend, but the plan has no budget")
+    if plan.budget is not None:
+        for cap in (plan.budget.session_bits, plan.budget.link_bits):
+            if cap is not None and cap >= _INT32_MAX:
+                raise ValueError(f"budget caps must fit int32 (the "
+                                 f"reference's spend counters), got {cap}")
+
+
+def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
+                    qmax_arg: bool = False, control_arg: bool = False,
+                    live: bool = False):
+    """Lower ``plan`` for the agents' feature shapes into
+
+        session_fn(draws, Xs, classes) -> SessionResult
+
+    a fixed-shape function of the session's draws
+    (:func:`repro_torch.comm.draws.session_draws`), the feature blocks and
+    the labels: rounds and agents unrolled, the stop a mask, no read to the
+    host.  It vmaps (:func:`fleet_run`).  With a channel it carries the
+    senders' codec residuals, the budget's spend and the controller's EMA;
+    with a budget-aware scheduler the agents' spend and reward EMAs, and it
+    re-permutes the agents each round as the eager scheduler would.  The
+    permutation is known only on the device, so each slot fits every agent
+    on its own block with the slot's draws and selects the slot's agent's
+    fit: M fits a slot.  That also lowers agents that differ (cores or
+    feature widths), which the reference refuses; its gather over stacked
+    agent data takes equal agents only.
+    ``qmax_arg``, ``control_arg`` (the sweeps) and ``live`` (the taps) are
+    later slices of the port."""
+    if qmax_arg or control_arg:
+        raise _later_slice("the compiled sweeps (qmax_arg, control_arg)")
+    if live:
+        raise _later_slice("the compiled session's live taps (live=)")
+    _check_lowering(plan, feature_shapes)
+    k = plan.num_classes
+    cores = plan.cores
+    num = plan.num_agents
+    codec, privacy, budget = plan.codec, plan.privacy, plan.budget
+    controller, scheduler = plan.controller, plan.scheduler
+    ladder = plan.ladder
+    has_channel = plan.has_channel
+    stateful = codec is not None and codec.stateful
+    reweight = _make_reweight(plan)
+
+    def session_fn(draws: dict, Xs: tuple, classes: torch.Tensor
+                   ) -> SessionResult:
+        classes = classes.to(torch.int64)
+        n = classes.shape[0]
+        dev = classes.device
+        onehot = (classes[:, None] == torch.arange(k, device=dev)).to(
+            torch.float32)
+        w = scores.init_ignorance(n, device=dev)
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        stopped = false
+        carry: dict = {}
+        if stateful:
+            carry["resid"] = torch.zeros((num, n), dtype=torch.float32,
+                                         device=dev)
+        if controller is not None:
+            carry["ctrl"] = torch.ones((), dtype=torch.float32, device=dev)
+        if budget is not None:
+            costs = budget.hop_costs(n)
+            setup_bits = (num - 1) * (LabelsMsg("", "", n).bits
+                                      + SampleIdsMsg("", "", n).bits)
+            carry["spent"] = _full(setup_bits, w)
+            carry["link"] = torch.zeros(
+                (num, num) if scheduler is not None else (num,),
+                dtype=torch.int64, device=dev)
+            carry["exhausted"] = false
+        if scheduler is not None:
+            ids = torch.arange(num, device=dev)
+            carry["ema"] = torch.zeros(num, dtype=torch.float32, device=dev)
+            carry["seen"] = torch.zeros(num, dtype=torch.bool, device=dev)
+            if scheduler.spend_signal == "wire":
+                # what TransportLog.bits_by_src tallies for a shipped hop:
+                # its ignorance wire bits and the 32-bit ModelWeightMsg
+                wire_costs = tuple(
+                    (c.wire_bits(n) if c is not None else n * 32)
+                    + MODEL_WEIGHT_BITS for c in ladder)
+                carry["wire"] = torch.zeros(num, dtype=torch.int64,
+                                            device=dev)
+        outs, agent_params = [], []
+        for t in range(plan.max_rounds):
+            u = torch.ones(n, dtype=torch.float32, device=dev)
+            if scheduler is not None:
+                # the round's permutation from the carried signal, taken at
+                # round entry as the eager scheduler reads its transport
+                if scheduler.spend_signal == "link":
+                    spent_sig = carry["link"].sum(dim=1)
+                elif scheduler.spend_signal == "wire":
+                    spent_sig = carry["wire"]
+                else:
+                    spent_sig = torch.zeros(num, dtype=torch.int64,
+                                            device=dev)
+                perm = traced_round_order(spent_sig, carry["ema"]).to(
+                    torch.int64)
+            row = []
+            for j, core in enumerate(cores):
+                slot = tree_map(lambda x, _t=t: x[_t], draws["fit"][j])
+                if scheduler is None:
+                    src, dst = j, (j + 1) % num
+                    params, r = _fit(core, slot, Xs[j], onehot, w, classes)
+                    cand = None
+                else:
+                    # every agent fits on its own block with the slot's
+                    # draws; the slot's agent's fit is selected
+                    src, dst = perm[j], perm[(j + 1) % num]
+                    fits = [_fit(cores[m], slot[m], Xs[m], onehot, w,
+                                 classes) for m in range(num)]
+                    cand = [p for p, _ in fits]
+                    r = fits[0][1]
+                    for m in range(1, num):
+                        r = torch.where(src == m, fits[m][1], r)
+                    params = None
+                a, rbar = scores.model_weight(
+                    w, r, k, u=u if plan.upstream and j > 0 else None,
+                    alpha_cap=plan.alpha_cap)
+                executed = ~stopped
+                trigger = (executed & (a <= 0) if plan.stop_on_negative_alpha
+                           else false)
+                valid = executed & ~trigger
+                if scheduler is not None:
+                    # the eager loop observes every fit it reaches, the
+                    # stop's included
+                    prev = _pick(carry["ema"], src)
+                    upd = reward_ema_tensor(REWARD_SMOOTHING, prev, rbar,
+                                            ~_pick(carry["seen"], src))
+                    carry["ema"] = _put(carry["ema"], src, upd, executed)
+                    carry["seen"] = _put(carry["seen"], src, executed,
+                                         executed)
+                # only a slot that gives a component moves u and w
+                u = torch.where(valid,
+                                scores.upstream_factor_update(u, a, r, k), u)
+                w_upd = reweight(w, r, a)
+                if not has_channel:
+                    sent = valid
+                    rung = torch.where(sent, _full(0, w), _full(-1, w))
+                    w = torch.where(valid, w_upd, w)
+                else:
+                    w, sent, rung = _channel_hop(
+                        carry, t, j, src, dst, w, w_upd, valid, draws,
+                        scheduler is not None)
+                if scheduler is not None and scheduler.spend_signal == "wire":
+                    wcost = rung_select(rung, [_full(c, w)
+                                               for c in wire_costs],
+                                        _full(0, w))
+                    add = torch.where(sent, wcost, _full(0, w))
+                    carry["wire"] = carry["wire"] + torch.where(
+                        ids == src, add, _full(0, w))
+                stopped = stopped | trigger
+                row.append((params, a, rbar, executed, valid, w, sent, rung,
+                            src if scheduler is not None else _full(j, w),
+                            cand))
+            if budget is not None and budget.session_bits is not None:
+                # the eager engine sees the exhaustion at the next round's
+                # entry: this round finishes, later ones never start
+                stopped = stopped | carry["exhausted"]
+            outs.append(row)
+            if scheduler is not None:
+                # agent m's fit of the round: the one of the slot it took
+                agent_params.append([_select_agent(row, perm, m)
+                                     for m in range(num)])
+
+        def stack(i):
+            return torch.stack([torch.stack([row[j][i] for j in range(num)])
+                                for row in outs])
+
+        return SessionResult(
+            alphas=stack(1), accs=stack(2), executed=stack(3),
+            valid=stack(4),
+            params=tuple(stack_trees(
+                [row[j][0] for row in outs] if scheduler is None
+                else [ap[j] for ap in agent_params]) for j in range(num)),
+            w_trace=stack(5), w=w, sent=stack(6), codec_idx=stack(7),
+            exhausted=carry.get("exhausted", false), order=stack(8),
+            ctrl_ema=carry.get("ctrl", torch.ones((), dtype=torch.float32,
+                                                  device=dev)))
+
+    def _channel_hop(carry, t, j, src, dst, w, w_upd, valid, draws,
+                     permuted):
+        """The wire of one hop: the controller's and the budget's rung, DP
+        noise, the codec (every rung evaluated, one selected), the
+        residual, the spend.  Returns (w after the hop, sent, rung)."""
+        if controller is not None:
+            # the EMA advances on every hop the eager loop interchanges
+            c_rung, ctrl_new = controller.step_tensor(w, w_upd, carry["ctrl"])
+            carry["ctrl"] = torch.where(valid, ctrl_new, carry["ctrl"])
+        if budget is not None:
+            n = w.shape[0]
+            costs = budget.hop_costs(n)
+            rem = _full(_INT32_MAX, w)
+            if budget.session_bits is not None:
+                rem_s = _full(budget.session_bits, w) - carry["spent"]
+                rem = torch.minimum(rem, rem_s)
+            if budget.link_bits is not None:
+                link_spent = (_pick(carry["link"].reshape(-1),
+                                    src * num + dst) if permuted
+                              else carry["link"][j])
+                rem = torch.minimum(rem, _full(budget.link_bits, w)
+                                    - link_spent)
+            # the controller's rung is a floor on the walk: never finer
+            rung = ladder_walk(costs, rem, floor=(
+                c_rung if controller is not None else None))
+            sendable = rung >= 0
+        elif controller is not None:
+            rung, sendable = c_rung, torch.ones_like(valid)
+        else:
+            rung, sendable = _full(0, w), torch.ones_like(valid)
+        state = _pick(carry["resid"], src) if stateful else None
+        hop = TensorHopDraws(draws["u"][t, j] if "u" in draws else None,
+                             draws["z"][t, j] if "z" in draws else None)
+        # the noise does not depend on the rung (one draw, one input):
+        # apply it once, then each rung's codec, as the reference does;
+        # the same bits as the eager hop's fused channel at its rung
+        w_noised, _ = channel_apply(None, privacy, w_upd, hop, None)
+        pairs = [channel_apply(c, None, w_noised, hop, state) for c in ladder]
+        w_chan = rung_select(rung, [p[0] for p in pairs], w_upd)
+        sent = valid & sendable
+        w = torch.where(sent, w_chan, w)
+        if stateful:
+            # error-feedback residuals are per sender
+            carry["resid"] = _put(carry["resid"], src, pairs[0][1], sent)
+        if budget is not None:
+            cost = rung_select(rung, [_full(c, w) for c in costs],
+                               _full(0, w))
+            add = torch.where(sent, cost, _full(0, w))
+            carry["spent"] = carry["spent"] + add
+            if permuted:
+                flat = torch.arange(num * num, device=w.device) == (
+                    src * num + dst)
+                carry["link"] = carry["link"] + torch.where(
+                    flat, add, _full(0, w)).reshape(num, num)
+            else:
+                carry["link"] = carry["link"] + torch.where(
+                    torch.arange(num, device=w.device) == j, add,
+                    _full(0, w))
+            if budget.session_bits is not None:
+                carry["exhausted"] = carry["exhausted"] | (
+                    valid & (rem_s < min(costs)))
+        rung = torch.where(sent, rung, _full(-1, w))
+        return w, sent, rung
+
+    return session_fn
+
+
+def _fit(core, slot: dict, X, onehot, w, classes):
+    """One fit from a slot's draws, and its reward vector."""
+    params = core.fit(slot["init"], SlotDraws(slot.get("rows")), X, onehot,
+                      w)
+    return params, (core.predict(params, X) == classes).to(torch.float32)
+
+
+def _select_agent(row: list, perm: torch.Tensor, m: int):
+    """Agent m's params in a permuted round: slot j's candidate for m where
+    the round put m in slot j."""
+    out = row[0][9][m]
+    for j in range(1, len(row)):
+        out = tree_map(lambda a, b, _j=j: torch.where(perm[_j] == m, b, a),
+                       out, row[j][9][m])
+    return out
+
+
+def _draws_for(plan: SessionPlan, keys, n: int, feature_shapes: tuple,
+               device, source, fleet: bool) -> dict:
+    """Every draw the plan's sessions read (see ``session_draws``): slot
+    j's fit draws for its core, or for every agent's under a permuting
+    scheduler (each slot fits every agent)."""
+    stochastic = any(getattr(c, "stochastic", False) for c in plan.ladder
+                     if c is not None)
+    if plan.scheduler is not None:
+        def fit(j, fd):
+            return [core.draw(fd, shape, n)
+                    for core, shape in zip(plan.cores, feature_shapes)]
+    else:
+        def fit(j, fd):
+            return plan.cores[j].draw(fd, feature_shapes[j], n)
+    return session_draws(
+        keys, plan.max_rounds, plan.num_agents, n, fit,
+        uniform=stochastic, normal=plan.privacy is not None, device=device,
+        source=source, fleet=fleet)
+
+
+def compiled_session(plan: SessionPlan, key, Xs: Sequence[torch.Tensor],
+                     classes: torch.Tensor, *, live: bool = False,
+                     source=None) -> SessionResult:
+    """One session as one fixed-shape program: its draws taken first
+    (``key``: an int seed or uint32 key data; ``source``: the draw source,
+    default :class:`~repro_torch.comm.draws.ChannelDraws`), then the
+    program, which reads nothing back to the host."""
+    if live:
+        raise _later_slice("the compiled session's live taps (live=)")
+    Xs = tuple(Xs)
+    shapes = tuple(tuple(x.shape[1:]) for x in Xs)
+    fn = make_session_fn(plan, shapes)
+    draws = _draws_for(plan, key_data(key), int(classes.shape[0]), shapes,
+                       classes.device, source, fleet=False)
+    return fn(draws, Xs, classes)
+
+
+def fleet_run(plan: SessionPlan, keys, Xs: Sequence[torch.Tensor],
+              classes: torch.Tensor, *, data_batched: bool = False,
+              shard_axis: str | None = None, live: bool = False,
+              source=None) -> SessionResult:
+    """A fleet of sessions as one batched program (``torch.func.vmap`` over
+    the session function).  ``keys``: F session keys (int seeds or uint32
+    key data).  With ``data_batched`` False every session sees the same
+    (Xs, classes); with True ``Xs[m]`` is [F, n, p_m] and ``classes``
+    [F, n].  ``source``: the draw source, or one a key.  Returns a
+    SessionResult with a leading [F] axis; session f equals
+    :func:`compiled_session` with ``keys[f]`` within what batched matrix
+    products change (see tests/test_torch_compiled.py).  ``shard_axis``
+    and ``live`` are later slices."""
+    if shard_axis is not None:
+        raise _later_slice("sharded fleets (shard_axis=)")
+    if live:
+        raise _later_slice("the compiled session's live taps (live=)")
+    Xs = tuple(Xs)
+    shapes = tuple(tuple(x.shape[2:] if data_batched else x.shape[1:])
+                   for x in Xs)
+    n = int(classes.shape[-1])
+    fn = make_session_fn(plan, shapes)
+    draws = _draws_for(plan, [key_data(k) for k in keys], n, shapes,
+                       classes.device, source, fleet=True)
+    data_ax = 0 if data_batched else None
+    return torch.func.vmap(fn, in_dims=(0, data_ax, data_ax))(draws, Xs,
+                                                              classes)
+
+
+# ============================================================= host extraction
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def agent_major_result(result: SessionResult) -> SessionResult:
+    """Re-collect a slot-major result to agent-major: under a permuting
+    scheduler slot j of round t holds agent ``order[t, j]``; per-agent
+    consumers (the serve paths) index agents positionally.  The params are
+    agent-major already under a scheduler.  Identity plans come back as
+    they are."""
+    order = _host(result.order)
+    T, M = order.shape
+    if np.array_equal(order, np.tile(np.arange(M), (T, 1))):
+        return result
+    inv = torch.as_tensor(np.argsort(order, axis=1),
+                          device=result.alphas.device)
+
+    def collect(a):
+        return torch.gather(a, 1, inv.reshape(T, M, *([1] * (a.dim() - 2)))
+                            .expand(a.shape))
+
+    return result._replace(
+        alphas=collect(result.alphas), accs=collect(result.accs),
+        executed=collect(result.executed), valid=collect(result.valid),
+        w_trace=collect(result.w_trace),
+        sent=collect(result.sent), codec_idx=collect(result.codec_idx),
+        order=torch.arange(M, device=result.order.device).repeat(T, 1))
+
+
+def fitted_from_result(plan: SessionPlan, result: SessionResult,
+                       learners: Sequence):
+    """The eager engine's result from a compiled run: the components
+    (valid slots in visit order, agent ids from ``result.order``), the
+    round history and a :class:`~repro_torch.core.engine.FittedASCII`, as
+    ``Protocol.fit`` returns them on the eager path."""
+    from repro_torch.core.engine import Component, FittedASCII
+    alphas, accs = _host(result.alphas), _host(result.accs)
+    executed, valid = _host(result.executed), _host(result.valid)
+    order = _host(result.order)
+    components, history = [], []
+    for t in range(plan.max_rounds):
+        if not executed[t].any():
+            break                        # the eager loop stopped before t
+        rec = {"round": t, "alphas": [], "accs": []}
+        for j in range(plan.num_agents):
+            if not executed[t, j]:
+                break                    # the alpha <= 0 stop, mid-round
+            rec["alphas"].append(float(alphas[t, j]))
+            rec["accs"].append(float(accs[t, j]))
+            if valid[t, j]:
+                agent = int(order[t, j])
+                params = tree_map(lambda x, _t=t: x[_t], result.params[
+                    j if plan.scheduler is None else agent])
+                components.append(Component(agent, t, float(alphas[t, j]),
+                                            params))
+        history.append(rec)
+    return FittedASCII(components, list(learners), plan.num_classes, history)

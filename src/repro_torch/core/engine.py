@@ -13,9 +13,13 @@ the codec's rung hop by hop, a serve controller that picks it block by
 block, and the budget-aware scheduler.  The async variant
 (:class:`AsyncStaleScheduler`) runs the stale-read round with its barrier
 merge and, under a channel, one release a round (``barrier_release``).
-Telemetry, scenarios, protocol variants, the mesh ring and the compiled
-backend belong to later slices of the port; their arguments raise
-``NotImplementedError``.
+``Protocol(backend="compiled")`` runs the whole session as one
+fixed-shape program with no read to the host (:mod:`repro_torch.core.
+compiled`) and books the ledger afterwards by replaying the result
+(:meth:`Protocol._replay_traffic`), bit for bit the eager run's; its
+async-stale lowering is a later slice.  Telemetry, scenarios, protocol
+variants and the mesh ring belong to later slices of the port; their
+arguments raise ``NotImplementedError``.
 
 One rule differs from the reference, and it is deliberate: every standard
 hop (``Transport._execute_update``) goes through
@@ -1035,11 +1039,17 @@ class Session:
 
 
 # ======================================================================= engine
+BACKENDS = ("eager", "compiled")
+
+
 class Protocol:
     """The ASCII engine: config + scheduler + transport, driving endpoints
     on ``device``.  ``start`` opens a fresh session, ``resume`` restores
     one from a checkpoint directory (fast-forwarding the scheduler RNG), and
-    ``fit`` runs a session to completion.  Only the eager backend is ported.
+    ``fit`` runs a session to completion.  With ``backend="compiled"``,
+    ``fit`` runs the session as one program (``core/compiled.py``) and
+    replays its ledger; such a run has no live session to step, pause or
+    checkpoint.
     """
 
     def __init__(self, cfg: SessionConfig, scheduler: Scheduler | None = None,
@@ -1047,8 +1057,9 @@ class Protocol:
                  variant: ASCIIVariant | None = None, scenario=None,
                  telemetry=None, device: str | torch.device = "cuda",
                  draws: ChannelDraws | None = None) -> None:
-        if backend != "eager":
-            raise _later_slice(f"backend={backend!r}")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected "
+                             f"{BACKENDS}")
         if variant is not None and not isinstance(variant, ASCIIVariant):
             raise _later_slice(f"protocol variant {variant.name!r}")
         if scenario is not None:
@@ -1063,11 +1074,20 @@ class Protocol:
                           else InProcessTransport())
         self.variant = variant
         self.draws = draws
+        self.backend = backend
         self._session: Session | None = None
+        self._compiled_result = None      # the last compiled run's result
+
+    def _eager_only(self, what: str) -> None:
+        if self.backend != "eager":
+            raise ValueError(f"backend='compiled' runs fit-to-completion "
+                             f"with no live session; {what} needs the eager "
+                             f"backend")
 
     def start(self, key, endpoints: Sequence[AgentEndpoint],
               classes: torch.Tensor, validation=None) -> Session:
         """A fresh session; ``key`` is an int seed or uint32 key data."""
+        self._eager_only("start")
         n = endpoints[0].X.shape[0]
         state = SessionState(w=scores.init_ignorance(n, device=self.device),
                              key=key_data(key))
@@ -1088,6 +1108,7 @@ class Protocol:
                      endpoints: Sequence[AgentEndpoint],
                      classes: torch.Tensor, validation=None) -> Session:
         """Continue from a restored (or converted) SessionState."""
+        self._eager_only("resume")
         self.scheduler.reset()
         self.scheduler.skip_to(state.order_sizes)
         if state.active is not None:
@@ -1106,10 +1127,136 @@ class Protocol:
 
     def fit(self, key, endpoints: Sequence[AgentEndpoint],
             classes: torch.Tensor, validation=None) -> FittedASCII:
+        if self.backend == "compiled":
+            return self._fit_compiled(key, endpoints, classes, validation)
         session = self.start(key, endpoints, classes, validation=validation)
         session.run()
         self._session = session
         return session.fitted()
+
+    def _fit_compiled(self, key, endpoints: Sequence[AgentEndpoint],
+                      classes: torch.Tensor, validation) -> FittedASCII:
+        """The whole run as one program (``core/compiled.py``), then the
+        transport's ledger replayed, so that the metering is the eager
+        run's bit for bit.  The finished run becomes a session that serves
+        (``predict_distributed``) through the eager serve channel."""
+        from repro_torch.core import compiled
+        if self.scheduler.stale:
+            raise _later_slice("the compiled async-stale lowering "
+                               "(--variant async with --backend compiled)")
+        sched_plan = None
+        if not isinstance(self.scheduler, SequentialScheduler):
+            plan_fn = getattr(self.scheduler, "plan", None)
+            if plan_fn is None:
+                raise ValueError(
+                    f"backend='compiled' supports sequential and "
+                    f"budget-aware scheduling, got "
+                    f"{type(self.scheduler).__name__}")
+            # the spend signal depends on the transport it will order by
+            self.scheduler.bind_transport(self.transport)
+            sched_plan = plan_fn()
+        if validation is not None:
+            raise ValueError("backend='compiled' does not support the CV "
+                             "validation stop; use the eager backend")
+        if not all(ep.active for ep in endpoints):
+            raise ValueError("backend='compiled' assumes all endpoints "
+                             "active for the whole run")
+        t = self.transport
+        plan = compiled.plan_for(
+            [ep.learner for ep in endpoints], self.cfg.num_classes,
+            max_rounds=self.cfg.max_rounds, upstream=self.cfg.upstream,
+            stop_on_negative_alpha=self.cfg.stop_on_negative_alpha,
+            alpha_cap=self.cfg.alpha_cap,
+            exact_reweight=self.cfg.exact_reweight,
+            # the channel the eager transport holds: the same codec,
+            # mechanism, budget and controller objects
+            codec=t.codec, privacy=t.privacy,
+            budget=getattr(t, "budget", None), serve_codec=t.serve_codec,
+            controller=t.controller, serve_controller=t.serve_controller,
+            scheduler=sched_plan)
+        for ep in endpoints:
+            if ep.learner.torch_device.type != self.device.type:
+                raise ValueError(f"{ep.name}'s learner lives on "
+                                 f"{ep.learner.device}, the session on "
+                                 f"{self.device}")
+            ep.X = torch.as_tensor(ep.X, device=self.device)
+        classes = torch.as_tensor(classes, device=self.device)
+        result = compiled.compiled_session(
+            plan, key_data(key), [ep.X for ep in endpoints], classes,
+            source=self.draws)
+        fitted = compiled.fitted_from_result(plan, result,
+                                             [ep.learner for ep in endpoints])
+        self.scheduler.reset()
+        self._replay_traffic(endpoints, classes, result, plan)
+        state = SessionState(w=result.w, key=key_data(key),
+                             round=len(fitted.history),
+                             components=fitted.components,
+                             history=fitted.history, stopped=True)
+        self._session = Session(self.cfg, self.scheduler, t, endpoints,
+                                classes, state, device=self.device,
+                                draws=self.draws, _send_setup=False)
+        self._compiled_result = result
+        return fitted
+
+    def _replay_traffic(self, endpoints: Sequence[AgentEndpoint],
+                        classes: torch.Tensor, result, plan) -> None:
+        """Book the ledger a sequential eager run books: the collation
+        setup, then an IgnoranceMsg and a ModelWeightMsg for every hop
+        that shipped, at the encoded size of its rung, budget skips and
+        spend, DP releases; a budget-aware scheduler sees its round orders
+        and observations again; the controller's EMA and codec are left
+        where the eager hops leave them."""
+        t = self.transport
+        t.bind(endpoints)
+        n = int(classes.shape[0])
+        head = endpoints[0].name
+        for ep in endpoints[1:]:
+            t.send(LabelsMsg(head, ep.name, n))
+            t.send(SampleIdsMsg(head, ep.name, n))
+        host = {f: result._asdict()[f].detach().cpu().numpy() for f in
+                ("valid", "alphas", "accs", "executed", "sent",
+                 "codec_idx", "order")}
+        ladder = plan.ladder if plan.has_channel else None
+        budget = plan.budget
+        budgeted = budget is not None and hasattr(t, "link_spent")
+        permuted = plan.scheduler is not None
+        num = len(endpoints)
+        for ti in range(host["valid"].shape[0]):
+            if permuted and host["executed"][ti].any():
+                self.scheduler.round_order(ti, list(range(num)))
+            for j in range(num):
+                src = endpoints[int(host["order"][ti, j])]
+                dst = endpoints[int(host["order"][ti, (j + 1) % num])]
+                if permuted and host["executed"][ti, j]:
+                    self.scheduler.observe(src.agent_id,
+                                           float(host["accs"][ti, j]))
+                if not host["valid"][ti, j]:
+                    continue
+                link = (src.name, dst.name)
+                rung = int(host["codec_idx"][ti, j])
+                if not host["sent"][ti, j]:
+                    if budgeted:
+                        t.record_skip(link)
+                    continue
+                if budgeted:
+                    # spend first, as the eager walk: it arms the rung the
+                    # wire-priced booking stamps
+                    t.record_spend(link, budget.hop_costs(n)[rung], rung)
+                elif plan.controller is not None:
+                    t.codec = plan.controller.ladder[rung]
+                codec = ladder[rung] if ladder else None
+                t.send(IgnoranceMsg(src.name, dst.name,
+                                    result.w_trace[ti, j],
+                                    wire_bits=(None if codec is None
+                                               else codec.wire_bits(n))))
+                t.send(ModelWeightMsg(src.name, dst.name,
+                                      float(host["alphas"][ti, j])))
+                if t.privacy is not None:
+                    t.accountant.record(src.name)
+        if budgeted:
+            t.exhausted = bool(result.exhausted)
+        if plan.controller is not None:
+            t.ctrl_state = np.float32(float(result.ctrl_ema))
 
     def predict_distributed(self, Xs: Sequence[torch.Tensor] | None = None,
                             max_round: int | None = None, *,

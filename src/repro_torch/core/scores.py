@@ -65,8 +65,8 @@ def model_weight(w: torch.Tensor, r: torch.Tensor, num_classes: int,
     rbar = s_correct / torch.clamp(s_correct + s_wrong, min=_EPS)
     alpha = (torch.log(torch.clamp(s_correct, min=_EPS))
              - torch.log(torch.clamp(s_wrong, min=_EPS))
-             + torch.log(torch.tensor(float(k - 1), dtype=f64,
-                                      device=w.device)))
+             + torch.log(torch.full((), float(k - 1), dtype=f64,
+                                    device=w.device)))
     if exact_scale:
         alpha = alpha * (k - 1) ** 2 / k
     alpha = torch.clamp(alpha.to(torch.float32), -alpha_cap, alpha_cap)

@@ -82,6 +82,12 @@
 //     ragged head and tail.  CTAs of 128 threads: 42 CTAs at 42000.
 //     The tile of an element is a 32-bit division where it fits.  4.5
 //     bytes an element (0.056 us at 42000).
+//   * The decode of F payloads of an odd n each (unpack_dequant_int4_rows,
+//     a fleet's hop through the vmap rule): each row's wire is ceil(n / 2)
+//     bytes, its last high nibble padding, so a row starts on a byte but
+//     the flat wire is no longer one payload's.  A thread an element reads
+//     its byte at row f's stride, the same product.  (An even n decodes
+//     the flat wire with the kernel above.)
 //   * The standalone pack_int4 / unpack_int4 (the reference's ops): a thread
 //     a wire byte.  1.5 bytes an element.  (A 32-bit word a thread, as the
 //     decode reads it, ran 1 % and 5 % slower at 42000 on an H100: the
@@ -594,6 +600,24 @@ unpack_dequant_kernel(const int8_t* __restrict__ packed,
   }
 }
 
+// xhat[f, i] = float(nibble) * scales[f, i / tile] for the rows of a
+// [rows, ceil(n / 2)] wire: a thread an element.
+__global__ void __launch_bounds__(kPackThreads)
+unpack_dequant_rows_kernel(const int8_t* __restrict__ packed,
+                           const float* __restrict__ scales,
+                           float* __restrict__ xhat, int64_t rows, int64_t n,
+                           int64_t tile) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kPackThreads +
+                    threadIdx.x;
+  if (g >= rows * n) return;
+  const int64_t f = g / n;
+  const int64_t i = g - f * n;
+  const uint32_t v =
+      unpack_word(static_cast<uint8_t>(packed[f * ((n + 1) / 2) + i / 2])).x;
+  xhat[g] = static_cast<float>(byte_of(v, static_cast<int>(i % 2))) *
+            scales[f * (n / tile) + tile_of(i, tile)];
+}
+
 unsigned grid_for(int64_t items, int threads) {
   return static_cast<unsigned>((items + threads - 1) / threads);
 }
@@ -718,6 +742,19 @@ int unpack_dequant_int4(const int8_t* packed, const float* scales,
   else
     unpack_dequant_kernel<false><<<grid, kWireThreads, 0, stream>>>(
         packed, scales, xhat, n, tile, head, words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int4 decode of `rows` payloads of n values each: xhat[rows, n] from
+// packed[rows, ceil(n / 2)] and scales[rows, n / tile], one launch.
+int unpack_dequant_int4_rows(const int8_t* packed, const float* scales,
+                             float* xhat, int64_t rows, int64_t n,
+                             int64_t tile, cudaStream_t stream) {
+  if (rows <= 0 || n <= 0 || tile <= 0 || n % tile != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  unpack_dequant_rows_kernel<<<grid_for(rows * n, kPackThreads),
+                               kPackThreads, 0, stream>>>(
+      packed, scales, xhat, rows, n, tile);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,11 @@ replaces, together with the normalizer of ``repro/kernels/ops.py``, with
     for n <= ``LARGE_N``, every hop of the main path; see the source's
     note), or in two launches above that (the large-n route);
   * :func:`ignorance_update_unnormalized` -- ``w * exp(alpha(1-r))`` and one
-    partial sum per 1024-tile, the JAX function's API, in one launch.
+    partial sum per 1024-tile, the JAX function's API, in one launch;
+  * :func:`ignorance_update_batched` -- F normalized updates, rows of
+    ``w [F, n]``, ``r [F, n]`` and ``alpha [F]``, in one launch: the
+    counterpart of ``vmap`` over the TPU kernel (the session on the grid's
+    second axis), which ``kernels.ops``' vmap rule calls for a fleet.
 
 Both sum in the same fixed order, so the card gives the plain version's
 bits below.  Unlike the TPU kernel they take any n >= 1: the ragged last
@@ -83,9 +87,10 @@ def _tree_sum(tiles: torch.Tensor) -> torch.Tensor:
 
 
 def _tiles(x: torch.Tensor) -> torch.Tensor:
-    """x zero-padded to whole tiles, viewed [num_tiles, BN]."""
-    pad = num_tiles(x.shape[0]) * BN - x.shape[0]
-    return torch.nn.functional.pad(x, (0, pad)).view(-1, BN)
+    """x zero-padded along its last axis to whole tiles, viewed
+    [..., num_tiles, BN]."""
+    pad = num_tiles(x.shape[-1]) * BN - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)).view(*x.shape[:-1], -1, BN)
 
 
 def ignorance_update_unnormalized_plain(w: torch.Tensor, r: torch.Tensor,
@@ -99,17 +104,20 @@ def ignorance_update_unnormalized_plain(w: torch.Tensor, r: torch.Tensor,
 
 def _total_plain(partials: torch.Tensor) -> torch.Tensor:
     """Pass 2's total: lane t accumulates partials t, t+BN, ... in order,
-    then the lanes are tree-summed."""
+    then the lanes are tree-summed (over the last axis; leading axes are
+    rows of a batch)."""
     rows = _tiles(partials)
-    acc = rows[0]
-    for j in range(1, rows.shape[0]):
-        acc = acc + rows[j]
+    acc = rows[..., 0, :]
+    for j in range(1, rows.shape[-2]):
+        acc = acc + rows[..., j, :]
     return _tree_sum(acc)
 
 
 def normalize_plain(w_new: torch.Tensor, partials: torch.Tensor) -> torch.Tensor:
-    """Pass 2 in PyTorch ops (out of place)."""
-    return w_new / torch.clamp(_total_plain(partials), min=_EPS)
+    """Pass 2 in PyTorch ops (out of place); rows of [F, n] and [F, tiles]
+    each by their own total."""
+    total = torch.clamp(_total_plain(partials), min=_EPS)
+    return w_new / total[..., None] if w_new.dim() > 1 else w_new / total
 
 
 def tile_sums(x: torch.Tensor) -> torch.Tensor:
@@ -123,6 +131,14 @@ def ignorance_update_plain(w: torch.Tensor, r: torch.Tensor,
     return normalize_plain(*ignorance_update_unnormalized_plain(w, r, alpha))
 
 
+def ignorance_update_batched_plain(w: torch.Tensor, r: torch.Tensor,
+                                   alpha: torch.Tensor) -> torch.Tensor:
+    """The batched update in PyTorch ops, row f with ``alpha[f]``, in the
+    kernel's order: each row gives :func:`ignorance_update_plain`'s
+    bits."""
+    return ignorance_update_plain(w, r, alpha[:, None])
+
+
 # -------------------------------------------------------------- the kernel
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
@@ -132,10 +148,16 @@ def _lib() -> ctypes.CDLL:
         lib.ignorance_update.argtypes = [p, p, p, p, i64, i32, i32, p]
         lib.ignorance_update_large.argtypes = [p, p, p, p, p, i64, p]
         lib.ignorance_update_unnormalized.argtypes = [p, p, p, p, p, i64, p]
+        lib.ignorance_update_batched.argtypes = [p, p, p, p, i64, i32, i32,
+                                                 i32, p]
+        lib.ignorance_update_large_batched.argtypes = [p, p, p, p, p, i64,
+                                                       i32, p]
         lib.ignorance_max_cluster.argtypes = [ctypes.POINTER(i32)]
         lib.launch_floor.argtypes = [i32, p]
         for fn in (lib.ignorance_update, lib.ignorance_update_large,
                    lib.ignorance_update_unnormalized,
+                   lib.ignorance_update_batched,
+                   lib.ignorance_update_large_batched,
                    lib.ignorance_max_cluster, lib.launch_floor):
             fn.restype = ctypes.c_int
     return lib
@@ -209,6 +231,66 @@ def ignorance_update(w: torch.Tensor, r: torch.Tensor,
 
 
 ignorance_update.launches = 0
+
+MAX_ROWS = 65535          # the grid's second axis
+
+
+def _check_batch(w: torch.Tensor, r: torch.Tensor,
+                 alpha: torch.Tensor) -> tuple[int, int]:
+    """Raise unless ``w`` and ``r`` are contiguous float32 [F, n] and
+    ``alpha`` float32 [F], all on one device; returns (F, n)."""
+    if w.dim() != 2 or w.shape[0] < 1 or w.shape[1] < 1:
+        raise ValueError(f"w must be a non-empty [F, n] batch, got "
+                         f"{tuple(w.shape)}")
+    rows, n = w.shape
+    for name, x, shape in (("w", w, (rows, n)), ("r", r, (rows, n)),
+                           ("alpha", alpha, (rows,))):
+        if x.device != w.device:
+            raise ValueError(f"{name} lies on {x.device}, expected "
+                             f"{w.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return rows, n
+
+
+def ignorance_update_batched(w: torch.Tensor, r: torch.Tensor,
+                             alpha: torch.Tensor) -> torch.Tensor:
+    """F normalized updates in one launch: row f of the result is
+    ``w[f] * exp(alpha[f](1 - r[f])) / max(sum, 1e-12)``, bit for bit what
+    :func:`ignorance_update` gives for that row alone.  ``w``, ``r``:
+    float32 [F, n]; ``alpha``: float32 [F], on the same device.  Above
+    ``MAX_ROWS`` rows (the grid's second axis) one launch a block of
+    ``MAX_ROWS``."""
+    rows, n = _check_batch(w, r, alpha)
+    if not on_card(w, "ignorance"):
+        return ignorance_update_batched_plain(w, r, alpha)
+    out, dev = torch.empty_like(w), w.device
+    with current(dev):
+        p = plan(n, cluster_limit(dev.index))
+        stream = raw_stream(dev)
+        for f0 in range(0, rows, MAX_ROWS):
+            f1 = min(rows, f0 + MAX_ROWS)
+            ptrs = (w[f0].data_ptr(), r[f0].data_ptr(), alpha[f0].data_ptr(),
+                    out[f0].data_ptr())
+            if p.route == "cluster":
+                status = _lib().ignorance_update_batched(
+                    *ptrs, n, f1 - f0, p.cluster, p.tiles_per_cta, stream)
+            else:
+                partials = torch.empty((f1 - f0, num_tiles(n)),
+                                       dtype=torch.float32, device=dev)
+                status = _lib().ignorance_update_large_batched(
+                    *ptrs, partials.data_ptr(), n, f1 - f0, stream)
+            check_status("ignorance_update_batched", status)
+            ignorance_update_batched.launches += 1
+    return out
+
+
+ignorance_update_batched.launches = 0
 
 
 def ignorance_update_unnormalized(w: torch.Tensor, r: torch.Tensor,

@@ -7,6 +7,18 @@ weighted cross-entropy with its backward, flash
 attention and flash decode; every Pallas kernel of the reference has its
 CUDA counterpart.  Each runs its CUDA kernel for CUDA tensors and its plain
 version for CPU tensors.
+
+The hop's kernels (the ignorance update, the vector quantize-dequant and
+the int4 encode and decode) are also ``torch.library`` custom ops with
+fake implementations and vmap rules, so that ``torch.func.vmap`` (a fleet
+of sessions, ``core.compiled.fleet_run``) reaches the CUDA launches: a
+ctypes launch reads ``data_ptr()``, which a batched tensor does not have.
+Each rule takes the F sessions' payloads as rows and makes the launch of
+the whole batch (``ignorance.ignorance_update_batched``,
+``quantize.*_rows``), whose row f is bit for bit the call of session f
+alone; a batched launch counts once.  Outside a functorch transform the
+wrappers call the kernels directly, as before: same bits, same counts,
+without the dispatcher's host time on every eager hop.
 """
 from __future__ import annotations
 
@@ -17,6 +29,106 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ignorance as _ig
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import weighted_ce as _wce
+
+
+_TRANSFORMS_ACTIVE = getattr(torch._C, "_are_functorch_transforms_active",
+                             None)
+
+
+def _transformed() -> bool:
+    """True inside a functorch transform (vmap, grad), where a hop kernel
+    must go through its custom op; True as well where PyTorch cannot say."""
+    return _TRANSFORMS_ACTIVE is None or _TRANSFORMS_ACTIVE()
+
+
+def _rows(x: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """``x`` as a contiguous batch with its vmapped axis first; an input
+    that is not batched is broadcast to ``size`` rows."""
+    if dim is None:
+        return x.expand(size, *x.shape).contiguous()
+    return x.movedim(dim, 0).contiguous()
+
+
+@torch.library.custom_op("repro_torch::ignorance_update", mutates_args=())
+def _ignorance_update_op(w: torch.Tensor, r: torch.Tensor,
+                         alpha: torch.Tensor) -> torch.Tensor:
+    return _ig.ignorance_update(w, r, alpha)
+
+
+@_ignorance_update_op.register_fake
+def _(w, r, alpha):
+    return torch.empty_like(w)
+
+
+@_ignorance_update_op.register_vmap
+def _(info, in_dims, w, r, alpha):
+    size = info.batch_size
+    return _ig.ignorance_update_batched(_rows(w, in_dims[0], size),
+                                        _rows(r, in_dims[1], size),
+                                        _rows(alpha, in_dims[2], size)), 0
+
+
+@torch.library.custom_op("repro_torch::quantize_dequant", mutates_args=())
+def _quantize_dequant_op(x: torch.Tensor, u: torch.Tensor, qmax: float,
+                         bn: int) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    return _q.quantize_dequant_tiles(x, u, qmax, bn=bn)
+
+
+@_quantize_dequant_op.register_fake
+def _(x, u, qmax, bn):
+    n = x.shape[0]
+    return (torch.empty_like(x), torch.empty(n, dtype=torch.int8,
+                                             device=x.device),
+            x.new_empty(n // _q.tile_for(n, bn)))
+
+
+@_quantize_dequant_op.register_vmap
+def _(info, in_dims, x, u, qmax, bn):
+    size = info.batch_size
+    return _q.quantize_dequant_rows(_rows(x, in_dims[0], size),
+                                    _rows(u, in_dims[1], size), qmax,
+                                    bn=bn), (0, 0, 0)
+
+
+@torch.library.custom_op("repro_torch::quantize_pack_int4", mutates_args=())
+def _quantize_pack_int4_op(x: torch.Tensor, u: torch.Tensor, qmax: float,
+                           tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return _q.quantize_pack_int4(x, u, qmax, tile)
+
+
+@_quantize_pack_int4_op.register_fake
+def _(x, u, qmax, tile):
+    m = x.numel()
+    return (torch.empty((m + 1) // 2, dtype=torch.int8, device=x.device),
+            x.new_empty(m // tile))
+
+
+@_quantize_pack_int4_op.register_vmap
+def _(info, in_dims, x, u, qmax, tile):
+    size = info.batch_size
+    return _q.quantize_pack_int4_rows(_rows(x, in_dims[0], size),
+                                      _rows(u, in_dims[1], size), qmax,
+                                      tile), (0, 0)
+
+
+@torch.library.custom_op("repro_torch::unpack_dequant_int4", mutates_args=())
+def _unpack_dequant_int4_op(packed: torch.Tensor, scales: torch.Tensor,
+                            n: int, tile: int) -> torch.Tensor:
+    return _q.unpack_dequant_int4(packed, scales, n, tile)
+
+
+@_unpack_dequant_int4_op.register_fake
+def _(packed, scales, n, tile):
+    return scales.new_empty(n)
+
+
+@_unpack_dequant_int4_op.register_vmap
+def _(info, in_dims, packed, scales, n, tile):
+    size = info.batch_size
+    return _q.unpack_dequant_int4_rows(_rows(packed, in_dims[0], size),
+                                       _rows(scales, in_dims[1], size), n,
+                                       tile), 0
 
 
 class _WeightedCE(torch.autograd.Function):
@@ -49,8 +161,10 @@ def ignorance_update(w: torch.Tensor, r: torch.Tensor,
                      alpha: torch.Tensor) -> torch.Tensor:
     """Eqs. (10)/(12), normalized: one launch of the CUDA kernel for CUDA
     tensors (a thread-block cluster sums and scales), its plain version for
-    CPU tensors."""
-    return _ig.ignorance_update(w, r, alpha)
+    CPU tensors; under vmap one batched launch for all sessions."""
+    if not _transformed():
+        return _ig.ignorance_update(w, r, alpha)
+    return _ignorance_update_op(w, r, alpha)
 
 
 def ignorance_update_unnormalized(w: torch.Tensor, r: torch.Tensor,
@@ -75,8 +189,11 @@ def ignorance_normalize(w: torch.Tensor,
 def quantize_dequant(x: torch.Tensor, u: torch.Tensor, qmax, *,
                      bn: int = 1024):
     """Fused per-tile quantize-dequant for the wire codecs: returns
-    (dequantized [n], int8 wire values [n], per-tile scales)."""
-    return _q.quantize_dequant_tiles(x, u, qmax, bn=bn)
+    (dequantized [n], int8 wire values [n], per-tile scales); under vmap
+    one launch for all sessions."""
+    if not _transformed():
+        return _q.quantize_dequant_tiles(x, u, qmax, bn=bn)
+    return _quantize_dequant_op(x, u, float(qmax), int(bn))
 
 
 def quantize_dequant_block(x: torch.Tensor, u: torch.Tensor, qmax, *,
@@ -100,15 +217,20 @@ def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
 def quantize_pack_int4(x: torch.Tensor, u: torch.Tensor, qmax, tile: int):
     """The int4 codec's encode in one launch: the per-tile quantize of a
     flat payload with its packing as the epilogue; returns (packed wire
-    bytes [ceil(numel / 2)], per-tile scales)."""
-    return _q.quantize_pack_int4(x, u, qmax, tile)
+    bytes [ceil(numel / 2)], per-tile scales); under vmap each session
+    gets the bytes of its own call."""
+    if not _transformed():
+        return _q.quantize_pack_int4(x, u, qmax, tile)
+    return _quantize_pack_int4_op(x, u, float(qmax), int(tile))
 
 
 def unpack_dequant_int4(packed: torch.Tensor, scales: torch.Tensor, n: int,
                         tile: int) -> torch.Tensor:
     """The int4 codec's decode in one launch: the flat dequantized [n] of
     :func:`quantize_pack_int4`'s wire."""
-    return _q.unpack_dequant_int4(packed, scales, n, tile)
+    if not _transformed():
+        return _q.unpack_dequant_int4(packed, scales, n, tile)
+    return _unpack_dequant_int4_op(packed, scales, int(n), int(tile))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

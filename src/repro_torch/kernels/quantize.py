@@ -34,6 +34,12 @@ Each wrapper launches its kernel for CUDA tensors and uses the plain
 version below only for CPU tensors; it never falls back from one to the
 other.  Each counts its launches in a plain integer attribute
 (``quantize_dequant_tiles.launches`` and so on).
+
+The ``*_rows`` functions take F payloads at once, rows of an [F, ...]
+batch (``kernels.ops``' vmap rules call them for a fleet): the same
+kernels, one launch on the flat [F·m] payload in the tiles each payload
+alone would use, so no tile spans two rows and each row gets the bits of
+its own call.  They count under the single calls' counters.
 """
 from __future__ import annotations
 
@@ -174,6 +180,17 @@ def unpack_dequant_int4_plain(packed: torch.Tensor, scales: torch.Tensor,
     return (q.reshape(-1, tile) * scales[:, None]).reshape(-1)
 
 
+def unpack_dequant_int4_rows_plain(packed: torch.Tensor,
+                                   scales: torch.Tensor, n: int,
+                                   tile: int) -> torch.Tensor:
+    """:func:`unpack_dequant_int4_plain` of each row of ``packed`` [F,
+    ceil(n / 2)] with ``scales`` [F, n / tile]: xhat [F, n]."""
+    rows = packed.shape[0]
+    q = unpack_int4_plain(packed, rows * (packed.shape[1] * 2))
+    q = q.view(rows, -1)[:, :n].to(torch.float32)
+    return (q.reshape(rows, -1, tile) * scales[:, :, None]).reshape(rows, n)
+
+
 # -------------------------------------------------------------- the kernels
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
@@ -193,10 +210,11 @@ def _lib() -> ctypes.CDLL:
         lib.pack_int4.argtypes = [p, p, i64, p]
         lib.unpack_int4.argtypes = [p, p, i64, p]
         lib.unpack_dequant_int4.argtypes = [p, p, p, i64, i64, p]
+        lib.unpack_dequant_int4_rows.argtypes = [p, p, p, i64, i64, i64, p]
         for fn in (lib.quantize_dequant, lib.quantize_dequant_large,
                    lib.quantize_pack_int4, lib.quantize_pack_int4_large,
                    lib.quantize_max_cluster, lib.pack_int4, lib.unpack_int4,
-                   lib.unpack_dequant_int4):
+                   lib.unpack_dequant_int4, lib.unpack_dequant_int4_rows):
             fn.restype = ctypes.c_int
     return lib
 
@@ -441,3 +459,107 @@ def unpack_dequant_int4(packed: torch.Tensor, scales: torch.Tensor, n: int,
 
 
 unpack_dequant_int4.launches = 0
+
+
+# ------------------------------------------------------- batches of payloads
+def _flat_rows(name: str, x: torch.Tensor, rows: int) -> torch.Tensor:
+    if x.shape[0] != rows or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous batch of {rows} "
+                         f"rows, got {tuple(x.shape)}")
+    return x.reshape(-1)
+
+
+def _quantize_any(x: torch.Tensor, u: torch.Tensor, qmax: float, tile: int):
+    """The quantize-dequant of a flat payload: the kernel for CUDA tensors
+    (uncounted: the caller counts), the plain version for CPU ones."""
+    if not on_card(x, "quantize"):
+        return _quantize_flat(x, u, qmax, tile)
+    return _launch_quantize(x, u, qmax, tile)
+
+
+def quantize_dequant_rows(x: torch.Tensor, u: torch.Tensor, qmax, *,
+                          bn: int = DEFAULT_BN):
+    """F vectors' quantize-dequant in one launch: rows of ``x`` [F, n] with
+    draws ``u`` [F, n], each in tiles of ``tile_for(n, bn)``.  Returns
+    ``(xhat [F, n], q [F, n] int8, scales [F, n / tile])``, row f equal to
+    :func:`quantize_dequant_tiles` of row f."""
+    if x.dim() != 2 or x.numel() < 1:
+        raise ValueError(f"x must be a non-empty [F, n] batch, got "
+                         f"{tuple(x.shape)}")
+    qmax = _check_qmax(qmax)
+    rows, n = x.shape
+    _check("u", u, torch.float32, (rows, n), x.device)
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    tile = tile_for(n, bn)
+    xhat, q, scales = _quantize_any(_flat_rows("x", x, rows),
+                                    u.reshape(-1), qmax, tile)
+    if on_card(x, "quantize"):
+        quantize_dequant_tiles.launches += 1
+    return (xhat.view(rows, n), q.view(rows, n),
+            scales.view(rows, n // tile))
+
+
+def quantize_pack_int4_rows(x: torch.Tensor, u: torch.Tensor, qmax,
+                            tile: int):
+    """F payloads' int4 encode: rows of ``x`` [F, ...] (each of m
+    elements) with draws ``u`` of its shape, in tiles of ``tile``.
+    Returns ``(packed [F, ceil(m / 2)], scales [F, m / tile])``, row f the
+    wire of :func:`quantize_pack_int4` on row f.  An even m is one call on
+    the flat payload (each row's bytes are whole).  An odd m (an odd tile)
+    would put a row's last element and the next row's first into one
+    byte, so the rows are quantized in one launch, padded by a zero nibble
+    each, as a lone call pads its last byte, and packed in a second."""
+    qmax = _check_qmax(qmax, 7.0)
+    rows = x.shape[0]
+    m = x[0].numel()
+    tile = _check_tile(m, tile)
+    _check("u", u, torch.float32, tuple(x.shape), x.device)
+    xf, uf = _flat_rows("x", x, rows), _flat_rows("u", u, rows)
+    if m % 2 == 0:
+        packed, scales = quantize_pack_int4(xf, uf, qmax, tile)
+        return packed.view(rows, m // 2), scales.view(rows, m // tile)
+    _, q, scales = _quantize_any(xf, uf, qmax, tile)
+    if on_card(x, "quantize"):
+        qd = quantize_dequant_block if x.dim() == 3 \
+            else quantize_dequant_tiles
+        qd.launches += 1
+    q = torch.nn.functional.pad(q.view(rows, m), (0, 1))
+    packed = pack_int4(q)
+    return packed.view(rows, (m + 1) // 2), scales.view(rows, m // tile)
+
+
+def unpack_dequant_int4_rows(packed: torch.Tensor, scales: torch.Tensor,
+                             n: int, tile: int) -> torch.Tensor:
+    """F payloads' int4 decode: rows of ``packed`` [F, ceil(n / 2)] and
+    ``scales`` [F, n / tile] to xhat [F, n], row f equal to
+    :func:`unpack_dequant_int4` of row f, in one launch: an even n decodes
+    the flat wire, an odd n (each row's last byte half padding) reads each
+    row's bytes at its stride."""
+    rows = packed.shape[0]
+    n = int(n)
+    tile = _check_tile(n, tile)
+    if tuple(packed.shape) != (rows, (n + 1) // 2) \
+            or tuple(scales.shape) != (rows, n // tile):
+        raise ValueError(f"packed {tuple(packed.shape)} and scales "
+                         f"{tuple(scales.shape)} are not {rows} rows of "
+                         f"{n} values in tiles of {tile}")
+    flat_p = _flat_rows("packed", packed, rows)
+    flat_s = _flat_rows("scales", scales, rows)
+    if n % 2 == 0:
+        return unpack_dequant_int4(flat_p, flat_s, rows * n,
+                                   tile).view(rows, n)
+    _check_wire(flat_p, rows * (n + 1) - 1)
+    _check("scales", flat_s, torch.float32, (flat_s.shape[0],),
+           packed.device)
+    if not on_card(packed, "unpack_dequant_int4"):
+        return unpack_dequant_int4_rows_plain(packed, scales, n, tile)
+    dev = packed.device
+    xhat = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    with current(dev):
+        status = _lib().unpack_dequant_int4_rows(
+            packed.data_ptr(), scales.data_ptr(), xhat.data_ptr(), rows, n,
+            tile, raw_stream(dev))
+    check_status("unpack_dequant_int4_rows", status)
+    unpack_dequant_int4.launches += 1
+    return xhat

@@ -20,6 +20,8 @@ checkpointing and resume.
   PYTHONPATH=src python -m repro_torch.launch.session --variant async \
       --codec int8                         # stale-read async rounds
   PYTHONPATH=src python -m repro_torch.launch.session --learner mlp
+  PYTHONPATH=src python -m repro_torch.launch.session --learner logistic \
+      --backend compiled                   # the session as one program
   PYTHONPATH=src python -m repro_torch.launch.session --device cpu
 
 It prints the reference's ``dataset,variant,transport,rounds=..,
@@ -148,6 +150,12 @@ def parser() -> argparse.ArgumentParser:
                          "save a resumable checkpoint and exit)")
     ap.add_argument("--resume", action="store_true",
                     help="resume from --ckpt-dir instead of starting fresh")
+    ap.add_argument("--backend", default="eager",
+                    choices=["eager", "compiled"],
+                    help="eager: the host loop; compiled: the whole session "
+                         "as one fixed-shape program with no host read "
+                         "(functional learners, sequential or budget-aware "
+                         "order, no checkpointing), its ledger replayed")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the whole session (default cuda; "
                          "raises when no card is present)")
@@ -164,8 +172,20 @@ class Run:
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """The reference CLI's argument rules for the wire channel; a broken
-    rule exits with its message."""
+    """The reference CLI's argument rules for the backend and the wire
+    channel; a broken rule exits with its message."""
+    if args.backend == "compiled":
+        if args.resume or args.stop_after or args.ckpt_dir:
+            raise SystemExit("--backend compiled runs fit-to-completion with "
+                             "no SessionState; checkpointing/pause/resume "
+                             "need the eager backend")
+        if args.learner == "tree":
+            raise SystemExit("--backend compiled needs a functional learner "
+                             "(--learner logistic|mlp); tree is eager-only")
+        if args.variant not in ("ascii", "simple", "async"):
+            raise SystemExit("--backend compiled supports sequential, "
+                             "budget-aware and async-stale scheduling "
+                             "(--variant ascii|simple|async)")
     if args.byte_budget > 0:
         if args.codec:
             raise SystemExit("--byte-budget drives codec choice through its "
@@ -292,7 +312,8 @@ def run(args: argparse.Namespace) -> Run:
     engine = Protocol(SessionConfig(num_classes=ds.num_classes,
                                     max_rounds=args.rounds,
                                     upstream=upstream),
-                      scheduler=scheduler, transport=transport, device=device)
+                      scheduler=scheduler, transport=transport,
+                      backend=args.backend, device=device)
     endpoints = endpoints_for([LEARNERS[args.learner](args) for _ in Xs], Xtr)
 
     run_cfg = {k: getattr(args, k) for k in RUN_KEYS}
@@ -312,10 +333,14 @@ def run(args: argparse.Namespace) -> Run:
                   f"dataset/variant/seed match the saved session")
         session = engine.resume(args.ckpt_dir, endpoints, ctr)
         print(f"resumed {args.ckpt_dir} at round {session.state.round}")
+    elif args.backend == "compiled":
+        engine.fit(args.seed, endpoints, ctr)
+        session = engine._session
     else:
         session = engine.start(args.seed, endpoints, ctr)
 
-    session.run(max_rounds=args.stop_after or None)
+    if args.backend == "eager":
+        session.run(max_rounds=args.stop_after or None)
     paused = bool(args.stop_after and not session.state.stopped
                   and session.state.round < args.rounds)
     if args.ckpt_dir:

@@ -32,8 +32,19 @@ class LearnerCore(abc.ABC):
         ``shapes`` (e.g. ``(p,)``);
       * ``fit(params, key, X, onehot, w) -> params`` -- Algorithm 2 / WST;
       * ``logits(params, X) -> [n, K]``    -- class scores;
-      * ``predict(params, X) -> [n]``      -- argmax of ``logits``.
+      * ``predict(params, X) -> [n]``      -- argmax of ``logits``;
+      * ``draw(key, shapes, n) -> dict``   -- a fit's draws, taken before a
+        compiled session: ``{"init": params}``, and what else ``fit``
+        reads from its ``key`` (the MLP's minibatch ``"rows"``).
+
+    ``fit`` takes its gradients from ``torch.func.grad`` and reads no value
+    back to the host, so that ``torch.func.vmap`` batches it over a fleet
+    of sessions (``core.compiled``).
     """
+
+    def draw(self, key, shapes: tuple[int, ...], n: int) -> dict:
+        """The draws of one fit on n rows (``key``: the fit's draws)."""
+        return {"init": self.init(key, shapes)}
 
     @abc.abstractmethod
     def init(self, key, shapes: tuple[int, ...]) -> Params:

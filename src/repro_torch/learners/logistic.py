@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/learners/logistic.py``: zero init, ``steps``
 full-batch AdamW steps on the w-weighted cross-entropy, with the gradient
-from autograd.
+from ``torch.func.grad`` (the reference's ``jax.grad``), so that
+``torch.func.vmap`` batches the fit over a fleet of sessions
+(``core.compiled.fleet_run``).  The eager learner calls the same core.
 """
 from __future__ import annotations
 
@@ -42,12 +44,9 @@ class LogisticCore(LearnerCore):
         del key  # full-batch fit is deterministic
         opt = adamw(self.lr)
         opt_state = opt.init(params)
+        grad_fn = torch.func.grad(_weighted_ce)
         for i in range(self.steps):
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in params.items()}
-            loss = _weighted_ce(leaves, X, onehot, w, self.l2)
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
+            grads = grad_fn(params, X, onehot, w, self.l2)
             with torch.no_grad():
                 params, opt_state = opt.update(grads, opt_state, params, i)
         return params

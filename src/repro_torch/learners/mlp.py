@@ -13,6 +13,12 @@ of ``split(key)[1]``), and minibatch step i's rows are
 rounded to float32 before the square root, as the reference's
 ``jnp.sqrt(2.0 / d_in)`` rounds it.
 
+The gradient comes from ``torch.func.grad`` (the reference's
+``jax.grad``), so that ``torch.func.vmap`` batches the fit over a fleet of
+sessions; :meth:`MLPCore.draw` takes a fit's draws before a compiled
+session (the init and every minibatch's rows), which then hands them to
+``fit`` through the ``key`` slot.
+
 The reference jits the whole fit as one XLA program; here each step runs
 op by op, and float32 sums in other orders differ at the last ulp, which
 AdamW's normalized steps can amplify.  Run with TF32 off.
@@ -47,8 +53,9 @@ def forward(params: list[dict], X: torch.Tensor) -> torch.Tensor:
     return h @ last["w"] + last["b"]
 
 
-def _weighted_ce(params, X, onehot, w):
-    logits = forward(params, X)
+def _weighted_ce(tree, X, onehot, w):
+    """The loss of the layer tree (the layer list keyed by index)."""
+    logits = forward(list(tree.values()), X)
     ll = torch.sum(onehot * logits, dim=-1) - torch.logsumexp(logits, dim=-1)
     return -torch.sum(w * ll) / torch.clamp(torch.sum(w), min=1e-12)
 
@@ -66,6 +73,18 @@ class MLPCore(LearnerCore):
         dims = (shapes[0],) + tuple(self.hidden) + (self.num_classes,)
         return _init_mlp(fit_draws(key), dims, self.device)
 
+    def draw(self, key, shapes, n: int) -> dict:
+        """A fit's draws, taken ahead: the init and, for minibatches, every
+        step's rows [steps, batch_size] (``key``: the fit's draws)."""
+        draws = fit_draws(key)
+        out = {"init": self.init(draws, shapes)}
+        bs = self.batch_size or n
+        if bs < n:
+            out["rows"] = torch.stack([draws.randint((bs,), n, i,
+                                                     self.device)
+                                       for i in range(self.steps)])
+        return out
+
     def fit(self, params, key, X, onehot, w):
         draws = fit_draws(key)
         opt = adamw(self.lr)
@@ -74,20 +93,14 @@ class MLPCore(LearnerCore):
         opt_state = opt.init(tree)
         n = X.shape[0]
         bs = self.batch_size or n
+        grad_fn = torch.func.grad(_weighted_ce)
         for i in range(self.steps):
             if bs < n:
                 idx = draws.randint((bs,), n, i, X.device)
                 xb, ob, wb = X[idx], onehot[idx], w[idx]
             else:
                 xb, ob, wb = X, onehot, w
-            leaves = {k: {name: v.detach().requires_grad_(True)
-                          for name, v in layer.items()}
-                      for k, layer in tree.items()}
-            loss = _weighted_ce(list(leaves.values()), xb, ob, wb)
-            flat = [v for layer in leaves.values() for v in layer.values()]
-            grad_it = iter(torch.autograd.grad(loss, flat))
-            grads = {k: {name: next(grad_it) for name in layer}
-                     for k, layer in leaves.items()}
+            grads = grad_fn(tree, xb, ob, wb)
             with torch.no_grad():
                 tree, opt_state = opt.update(grads, opt_state, tree, i)
         return list(tree.values())

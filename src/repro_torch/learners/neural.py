@@ -6,7 +6,10 @@ Counterpart of ``repro/learners/neural.py``.  Tabular features [n, p] are
 projected into d_model by ``proj`` [p, d_model] and taken as a length-1
 sequence, to which token 0's embedding is added; then the backbone's
 layers, its final norm, the mean pool and the float32 ``cls_head``.  The
-fit is ``steps`` full-batch AdamW steps, with gradients from autograd.
+fit is ``steps`` full-batch AdamW steps, with gradients from
+``torch.func.grad`` (the reference's ``jax.grad``; a leaf the loss never
+reads, an untied ``lm_head``, gets zeros), so that ``torch.func.vmap``
+batches it over a fleet of sessions.
 
 The backbone runs the einsum attention: the fit needs a backward, and the
 flash kernels (``cfg.use_flash``) have none (``models/api.py`` raises for
@@ -34,7 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.learners.base import Learner, LearnerCore
 from repro_torch.models import classifier, transformer
 from repro_torch.models.layers import he_init
-from repro_torch.optim.optimizers import adamw, tree_leaves, tree_map
+from repro_torch.optim.optimizers import adamw, tree_map
 
 
 def _float32(cfg: ArchConfig) -> ArchConfig:
@@ -43,10 +46,6 @@ def _float32(cfg: ArchConfig) -> ArchConfig:
             f"{cfg.name}: the neural backbone's fit needs a backward, and "
             f"the flash kernels have none; set use_flash=False")
     return replace(cfg, dtype="float32")
-
-
-def _or_zeros(g, like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros_like(like) if g is None else g
 
 
 def logits(params: dict, X: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -83,17 +82,16 @@ class NeuralCore(LearnerCore):
         del key  # full-batch fit is deterministic
         opt = adamw(self.lr)
         opt_state = opt.init(params)
-        for i in range(self.steps):
-            leaves = tree_map(lambda t: t.detach().requires_grad_(True),
-                              params)
-            out = logits(leaves, X, self.cfg)
+
+        def loss_fn(tree):
+            out = logits(tree, X, self.cfg)
             ll = (torch.sum(onehot * out, dim=-1)
                   - torch.logsumexp(out, dim=-1))
-            loss = -torch.sum(w * ll) / torch.clamp(torch.sum(w), min=1e-12)
-            # an untied lm_head is a leaf the classifier never reads
-            grad_it = iter(torch.autograd.grad(loss, tree_leaves(leaves),
-                                               allow_unused=True))
-            grads = tree_map(lambda t: _or_zeros(next(grad_it), t), leaves)
+            return -torch.sum(w * ll) / torch.clamp(torch.sum(w), min=1e-12)
+
+        grad_fn = torch.func.grad(loss_fn)
+        for i in range(self.steps):
+            grads = grad_fn(params)
             with torch.no_grad():
                 params, opt_state = opt.update(grads, opt_state, params, i)
         return params

@@ -47,9 +47,17 @@ def _zeros(params: Tree) -> Tree:
     return tree_map(torch.zeros_like, params)
 
 
+def _scalar(value, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d float32 tensor of ``value`` on ``like``'s device, filled there
+    (the float rounded to float32 as ``torch.tensor`` rounds it)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
 def _lr_at(lr, step: int, like: torch.Tensor) -> torch.Tensor:
     value = lr(step) if callable(lr) else lr
-    return torch.as_tensor(value, dtype=torch.float32, device=like.device)
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=torch.float32, device=like.device)
+    return _scalar(float(value), like)
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
@@ -96,18 +104,15 @@ def adamw(lr: float | Callable[[int], float], b1: float = 0.9,
         if grad_clip_norm is not None:
             grads = clip_by_global_norm(grads, grad_clip_norm)
         like = tree_leaves(params)[0]
-        t = torch.tensor(float(step), dtype=torch.float32,
-                         device=like.device) + 1.0
+        t = _scalar(float(step), like) + 1.0
         m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(m_.dtype),
                      state["m"], grads)
         v = tree_map(lambda v_, g: b2 * v_
                      + (1 - b2) * torch.square(g.to(v_.dtype)),
                      state["v"], grads)
         lr_t = _lr_at(lr, step, like)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                         device=like.device), t)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                         device=like.device), t)
+        bc1 = 1 - torch.pow(_scalar(b1, like), t)
+        bc2 = 1 - torch.pow(_scalar(b2, like), t)
 
         def leaf(p, m_, v_):
             upd = ((m_.to(torch.float32) / bc1)

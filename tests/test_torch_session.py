@@ -410,18 +410,28 @@ def test_entry_points_raise_without_card(blob):
 
 def test_later_slice_arguments_raise(blob):
     """What later slices of the port bring raises NotImplementedError: the
-    compiled backend, telemetry, scenarios, protocol-variant hops and the
-    mesh ring.  The wire channel (tests/test_torch_comm_session.py) and
-    the control plane with the async variant (tests/test_torch_control.py)
-    are ported: their arguments construct."""
+    compiled backend's async-stale lowering, telemetry, scenarios,
+    protocol-variant hops and the mesh ring.  The wire channel
+    (tests/test_torch_comm_session.py), the control plane with the async
+    variant (tests/test_torch_control.py) and the compiled backend's
+    sequential lowering (tests/test_torch_compiled.py) are ported: their
+    arguments construct."""
     from repro_torch.comm import BudgetedTransport, BudgetSpec
     from repro_torch.control import AdaptiveController, ServeController
+    from repro_torch.learners.logistic import LogisticRegression
     Xtr, ctr, _, _, k = blob
     cfg = T.SessionConfig(num_classes=k)
-    for kwargs in ({"backend": "compiled"}, {"telemetry": object()},
-                   {"scenario": object()}):
+    for kwargs in ({"telemetry": object()}, {"scenario": object()}):
         with pytest.raises(NotImplementedError):
             T.Protocol(cfg, device=CPU, **kwargs)
+    T.Protocol(cfg, device=CPU, backend="compiled")
+    with pytest.raises(NotImplementedError):
+        T.Protocol(cfg, scheduler=T.AsyncStaleScheduler(), device=CPU,
+                   backend="compiled").fit(
+            0, T.endpoints_for([LogisticRegression(steps=2, device=CPU)
+                                for _ in Xtr],
+                               [torch.from_numpy(x) for x in Xtr]),
+            torch.from_numpy(ctr))
     for kwargs in ({"controller": AdaptiveController()},
                    {"serve_controller": ServeController()}):
         T.MeteredTransport(**kwargs)
