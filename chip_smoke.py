@@ -160,6 +160,36 @@
    row-strided launch) against its plain version.  (e) One compiled
    session and one fleet under torch.cuda.set_sync_debug_mode("error"),
    after a warm-up: no host read inside the program.
+15. The prediction service: the compiled serve step
+   (``core.compiled.serve_session`` / ``serve_batch``) and the serve
+   engine (``repro_torch.serve``).  (a) MIMIC size, LogisticRegression
+   agents (``--steps 50``), five serve channels (--serve-codec int8; int4
+   with DP epsilon 1 and RDP; a byte budget whose serve walk ships fp32,
+   fp16, int8 and then exhausts; --serve-controller margin; entropy),
+   ``Protocol.predict_distributed`` compiled against eager on the 4500
+   held-out rows, four calls and one with max_round 4: predictions, the
+   shipped blocks, ledgers, skips, exhaustion, link spend and DP releases
+   bit for bit; block quantize launches = one a non-head agent and int
+   rung of the serve ladder (compiled), one an int-coded block (eager).
+   (b) The engine: 8 resident MIMIC int8 sessions (fit keys 0-7), a cache
+   of 4 (spills and restores), batches of 8, 4 tenants, 256 requests of
+   1024 held-out rows drawn from seed 0, a flush every 32; prints
+   ``serve_engine`` (requests/s, request_seconds p50/p99, batches, slots,
+   pads, cache hits, spills, restores); one batched block quantize a
+   bucket; every request = a standalone ``predict_distributed(request=
+   rid)`` on its session (predictions, bits, releases); one more flush
+   of 32 under torch.profiler (``serve_engine_profile``: wall and device
+   ms, the device's idle share, device ms by kind of kernel).  Then 4 DP
+   sessions behind a byte cap of 5 requests and an epsilon cap, allowing
+   degrade and not: accept and degrade, accept and deny, each engine's
+   decisions, counters and outcomes = a sequential replay of its stream.
+   (c) The batched block quantize (``quantize_dequant_block_rows``, one
+   launch for a bucket's blocks) = its plain version = the vmap rule = B
+   lone launches, bit for bit, int8 and int4, at [8, 1024, 2], [8, 4500,
+   2] and [8, 1024, 10]; one device kernel a call; ``block_rows_table``
+   (call and device ms, plain, B lone launches, bound, launch floor).  (d)
+   ``serve_batch`` of 8 slots on inputs already on the card under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host read.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -224,6 +254,7 @@ def _counters() -> dict:
             "ignorance_update_batched": ig.ignorance_update_batched,
             "quantize_dequant_tiles": q.quantize_dequant_tiles,
             "quantize_dequant_block": q.quantize_dequant_block,
+            "quantize_dequant_block_rows": q.quantize_dequant_block_rows,
             "pack_int4": q.pack_int4,
             "unpack_int4": q.unpack_int4,
             "quantize_pack_int4": q.quantize_pack_int4,
@@ -2597,24 +2628,31 @@ class Smoke:
         return "; ".join(out)
 
     def _compiled_counts(self, plan, fleet: bool, where: str,
-                         served=None) -> None:
+                         served: int = 0) -> None:
         """A compiled run's launches: every slot's update (one batched
         launch a hop for a fleet), every slot's quantize for each int rung
-        of the ladder, and the serve blocks' quantize read off the
-        ledger."""
+        of the ladder, and for each of ``served`` compiled serve steps one
+        block quantize a non-head agent and int rung of the serve
+        ladder."""
         from repro_torch.comm.codecs import QuantCodec
         hops = plan.max_rounds * plan.num_agents
         quant = sum(isinstance(c, QuantCodec) for c in plan.ladder)
         channel = {"quantize_dequant_tiles": hops * quant}
         if fleet:
             channel["ignorance_update_batched"] = hops
-        if served is not None:
-            transport, n, block = served
-            codecs = [c for c in (*plan.ladder, transport.serve_codec)
-                      if c is not None]
-            channel["quantize_dequant_block"] = self._coded_counts(
-                transport, codecs, n, block)["quantize_dequant_block"]
+        if served:
+            channel["quantize_dequant_block"] = (
+                served * self._serve_quant(plan))
         self.read_counts(0 if fleet else hops, where, **channel)
+
+    @staticmethod
+    def _serve_quant(plan) -> int:
+        """Block quantize launches of one compiled serve step: one a
+        non-head agent and int rung of the serve ladder (every rung is
+        evaluated, shipped or not)."""
+        from repro_torch.comm.codecs import QuantCodec
+        return (plan.num_agents - 1) * sum(
+            isinstance(c, QuantCodec) for c in plan.serve_ladder)
 
     def _batched_kernel(self) -> str:
         """(d) the batched update against its plain version and F single
@@ -2844,8 +2882,7 @@ class Smoke:
                         serve_codec=transport.serve_codec,
                         serve_controller=transport.serve_controller)
                     self._compiled_counts(
-                        plan, False, f"mimic compiled {name}",
-                        served=(transport, n, (n_te, 2)))
+                        plan, False, f"mimic compiled {name}", served=1)
                 w = (proto._compiled_result.w if backend == "compiled"
                      else proto._session.state.w)
                 runs[backend] = (proto, fitted, transport, rungs,
@@ -3122,6 +3159,442 @@ class Smoke:
         return ("(e) a compiled session and a 4-session fleet (mimic int8) "
                 "ran under set_sync_debug_mode('error'): no host read")
 
+    # ------------------------------------------------------ the serve path
+    def serve_path(self) -> str:
+        """Phase 15: (a)-(d) of the module note; every part runs, then the
+        phase fails if one did."""
+        out, failed = [], []
+        for part in (self._block_rows_kernel, self._serve_compiled_vs_eager,
+                     self._serve_engine, self._serve_no_host_reads):
+            t0 = time.perf_counter()
+            try:
+                out.append(part())
+                print(f"phase 15 part ({time.perf_counter() - t0:.1f} s): "
+                      f"{out[-1]}", flush=True)
+            except Exception as e:  # the phase fails below, after the rest
+                traceback.print_exc()
+                failed.append(f"{part.__name__}: {type(e).__name__}: {e}")
+        if failed:
+            raise AssertionError("; ".join(failed))
+        return "; ".join(out)
+
+    def _block_rows_kernel(self) -> str:
+        """(c) the batched block quantize against its plain version, B
+        lone launches and the vmap rule, bit for bit; one device kernel a
+        call; its times beside its bound and the launch floor."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import quantize as q
+        gen = torch.Generator(device=self.dev).manual_seed(15)
+        floor = self.floor_ms
+        if floor is None:
+            floor = self.floor_ms = self._launch_floor()
+        table = []
+        for b, n, k in ((8, 1024, 2), (8, 4500, 2), (8, 1024, 10)):
+            x = torch.randn((b, n, k), generator=gen, device=self.dev) * 5
+            u = torch.rand((b, n, k), generator=gen, device=self.dev)
+            for qmax in (127.0, 7.0):
+                got = q.quantize_dequant_block_rows(x, u, qmax)
+                plain = q.quantize_dequant_block_rows_plain(x, u, qmax)
+                vm = torch.func.vmap(lambda a, c, _q=qmax:
+                                     ops.quantize_dequant_block(a, c, _q))(
+                    x, u)
+                again = q.quantize_dequant_block_rows(x, u, qmax)
+                lone = [q.quantize_dequant_block(x[i], u[i], qmax)
+                        for i in range(b)]
+                torch.cuda.synchronize()
+                for name, other in (("plain", plain), ("vmap", vm),
+                                    ("a second run", again)):
+                    self.require(all(torch.equal(g, o)
+                                     for g, o in zip(got, other)),
+                                 f"[{b}, {n}, {k}] qmax {qmax}: the batched "
+                                 f"block quantize differs from {name}")
+                for i in range(b):
+                    self.require(all(torch.equal(g[i], o)
+                                     for g, o in zip(got, lone[i])),
+                                 f"[{b}, {n}, {k}] qmax {qmax}: block {i} "
+                                 f"differs from its lone launch")
+
+            def rows(x=x, u=u):
+                q.quantize_dequant_block_rows(x, u, 127.0)
+
+            def lone_launches(x=x, u=u, b=b):
+                for i in range(b):
+                    q.quantize_dequant_block(x[i], u[i], 127.0)
+            per_call, seen = _device_kernels_per_call(rows)
+            self.require(per_call == 1, f"the batched block quantize at "
+                         f"[{b}, {n}, {k}]: {per_call} device kernels a "
+                         f"call {seen}")
+            got = q.quantize_dequant_block_rows(x, u, 127.0)
+            plain = q.quantize_dequant_block_rows_plain(x, u, 127.0)
+            bound, by = _bound_ms(13 * x.numel() + 4 * got[2].numel(),
+                                  8 * x.numel())
+            row = {"shape": [b, n, k], "ms": _cuda_time_ms(rows),
+                   "device_ms": _kernel_device_ms(rows, ""),
+                   "plain_ms": _cuda_time_ms(
+                       lambda x=x, u=u:
+                       q.quantize_dequant_block_rows_plain(x, u, 127.0)),
+                   "lone_launches_ms": _cuda_time_ms(lone_launches,
+                                                     reps=50),
+                   "bound_ms": bound, "bound_by": by,
+                   "launch_floor_device_ms": floor,
+                   "kernels_a_call": per_call,
+                   "max_abs_err": float((got[0] - plain[0]).abs().max())}
+            table.append(row)
+            if (b, n, k) == (8, 1024, 2):       # a MIMIC bucket of 8
+                self.kernels["quantize_dequant_block_rows"] = {
+                    "source": "src/repro_torch/csrc/quantize.cu",
+                    "replaces": "src/repro/kernels/quantize.py:178",
+                    **{key: row[key] for key in
+                       ("max_abs_err", "ms", "device_ms", "plain_ms",
+                        "bound_ms", "bound_by")},
+                    "library_ms": None}
+        print("block_rows_table " + json.dumps(table), flush=True)
+        first = table[0]
+        return (f"(c) batched block quantize at [8, 1024, 2], [8, 4500, 2], "
+                f"[8, 1024, 10] = plain = vmap = B lone launches bit for "
+                f"bit (int8 and int4), two runs identical, one device "
+                f"kernel a call; [8, 1024, 2] device "
+                f"{first['device_ms']:.5f} ms, call {first['ms']:.5f} ms "
+                f"(bound {first['bound_ms']:.6f}, launch floor "
+                f"{floor:.5f}, 8 lone launches {first['lone_launches_ms']:.5f}"
+                f" ms)")
+
+    def _serve_fit(self, backend, key, transport, data):
+        """One MIMIC logistic session fitted on the card, as phase 14(b)."""
+        from repro_torch.core import engine as E
+        from repro_torch.learners.logistic import LogisticRegression
+        Xtr, ctr = data[:2]
+        proto = E.Protocol(E.SessionConfig(num_classes=2, max_rounds=10),
+                           transport=transport, backend=backend,
+                           device="cuda")
+        proto.fit(key, E.endpoints_for(
+            [LogisticRegression(steps=MIMIC_STEPS, device="cuda")
+             for _ in Xtr], Xtr), ctr)
+        return proto
+
+    def _serve_compiled_vs_eager(self) -> str:
+        """(a) five serve channels at MIMIC size, the compiled serve step
+        against the eager serve on the card, on the 4500 held-out rows:
+        four tagged or untagged calls and one with max_round 4.  For the
+        ladder walk, the budget's carried-over spend is set after the fit
+        so that fp32, fp16 and int8 blocks fit, and then nothing."""
+        torch = self.torch
+        from repro_torch.comm import codecs
+        from repro_torch.comm.budget import BudgetSpec, BudgetedTransport
+        from repro_torch.comm.privacy import GaussianMechanism
+        from repro_torch.control.accounting import RDPAccountant
+        from repro_torch.control.adaptive import ServeController
+        from repro_torch.core import engine as E
+        data = self._mimic_data()
+        Xte = data[2]
+        n, m, block = 10500, 2, (4500, 2)
+        spec = BudgetSpec()
+        serve_costs = spec.serve_costs(block)
+        room = serve_costs[0] + serve_costs[1] + serve_costs[2] + 10
+        session_bits = ((m - 1) * 2 * n * 32 + 10 * m * spec.hop_costs(n)[0]
+                        + 4 * serve_costs[0])
+        channels = {
+            "int8": lambda: E.MeteredTransport(
+                serve_codec=codecs.QuantCodec(8)),
+            "int4 dp rdp": lambda: E.MeteredTransport(
+                serve_codec=codecs.QuantCodec(4),
+                privacy=GaussianMechanism(epsilon=1.0),
+                accountant=RDPAccountant()),
+            "budget walk": lambda: BudgetedTransport(
+                BudgetSpec(session_bits=session_bits)),
+            "margin": lambda: E.MeteredTransport(
+                serve_controller=ServeController(stat="margin")),
+            "entropy": lambda: E.MeteredTransport(
+                serve_controller=ServeController(stat="entropy")),
+        }
+        calls = ((None, None), (None, 1), (None, 2), (None, 3), (4, 9))
+        out = []
+        for name, make in channels.items():
+            runs = {}
+            for backend in ("eager", "compiled"):
+                transport = make()
+                proto = self._serve_fit(backend, 0, transport, data)
+                if hasattr(transport, "budget"):
+                    self.require(not transport.exhausted,
+                                 f"{name}: the fit exhausted the budget")
+                    transport.carryover_bits = (session_bits - room
+                                                - transport.log.total_bits)
+                blocks = []
+                if backend == "eager":
+                    inner = transport.serve_block
+
+                    def record(*a, _inner=inner, _blocks=blocks, **kw):
+                        got = _inner(*a, **kw)
+                        _blocks.append(None if got is None else got.clone())
+                        return got
+                    transport.serve_block = record
+                else:
+                    inner = proto._replay_serve
+
+                    def record(endpoints, serve, shape, plan, _inner=inner,
+                               _blocks=blocks):
+                        _blocks.append(serve.blocks[1].clone()
+                                       if bool(serve.sent[1]) else None)
+                        return _inner(endpoints, serve, shape, plan)
+                    proto._replay_serve = record
+                before = len(transport.log.entries)
+                self.reset_counts()
+                preds = [proto.predict_distributed(Xte, max_round=mr,
+                                                   request=rq).cpu()
+                         for mr, rq in calls]
+                torch.cuda.synchronize()
+                served = transport.log.entries[before:]
+                if backend == "eager":
+                    ladder = ((transport.budget.ladder
+                               if hasattr(transport, "budget") else ())
+                              + ((transport.serve_controller.ladder
+                                  if transport.serve_controller else ())
+                                 + (transport.serve_codec,)))
+                    quant = sum(
+                        any(isinstance(c, codecs.QuantCodec)
+                            and c.wire_bits(block) == e["bits"]
+                            for c in ladder if c is not None)
+                        for e in served)
+                else:
+                    quant = len(calls) * self._serve_quant(
+                        proto._compiled_ctx[1])
+                self.read_counts(0, f"serve {name} {backend}",
+                                 quantize_dequant_block=quant)
+                runs[backend] = (preds, blocks, transport, served)
+            (ep, eb, et, es), (cp, cb, ct, cs) = (runs["eager"],
+                                                  runs["compiled"])
+            self.require(all(torch.equal(a, b) for a, b in zip(ep, cp)),
+                         f"{name}: compiled and eager predictions differ")
+            self.require(len(eb) == len(cb) and all(
+                (a is None and b is None) or (a is not None and b is not None
+                                              and torch.equal(a, b))
+                for a, b in zip(eb, cb)),
+                f"{name}: the shipped blocks differ, compiled vs eager")
+            self.require(et.log.entries == ct.log.entries,
+                         f"{name}: the ledgers differ")
+            if hasattr(et, "budget"):
+                self.require((ct.skipped, ct.exhausted, ct.link_spent)
+                             == (et.skipped, et.exhausted, et.link_spent),
+                             f"{name}: skips, exhaustion or link spend "
+                             f"differ")
+                rungs = [e.get("rung") for e in cs]
+                self.require(rungs == [0, 1, 2] and ct.exhausted,
+                             f"{name}: the serve walk was {rungs}, "
+                             f"exhausted {ct.exhausted}")
+            if et.accountant is not None:
+                self.require(ct.accountant.releases
+                             == et.accountant.releases,
+                             f"{name}: DP releases differ")
+            acc = float((cp[0] == data[3].cpu()).float().mean())
+            out.append(f"[{name}] {len(cs)} blocks, "
+                       f"{sum(e['bits'] for e in cs)} bits, shipped "
+                       f"{sum(b is not None for b in cb)}/{len(cb)}, acc "
+                       f"{acc:.4f}")
+        return ("(a) compiled serve = eager serve on the card, mimic 4500 "
+                "held-out rows, max_round None and 4 (predictions, shipped "
+                "blocks, ledgers, skips, exhaustion, link spend, releases "
+                "bit for bit): " + "; ".join(out))
+
+    def _serve_stream(self, count: int, sessions: int, tenants: int,
+                      n_te: int, seed: int = 0) -> list:
+        """A request stream drawn from ``seed``: (tenant, session, 1024
+        held-out row indices on the card)."""
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        return [(f"t{i % tenants}", f"s{int(rng.integers(sessions))}",
+                 self.torch.as_tensor(rng.choice(n_te, size=1024,
+                                                 replace=False),
+                                      device=self.dev))
+                for i in range(count)]
+
+    def _run_engine(self, engine, stream, Xte, flush_every: int) -> dict:
+        """Submit ``stream`` with request ids 0.., flushing every
+        ``flush_every``; returns {rid: decision}."""
+        decisions = {}
+        for rid, (tenant, sid, rows) in enumerate(stream):
+            decisions[rid] = engine.submit(tenant, sid,
+                                           [x[rows] for x in Xte],
+                                           request=rid)[1]
+            if (rid + 1) % flush_every == 0:
+                engine.flush()
+        engine.flush()
+        return decisions
+
+    def _serve_engine(self) -> str:
+        """(b) the serve engine: 8 resident MIMIC int8 sessions behind a
+        cache of 4, batches of 8, 4 tenants, 256 requests of 1024 held-out
+        rows, a flush every 32; every request against a standalone
+        predict_distributed.  Then an engine under a per-tenant byte cap,
+        DP epsilon 1 and an epsilon cap, degrading and then denying, each
+        against a sequential replay of its stream."""
+        torch = self.torch
+        from repro_torch.comm import codecs
+        from repro_torch.comm.privacy import GaussianMechanism
+        from repro_torch.core import engine as E
+        from repro_torch.serve import (AdmissionController, AdmissionPolicy,
+                                       ServeEngine)
+        data = self._mimic_data()
+        Xte = data[2]
+        n_te = int(Xte[0].shape[0])
+        t0 = time.perf_counter()
+        protos = {f"s{s}": self._serve_fit(
+            "compiled", s, E.MeteredTransport(
+                serve_codec=codecs.QuantCodec(8)), data) for s in range(8)}
+        fit_s = time.perf_counter() - t0
+        engine = ServeEngine(cache_capacity=4, max_batch=8, device="cuda")
+        for sid, proto in protos.items():
+            engine.add_session(sid, proto)
+        stream = self._serve_stream(256, 8, 4, n_te)
+        self.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self._run_engine(engine, stream, Xte, 32)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stats, cache = engine.batcher.stats(), engine.cache.stats()
+        plan = next(iter(protos.values()))._compiled_ctx[1]
+        self.read_counts(0, "serve engine",
+                         quantize_dequant_block_rows=stats["batches_run"]
+                         * self._serve_quant(plan))
+        p50 = engine.registry.quantile_all("request_seconds", 0.5)
+        p99 = engine.registry.quantile_all("request_seconds", 0.99)
+        checked = 0
+        for rid, (tenant, sid, rows) in enumerate(stream):
+            transport = protos[sid].transport
+            before = len(transport.log.entries)
+            base = protos[sid].predict_distributed([x[rows] for x in Xte],
+                                                   request=rid)
+            got = engine.outcomes[rid]
+            self.require(bool((torch.as_tensor(got.preds)
+                               == base.cpu()).all()),
+                         f"request {rid} ({sid}): batched predictions "
+                         f"differ from the standalone serve")
+            bits = sum(e["bits"] for e in transport.log.entries[before:])
+            self.require((got.bits, got.releases) == (bits, 0),
+                         f"request {rid}: bits {got.bits} != {bits}")
+            checked += 1
+        self.require(cache["spills"] > 0 and cache["restores"] > 0,
+                     f"the cache never spilled and restored: {cache}")
+        # one more flush of 32 requests under the profiler: where a
+        # flush's time goes, and the device's idle share
+        extra = self._serve_stream(32, 8, 4, n_te, seed=2)
+
+        def one_flush():
+            for i, (tenant, sid, rows) in enumerate(extra):
+                engine.submit(tenant, sid, [x[rows] for x in Xte],
+                              request=256 + i)
+            engine.flush()
+        print("serve_engine_profile "
+              + json.dumps(_device_profile(one_flush)), flush=True)
+        engine.close()
+        line = (f"(b) serve engine, 8 mimic int8 sessions (fit "
+                f"{fit_s:.1f} s), cache 4, batch 8, 4 tenants, 256 "
+                f"requests of 1024 rows in {secs:.3f} s = "
+                f"{256 / secs:.1f} requests/s, request_seconds p50 "
+                f"{p50:.5f} p99 {p99:.5f}; batches {stats['batches_run']} "
+                f"slots {stats['slots_run']} pads {stats['padded_slots']}, "
+                f"cache hits {cache['hits']} spills {cache['spills']} "
+                f"restores {cache['restores']}; all {checked} requests = "
+                f"standalone predict_distributed (preds, bits, releases)")
+        print("serve_engine " + json.dumps(
+            {"requests": 256, "seconds": secs, "requests_per_s": 256 / secs,
+             "p50_s": p50, "p99_s": p99, **stats, **cache}), flush=True)
+        # the admission gates: DP sessions, a byte cap of five full
+        # requests a tenant and an epsilon cap of eight releases
+        mech = GaussianMechanism(epsilon=1.0)
+        dp = {f"s{s}": self._serve_fit(
+            "compiled", s, E.MeteredTransport(
+                serve_codec=codecs.QuantCodec(8), privacy=mech), data)
+            for s in range(4)}
+        full = codecs.QuantCodec(8).wire_bits((1024, 2))
+        stream = self._serve_stream(64, 4, 4, n_te, seed=1)
+        shown = []
+        for allow in (True, False):
+            results = []
+            for every in (16, 1):           # batched, then sequential
+                eng = ServeEngine(
+                    cache_capacity=4, max_batch=8, device="cuda",
+                    admission=AdmissionController(
+                        AdmissionPolicy(allow_degrade=allow,
+                                        epsilon_cap=8.0),
+                        tenant_bits=5 * full, mechanism=mech))
+                for sid, proto in dp.items():
+                    eng.add_session(sid, proto)
+                decisions = self._run_engine(eng, stream, Xte, every)
+                results.append((decisions, eng.admission.counters(),
+                                {rid: (None if o.preds is None
+                                       else o.preds.tolist(), o.bits,
+                                       o.releases)
+                                 for rid, o in eng.outcomes.items()},
+                                {sid: dict(meta.accountant.releases)
+                                 for sid, meta in eng.sessions.items()}))
+                eng.close()
+            (bd, bc, bo, br), (sd, sc, so, sr) = results
+            self.require([d.outcome for d in bd.values()]
+                         == [d.outcome for d in sd.values()],
+                         f"allow_degrade={allow}: batched and sequential "
+                         f"decisions differ")
+            self.require(bc == sc and bo == so and br == sr,
+                         f"allow_degrade={allow}: batched and sequential "
+                         f"counters or outcomes differ")
+            outcomes = {d.outcome for d in bd.values()}
+            want = {"accept", "degrade" if allow else "deny"}
+            self.require(outcomes == want, f"allow_degrade={allow}: "
+                         f"outcomes {outcomes}, expected {want}")
+            shown.append(f"allow_degrade={allow}: " + ", ".join(
+                f"{o} {sum(d.outcome == o for d in bd.values())}"
+                for o in sorted(outcomes)) + f" (tenant t0 {bc['t0']})")
+        return (line + "; admission (4 DP sessions, byte cap 5 requests, "
+                "epsilon cap 8, 64 requests) = sequential replay: "
+                + "; ".join(shown))
+
+    def _serve_no_host_reads(self) -> str:
+        """(d) serve_batch on inputs already on the card under
+        set_sync_debug_mode("error"): no host read inside."""
+        torch = self.torch
+        from repro_torch.comm import codecs
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        data = self._mimic_data()
+        Xte = data[2]
+        proto = self._serve_fit("compiled", 0, E.MeteredTransport(
+            serve_codec=codecs.QuantCodec(8)), data)
+        _, plan, result = proto._compiled_ctx
+        m = plan.num_agents
+        slots = [{"Xs": [x[b * 400:b * 400 + 1024] for x in Xte],
+                  "params": result.params, "alphas": result.alphas,
+                  "valid": result.valid,
+                  "rem_session": torch.full((), C._INT32_MAX,
+                                            dtype=torch.int32,
+                                            device=self.dev),
+                  "rem_link": torch.full((m,), C._INT32_MAX,
+                                         dtype=torch.int32, device=self.dev),
+                  "deliver": torch.ones(m, dtype=torch.bool,
+                                        device=self.dev)} for b in range(8)]
+        key = proto._session.state.key
+        draws = C._serve_draws_for(plan, [key] * 8, list(range(8)), 1024,
+                                   self.dev, [None] * 8)
+        C.serve_batch(plan, slots, draws=draws)     # warm-up
+        torch.cuda.synchronize()
+        self.reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = C.serve_batch(plan, slots, draws=draws)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        self.read_counts(0, "sync-checked serve_batch",
+                         quantize_dequant_block_rows=self._serve_quant(plan))
+        alone = C.serve_session(plan, result, key, slots[3]["Xs"],
+                                request=3)
+        self.require(all(torch.equal(f[3], g) for f, g in zip(res, alone)),
+                     "the sync-checked batch's slot 3 differs from "
+                     "serve_session")
+        return ("(d) serve_batch of 8 mimic slots ran under "
+                "set_sync_debug_mode('error'): no host read; slot 3 = "
+                "serve_session")
+
 
 def _bf16_backbone_logits(params: dict, X, cfg):
     """``learners.neural.logits`` with the backbone computed in bf16 (the
@@ -3169,7 +3642,7 @@ def main(argv: list[str]) -> int:
               5: s.fashion, 6: s.mimic_channel, 7: s.fashion_channel,
               8: s.flash_vs_plain, 9: s.serve, 10: s.ce_vs_plain,
               11: s.train, 12: s.learners, 13: s.control,
-              14: s.compiled}
+              14: s.compiled, 15: s.serve_path}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])

@@ -6,9 +6,10 @@ Counterpart of ``repro/comm/``:
   * :mod:`repro_torch.comm.codecs`  -- encode/decode pairs (fp32/fp16,
     int8/int4 quantization on the CUDA quantize kernels, top-k
     sparsification with per-link error feedback) and ``channel_apply``;
-  * :mod:`repro_torch.comm.budget`  -- per-link / per-session bit budgets
-    and the degrade-then-skip :class:`~repro_torch.comm.budget.
-    BudgetedTransport`;
+  * :mod:`repro_torch.comm.budget`  -- per-link / per-session bit budgets,
+    the degrade-then-skip :class:`~repro_torch.comm.budget.
+    BudgetedTransport` and the serve engine's per-tenant
+    :class:`~repro_torch.comm.budget.TenantBudget`;
   * :mod:`repro_torch.comm.privacy` -- the Gaussian mechanism with
     per-agent epsilon accounting;
   * :mod:`repro_torch.comm.draws`   -- the channel's random draws (no
@@ -26,12 +27,13 @@ __all__ = [
     "GaussianMechanism", "PrivacyAccountant",
     # lazy (avoids importing the engine on package import):
     "BudgetSpec", "BudgetedTransport", "DEFAULT_LADDER", "MODEL_WEIGHT_BITS",
+    "TenantBudget",
 ]
 
 
 def __getattr__(name):      # PEP 562: budget pulls in the engine; keep lazy
     if name in ("BudgetSpec", "BudgetedTransport", "DEFAULT_LADDER",
-                "MODEL_WEIGHT_BITS"):
+                "MODEL_WEIGHT_BITS", "TenantBudget"):
         from repro_torch.comm import budget
         return getattr(budget, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

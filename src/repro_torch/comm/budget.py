@@ -18,8 +18,9 @@ against the session budget alone (it is a broadcast, not a link).  An
 adaptive controller or a serve controller on a budgeted transport shares
 the budget's ladder, and its rung is a floor on the walk: the budget may
 degrade further, never finer.  Protocol-variant hops (``ship``) belong to
-a later slice and raise (the base transport's method); ``TenantBudget``
-comes with the serve engine.
+a later slice and raise (the base transport's method).
+:class:`TenantBudget` is the serve engine's per-tenant view of serve
+spend, which admission (``repro_torch.serve.admission``) gates on.
 """
 from __future__ import annotations
 
@@ -88,6 +89,36 @@ class BudgetSpec:
         """:meth:`choose_costs` over the training-hop cost table."""
         return self.choose_costs(self.hop_costs(n), remaining_session,
                                  remaining_link, floor)
+
+
+@dataclass
+class TenantBudget:
+    """A tenant's running serve-traffic bit ledger against an optional cap
+    (``bits``, None: uncapped), shared by every session and request the
+    tenant submits.  ``charge`` books the encoded bits a request shipped,
+    the numbers the transport ledger prices, so the view and the ledger
+    never drift."""
+    bits: int | None = None
+    spent: int = 0
+
+    def __post_init__(self):
+        if self.bits is not None and self.bits <= 0:
+            raise ValueError(f"tenant bit cap must be positive, got "
+                             f"{self.bits}")
+
+    @property
+    def remaining(self) -> float:
+        return math.inf if self.bits is None else self.bits - self.spent
+
+    def affordable(self, cost: int) -> bool:
+        return cost <= self.remaining
+
+    def charge(self, bits: int) -> None:
+        if isinstance(bits, bool) or not isinstance(bits, int):
+            raise TypeError(f"bits must be an integer, got {bits!r}")
+        if bits < 0:
+            raise ValueError(f"bits must be >= 0, got {bits}")
+        self.spent += bits
 
 
 class BudgetedTransport(MeteredTransport):

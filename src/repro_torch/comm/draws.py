@@ -44,7 +44,10 @@ a fleet of F keys.  They are the values ``hop(key, t, j)`` and
 draws.  Every slot gets its draws, a hop that will be skipped or comes
 after the stop included: the draws are indexed by coordinates, never by
 what ran.  :class:`TensorHopDraws` hands one hop's slice to
-``channel_apply``.
+``channel_apply``.  The compiled serve step's draws are taken the same
+way (:func:`serve_draws`; :func:`serve_draws_batch` for a bucket of
+requests): each agent's block's, as ``serve(key, agent, request)`` gives
+them, a block that a budget will skip or admission holds back included.
 """
 from __future__ import annotations
 
@@ -275,3 +278,45 @@ def session_draws(keys, rounds: int, slots: int, n: int, fit, *,
                                     for row in hops]).to(device)
         sessions.append(out)
     return stack_trees(sessions) if fleet else sessions[0]
+
+
+def serve_draws(key, request, agents: int, shape, *, uniform: bool = False,
+                normal: bool = False, device="cpu", source=None) -> dict:
+    """Every draw of one distributed prediction, taken before it runs:
+    ``{"u": [agents, *shape], "z": [agents, *shape]}`` (``u``, the serve
+    codecs' uniforms, when ``uniform``; ``z``, the mechanism's normals,
+    when ``normal``).  Row j >= 1 holds what ``source.serve(key, j,
+    request)`` gives agent j's block (default source
+    :class:`ChannelDraws`); row 0, the head's block, never crosses the
+    wire and holds zeros.  Hand row j to the channel as
+    :class:`TensorHopDraws`."""
+    return {name: d[0] for name, d in serve_draws_batch(
+        [key], [request], agents, shape, uniform=uniform, normal=normal,
+        device=device, source=[source]).items()}
+
+
+def serve_draws_batch(keys, requests, agents: int, shape, *,
+                      uniform: bool = False, normal: bool = False,
+                      device="cpu", source=None) -> dict:
+    """:func:`serve_draws` for a bucket's slots, stacked: leaves of
+    ``[B, agents, *shape]``, slot b's the draws of ``keys[b]`` and
+    ``requests[b]`` (``source`` one source, or one a slot).  Drawn on the
+    host, then one copy a leaf to ``device``."""
+    if not isinstance(source, (list, tuple)):
+        source = [source] * len(keys)
+    shape = tuple(int(s) for s in shape)
+    out = {}
+    for name, wanted in (("u", uniform), ("z", normal)):
+        if not wanted:
+            continue
+        slots = []
+        for key, request, src in zip(keys, requests, source):
+            src = ChannelDraws() if src is None else src
+            rows = [torch.zeros(shape, dtype=torch.float32)]
+            for j in range(1, agents):
+                hop = src.serve(key, j, request)
+                rows.append(hop.uniform(shape, "cpu") if name == "u"
+                            else hop.normal(shape, "cpu"))
+            slots.append(torch.stack(rows))
+        out[name] = torch.stack(slots).to(device)
+    return out

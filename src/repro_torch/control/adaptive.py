@@ -36,7 +36,9 @@ step_tensor` (:func:`controller_rung`, the reference's name) takes the
 statistic in float64 on the device and rounds it, :func:`ema_step_tensor`
 rounds where :func:`ema_step` does, and the rung is the count of float32
 cuts the EMA lies below, so both backends pick the same rungs bit for
-bit.
+bit.  The compiled serve step takes a block's rung from
+:meth:`ServeController.rung_tensor`, which the eager
+:meth:`ServeController.rung_for` reads back.
 """
 from __future__ import annotations
 
@@ -221,9 +223,14 @@ class ServeController:
 
     def observe(self, block: torch.Tensor) -> np.float32:
         """The block's uncertainty statistic in [0, 1], taken in float64
-        and rounded to float32: each row shifted to nonnegative and
-        normalized, then 1 - the mean top-2 gap or the mean entropy over
-        log K."""
+        and rounded to float32 (:meth:`observe_tensor`, read back)."""
+        return np.float32(float(self.observe_tensor(block)))
+
+    def observe_tensor(self, block: torch.Tensor) -> torch.Tensor:
+        """:meth:`observe` as a 0-d float32 tensor on the block's device,
+        read by no host: each row shifted to nonnegative and normalized,
+        then 1 - the mean top-2 gap or the mean entropy over log K, in
+        float64, rounded once."""
         k = int(block.shape[-1])
         b = block.to(_F64)
         b = b - torch.min(b, dim=-1, keepdim=True).values
@@ -234,12 +241,20 @@ class ServeController:
                 gap = top2[..., 0] - top2[..., 1]
             else:
                 gap = torch.ones(p.shape[:-1], dtype=_F64, device=p.device)
-            return np.float32(float(1.0 - torch.mean(gap)))
+            return (1.0 - torch.mean(gap)).to(torch.float32)
         h = -torch.sum(torch.where(
             p > 0, p * torch.log(torch.clamp(p, min=1e-30)),
             torch.zeros((), dtype=_F64, device=p.device)), dim=-1)
-        return np.float32(float(torch.mean(h) / math.log(max(k, 2))))
+        return (torch.mean(h) / math.log(max(k, 2))).to(torch.float32)
+
+    def rung_tensor(self, block: torch.Tensor) -> torch.Tensor:
+        """:meth:`rung_for` as a 0-d int64 tensor on the block's device
+        (the compiled serve step's rung, the reference's
+        ``jitted_serve_controller``)."""
+        return rung_tensor(self.observe_tensor(block), self.thresholds)
 
     def rung_for(self, block: torch.Tensor) -> int:
-        """The ladder rung for one outgoing block."""
-        return _rung(self.observe(block), self.thresholds)
+        """The ladder rung for one outgoing block: :meth:`rung_tensor`
+        read back, so the eager and the compiled serve choose the same
+        rung by construction."""
+        return int(self.rung_tensor(block))

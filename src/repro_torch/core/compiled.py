@@ -30,11 +30,19 @@ that vmap batches them, and the hop's kernels are custom ops whose vmap
 rules launch once for all F sessions (``kernels/ops.py``): a fleet's
 ignorance launches equal its hops, not hops x F.
 
+:func:`make_serve_fn` lowers the plan's distributed prediction the same
+way: every agent's score block, the serve channel (DP noise, the budget's
+ladder walk or the serve controller's rung, the codec) and the head's
+sum, with the draws taken first (:func:`repro_torch.comm.draws.
+serve_draws`) and no host read.  :func:`serve_session` runs it for one
+request, :func:`serve_batch` for a bucket of requests as one vmapped
+program, whose block quantize is one launch for all slots.
+
 PyTorch runs eagerly: "compiled" names the fixed-shape, host-read-free
-program, not a compiler.  The asynchronous lowering, the serve step
-(``serve_batch``), the quantization and control sweeps, the live taps and
-``shard_axis`` are later slices of the port and raise
-``NotImplementedError``.
+program, not a compiler.  The asynchronous lowering, the quantization and
+control sweeps (``qmax_arg``, ``control_arg``: the serve axis of
+``quant_sweep_run`` too), the live taps (``live=``) and ``shard_axis`` are
+later slices of the port and raise ``NotImplementedError``.
 
 Quickstart::
 
@@ -53,13 +61,14 @@ import torch
 
 from repro_torch.comm.budget import MODEL_WEIGHT_BITS
 from repro_torch.comm.codecs import channel_apply
-from repro_torch.comm.draws import (TensorHopDraws, session_draws,
-                                    stack_trees)
+from repro_torch.comm.draws import (TensorHopDraws, serve_draws_batch,
+                                    session_draws, stack_trees)
 from repro_torch.control.scheduler import (REWARD_SMOOTHING,
                                            BudgetAwarePlan,
                                            reward_ema_tensor,
                                            traced_round_order)
 from repro_torch.core import scores
+from repro_torch.core.encoding import encode_labels
 from repro_torch.core.engine import (LabelsMsg, SampleIdsMsg, _later_slice,
                                      key_data)
 from repro_torch.kernels import ops
@@ -112,6 +121,26 @@ class SessionPlan:
     def has_channel(self) -> bool:
         return (self.codec is not None or self.privacy is not None
                 or self.budget is not None or self.controller is not None)
+
+    @property
+    def serve_ladder(self) -> tuple:
+        """The rungs the serve step evaluates for an [n, K] block: the
+        budget's ladder (the serve controller's too, when both are set),
+        the serve controller's, else the one serve codec (the training
+        codec when unset; None ships raw float32)."""
+        if self.budget is not None:
+            return self.budget.ladder
+        if self.serve_controller is not None:
+            return self.serve_controller.ladder
+        return (self.serve_codec if self.serve_codec is not None
+                else self.codec,)
+
+    @property
+    def has_serve_channel(self) -> bool:
+        """Whether a served block crosses a channel (and takes draws)."""
+        return (self.serve_ladder[0] is not None
+                or self.serve_controller is not None
+                or self.privacy is not None)
 
 
 @dataclass(frozen=True)
@@ -607,6 +636,233 @@ def fleet_run(plan: SessionPlan, keys, Xs: Sequence[torch.Tensor],
     data_ax = 0 if data_batched else None
     return torch.func.vmap(fn, in_dims=(0, data_ax, data_ax))(draws, Xs,
                                                               classes)
+
+
+# =================================================================== serve step
+class ServeResult(NamedTuple):
+    """Fixed-shape output of the serve step (with a leading [B] axis from
+    :func:`serve_batch`).  ``preds`` [n] is the head's argmax; ``blocks``
+    [M, n, K] the decoded blocks as shipped (slot 0 the head's own, which
+    never crosses the wire); ``sent`` [M] the blocks that shipped (the
+    head, budget skips and held-back blocks False); ``codec_idx`` [M] each
+    one's serve-ladder rung (-1: raw or not sent); ``exhausted`` whether
+    the session budget ran dry.  From them the engine books the serve
+    ledger (``Protocol._replay_serve``)."""
+    preds: torch.Tensor
+    blocks: torch.Tensor
+    sent: torch.Tensor
+    codec_idx: torch.Tensor
+    exhausted: torch.Tensor
+
+
+def make_serve_fn(plan: SessionPlan, feature_shapes: tuple,
+                  qmax_arg: bool = False, live: bool = False):
+    """Lower ``plan``'s serve path for the agents' feature shapes into
+
+        serve_fn(draws, Xs, params, alphas, valid, rem_session, rem_link,
+                 deliver) -> ServeResult
+
+    the fixed-shape twin of ``Session.predict_distributed``.  Agent j's
+    [n, K] block is its alpha-weighted coded votes over its components,
+    summed over rounds in the eager ``AgentEndpoint.score_block``'s order
+    (a round that gave no component adds zero).  Each non-head block then
+    crosses the serve channel with its draws (``draws``: the
+    ``{"u", "z"}`` of :func:`repro_torch.comm.draws.serve_draws`): DP
+    noise once, then under a budget the ladder walk (the serve
+    controller's rung its floor), else the serve controller's rung, else
+    the one serve codec; every rung's codec is evaluated and one
+    selected.  The head sums what shipped and takes the argmax.
+    ``rem_session`` / ``rem_link`` [M] are the remaining budget (int)
+    the walk starts from, ignored without a budget; ``deliver`` [M] bool
+    gates which non-head blocks cross at all (all True: a normal serve;
+    ``[True, False, ...]``: admission's head-only degrade).  No host read.
+    ``qmax_arg`` (the serve axis of the quantization sweep) and ``live``
+    are later slices."""
+    if qmax_arg:
+        raise _later_slice("the compiled sweeps (qmax_arg, control_arg)")
+    if live:
+        raise _later_slice("the serve step's live taps (live=)")
+    if len(feature_shapes) != plan.num_agents:
+        raise ValueError(f"{plan.num_agents} cores but "
+                         f"{len(feature_shapes)} feature shapes")
+    k = plan.num_classes
+    cores = plan.cores
+    privacy, budget = plan.privacy, plan.budget
+    serve_controller = plan.serve_controller
+    ladder = plan.serve_ladder
+
+    def serve_fn(draws: dict, Xs: tuple, params: tuple,
+                 alphas: torch.Tensor, valid: torch.Tensor,
+                 rem_session: torch.Tensor, rem_link: torch.Tensor,
+                 deliver: torch.Tensor) -> ServeResult:
+        n = Xs[0].shape[0]
+        dev = Xs[0].device
+        if budget is not None:
+            costs = budget.serve_costs((n, k))
+            if max(costs) >= _INT32_MAX:
+                raise ValueError(f"serve block costs must fit int32 (the "
+                                 f"budget counters), got {max(costs)}")
+            rem_s = rem_session.to(torch.int64)
+            rem_l = rem_link.to(torch.int64)
+        exhausted = torch.zeros((), dtype=torch.bool, device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        total = None
+        blocks, sent_l, rung_l = [], [], []
+        for j, core in enumerate(cores):
+            block = torch.zeros((n, k), dtype=torch.float32, device=dev)
+            for t in range(alphas.shape[0]):
+                pred = core.predict(tree_map(lambda x, _t=t: x[_t],
+                                             params[j]), Xs[j])
+                block = block + (torch.where(valid[t, j], alphas[t, j], zero)
+                                 * encode_labels(pred, k))
+            if j == 0:
+                # the head's own block never crosses the wire
+                blocks.append(block)
+                sent_l.append(torch.zeros((), dtype=torch.bool, device=dev))
+                rung_l.append(_full(-1, block))
+                total = block
+                continue
+            d_j = deliver[j]
+            hop = TensorHopDraws(draws["u"][j] if "u" in draws else None,
+                                 draws["z"][j] if "z" in draws else None)
+            if serve_controller is not None:
+                # the policy reads the raw block, before any noise
+                c_rung = serve_controller.rung_tensor(block)
+            if budget is None and serve_controller is None:
+                blk, _ = channel_apply(ladder[0], privacy, block, hop, None)
+                rung = _full(0 if ladder[0] is not None else -1, block)
+                sendable = d_j
+            else:
+                # the noise does not depend on the rung: apply it once,
+                # then each rung's codec, the bits of the eager channel at
+                # its rung
+                noised, _ = channel_apply(None, privacy, block, hop, None)
+                pairs = [channel_apply(c, None, noised, hop, None)[0]
+                         for c in ladder]
+                if budget is None:
+                    rung, sendable = c_rung, d_j
+                    blk = rung_select(rung, pairs, noised)
+                else:
+                    rem = torch.minimum(rem_s, rem_l[j])
+                    rung = ladder_walk(costs, rem, floor=(
+                        c_rung if serve_controller is not None else None))
+                    sendable = (rung >= 0) & d_j
+                    # a held-back block never consults the budget
+                    exhausted = exhausted | (d_j & (rung < 0)
+                                             & (rem_s < min(costs)))
+                    blk = rung_select(rung, pairs, block)
+                    cost = rung_select(rung, [_full(c, block) for c in costs],
+                                       _full(0, block))
+                    rem_s = rem_s - torch.where(sendable, cost,
+                                                _full(0, block))
+            blocks.append(blk)
+            sent_l.append(sendable)
+            rung_l.append(torch.where(sendable, rung, _full(-1, block)))
+            total = total + torch.where(sendable, blk, zero)
+        return ServeResult(preds=torch.argmax(total, dim=-1),
+                           blocks=torch.stack(blocks),
+                           sent=torch.stack(sent_l),
+                           codec_idx=torch.stack(rung_l),
+                           exhausted=exhausted)
+
+    return serve_fn
+
+
+def serve_session(plan: SessionPlan, result: SessionResult, key,
+                  Xs: Sequence[torch.Tensor], *, request=None, valid=None,
+                  rem_session=None, rem_link=None, deliver=None,
+                  live: bool = False, source=None) -> ServeResult:
+    """The serve step for one completed compiled session (``result``,
+    agent-major) and one request: its draws taken first, from the
+    session's key data ``key`` and the ``request`` tag (``source``: the
+    draw source, default :class:`~repro_torch.comm.draws.ChannelDraws`),
+    then the program.  ``valid`` overrides ``result.valid`` (e.g. masked
+    by ``max_round``); ``rem_session`` / ``rem_link`` seed the budget
+    counters (None: uncapped); ``deliver`` [M] bool gates the non-head
+    blocks (None: all)."""
+    if live:
+        raise _later_slice("the serve step's live taps (live=)")
+    Xs = tuple(Xs)
+    shapes = tuple(tuple(x.shape[1:]) for x in Xs)
+    n, dev = int(Xs[0].shape[0]), Xs[0].device
+    num = plan.num_agents
+    draws = {name: d[0] for name, d in _serve_draws_for(
+        plan, [key], [request], n, dev, [source]).items()}
+    return make_serve_fn(plan, shapes)(
+        draws, Xs, result.params, result.alphas,
+        result.valid if valid is None else valid,
+        _stack_field([rem_session], (), dev)[0],
+        _stack_field([rem_link], (num,), dev)[0],
+        _stack_field([deliver], (num,), dev, torch.bool)[0])
+
+
+def _serve_draws_for(plan: SessionPlan, keys, requests, n: int, device,
+                     sources) -> dict:
+    """The serve draws a plan's channel reads, for each (key, request),
+    stacked."""
+    if not plan.has_serve_channel:
+        return {}
+    stochastic = any(getattr(c, "stochastic", False)
+                     for c in plan.serve_ladder if c is not None)
+    return serve_draws_batch(
+        [key_data(k) for k in keys], requests, plan.num_agents,
+        (n, plan.num_classes), uniform=stochastic,
+        normal=plan.privacy is not None, device=device, source=sources)
+
+
+def serve_batch(plan: SessionPlan, slots, *, draws: dict | None = None,
+                live: bool = False) -> ServeResult:
+    """One serve step for a whole bucket of requests as one program
+    (``torch.func.vmap`` over the slots): the continuous-batching
+    primitive behind :mod:`repro_torch.serve.batcher`.  Each slot is a
+    dict of what one :func:`serve_session` call takes: ``key`` (the
+    session's key data), ``request`` (its tag), ``source`` (optional draw
+    source), ``Xs`` (M blocks [n, p_m]), ``params`` / ``alphas`` /
+    ``valid`` (the fitted session's, agent-major), ``rem_session`` /
+    ``rem_link`` (int32 counters) and ``deliver`` ([M] bool).  ``draws``
+    (the slots' stacked draws, already on the device) replaces the keys.
+    Returns a ServeResult with a leading slot axis; slot b is what
+    ``serve_session`` gives for that slot alone: the vmap never mixes
+    slots, a pad slot with an all-False ``deliver`` ships nothing, and the
+    block quantize is one launch for all slots (``kernels.ops``)."""
+    if live:
+        raise _later_slice("the serve step's live taps (live=)")
+    slots = list(slots)
+    num = plan.num_agents
+    Xs = tuple(torch.stack([s["Xs"][m] for s in slots]) for m in range(num))
+    n, dev = int(Xs[0].shape[1]), Xs[0].device
+    if draws is None:
+        draws = _serve_draws_for(plan, [s["key"] for s in slots],
+                                 [s.get("request") for s in slots], n, dev,
+                                 [s.get("source") for s in slots])
+    fn = make_serve_fn(plan, tuple(tuple(x.shape[2:]) for x in Xs))
+    return torch.func.vmap(fn)(
+        draws, Xs, stack_trees([s["params"] for s in slots]),
+        torch.stack([s["alphas"] for s in slots]),
+        torch.stack([s["valid"] for s in slots]),
+        _stack_field([s["rem_session"] for s in slots], (), dev),
+        _stack_field([s["rem_link"] for s in slots], (num,), dev),
+        _stack_field([s["deliver"] for s in slots], (num,), dev,
+                     torch.bool))
+
+
+def _stack_field(values: list, shape: tuple, device,
+                 dtype=torch.int32) -> torch.Tensor:
+    """A budget counter (int32; None: uncapped, ints capped at int32 max)
+    or a ``deliver`` mask (bool; None: every block) of each slot, stacked
+    on ``device``: tensors by a stack there, host values in one array and
+    one copy."""
+    if all(isinstance(v, torch.Tensor) for v in values):
+        return torch.stack([v.to(device=device, dtype=dtype)
+                            for v in values])
+    if dtype == torch.bool:
+        host = np.stack([np.broadcast_to(np.asarray(
+            True if v is None else v, dtype=bool), shape) for v in values])
+        return torch.as_tensor(host, device=device)
+    host = np.stack([np.broadcast_to(np.minimum(np.asarray(
+        _INT32_MAX if v is None else v, dtype=np.int64), _INT32_MAX), shape)
+        for v in values]).astype(np.int32)
+    return torch.as_tensor(host, device=device)
 
 
 # ============================================================= host extraction

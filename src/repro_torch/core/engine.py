@@ -16,8 +16,10 @@ merge and, under a channel, one release a round (``barrier_release``).
 ``Protocol(backend="compiled")`` runs the whole session as one
 fixed-shape program with no read to the host (:mod:`repro_torch.core.
 compiled`) and books the ledger afterwards by replaying the result
-(:meth:`Protocol._replay_traffic`), bit for bit the eager run's; its
-async-stale lowering is a later slice.  Telemetry, scenarios, protocol
+(:meth:`Protocol._replay_traffic`), bit for bit the eager run's; it serves
+through the compiled serve step and replays the serve ledger
+(:meth:`Protocol._replay_serve`).  Its async-stale lowering is a later
+slice.  Telemetry, scenarios, protocol
 variants and the mesh ring belong to later slices of the port; their
 arguments raise ``NotImplementedError``.
 
@@ -1077,6 +1079,9 @@ class Protocol:
         self.backend = backend
         self._session: Session | None = None
         self._compiled_result = None      # the last compiled run's result
+        # (endpoints, plan, agent-major result) of the last compiled run:
+        # what its serve step and the serve engine's add_session read
+        self._compiled_ctx = None
 
     def _eager_only(self, what: str) -> None:
         if self.backend != "eager":
@@ -1138,8 +1143,10 @@ class Protocol:
                       classes: torch.Tensor, validation) -> FittedASCII:
         """The whole run as one program (``core/compiled.py``), then the
         transport's ledger replayed, so that the metering is the eager
-        run's bit for bit.  The finished run becomes a session that serves
-        (``predict_distributed``) through the eager serve channel."""
+        run's bit for bit.  The finished run is kept as a stopped session
+        (its state and fitted ensemble) and as ``_compiled_ctx``, which
+        :meth:`predict_distributed` serves through the compiled serve
+        step."""
         from repro_torch.core import compiled
         if self.scheduler.stale:
             raise _later_slice("the compiled async-stale lowering "
@@ -1196,6 +1203,9 @@ class Protocol:
                                 classes, state, device=self.device,
                                 draws=self.draws, _send_setup=False)
         self._compiled_result = result
+        # the serve step indexes agents positionally: the agent-major view
+        self._compiled_ctx = (tuple(endpoints), plan,
+                              compiled.agent_major_result(result))
         return fitted
 
     def _replay_traffic(self, endpoints: Sequence[AgentEndpoint],
@@ -1262,13 +1272,86 @@ class Protocol:
                             max_round: int | None = None, *,
                             request=None) -> torch.Tensor:
         """Distributed prediction after :meth:`fit`, through the
-        transport's serve channel."""
-        if self._session is None:
-            raise RuntimeError("predict_distributed needs a completed fit() "
-                               "on this Protocol (or use "
-                               "Session.predict_distributed directly)")
-        return self._session.predict_distributed(Xs, max_round,
-                                                 request=request)
+        transport's serve channel: every endpoint's [n, K] ScoreBlockMsg
+        goes to the head agent, which sums and argmaxes.  The compiled
+        backend runs the serve step (:func:`repro_torch.core.compiled.
+        serve_session`) and then books the serve ledger the eager path
+        books (:meth:`_replay_serve`): predictions and ledgers are the
+        eager backend's bit for bit.  Both draw from the session's key
+        data and the ``request`` tag."""
+        if self.backend == "eager":
+            if self._session is None:
+                raise RuntimeError("predict_distributed needs a completed "
+                                   "fit() on this Protocol (or use "
+                                   "Session.predict_distributed directly)")
+            return self._session.predict_distributed(Xs, max_round,
+                                                     request=request)
+        from repro_torch.core import compiled
+        if self._compiled_ctx is None:
+            raise RuntimeError("predict_distributed needs a completed fit()")
+        endpoints, plan, result = self._compiled_ctx
+        Xs_serve = (tuple(ep.X for ep in endpoints) if Xs is None
+                    else tuple(torch.as_tensor(x, device=self.device)
+                               for x in Xs))
+        valid = result.valid
+        if max_round is not None:
+            rounds = torch.arange(valid.shape[0], device=valid.device)
+            valid = valid & (rounds <= max_round)[:, None]
+        shape = (int(Xs_serve[0].shape[0]), self.cfg.num_classes)
+        rem_session, rem_link = self._serve_remaining(endpoints, plan)
+        serve = compiled.serve_session(
+            plan, result, self._session.state.key, Xs_serve,
+            request=request, valid=valid, rem_session=rem_session,
+            rem_link=rem_link, source=self.draws)
+        self._replay_serve(endpoints, serve, shape, plan)
+        return serve.preds
+
+    def _serve_remaining(self, endpoints, plan):
+        """The remaining budget the serve step starts from, read off the
+        live transport: (session bits, each agent's link to the head),
+        None where uncapped."""
+        t, budget = self.transport, plan.budget
+        if budget is None or not hasattr(t, "link_spent"):
+            return None, None
+        rem_s = (None if budget.session_bits is None
+                 else budget.session_bits - t.log.total_bits
+                 - t.carryover_bits)
+        head = endpoints[0].name
+        rem_l = (None if budget.link_bits is None
+                 else [budget.link_bits - t.link_spent.get((ep.name, head), 0)
+                       for ep in endpoints])
+        return rem_s, rem_l
+
+    def _replay_serve(self, endpoints, serve, shape, plan) -> None:
+        """Book the serve ledger the eager path books: a ScoreBlockMsg for
+        every block that shipped, at the encoded size of its rung, budget
+        spend first and skips, DP releases, exhaustion."""
+        head = endpoints[0]
+        t = self.transport
+        sent = serve.sent.cpu().numpy()
+        rungs = serve.codec_idx.cpu().numpy()
+        ladder = plan.serve_ladder
+        budgeted = plan.budget is not None and hasattr(t, "link_spent")
+        for j in range(1, len(endpoints)):
+            link = (endpoints[j].name, head.name)
+            if not sent[j]:
+                if budgeted:
+                    t.record_skip(link)
+                continue
+            rung = int(rungs[j])
+            codec = ladder[rung] if rung >= 0 else None
+            wire_bits = (int(codec.wire_bits(shape)) if codec is not None
+                         else None)
+            if budgeted:
+                # spend first, as the eager walk: it arms the rung the
+                # wire-priced booking stamps
+                t.record_spend(link, wire_bits, rung)
+            t.send(ScoreBlockMsg(endpoints[j].name, head.name,
+                                 serve.blocks[j], wire_bits=wire_bits))
+            if t.privacy is not None:
+                t.accountant.record(endpoints[j].name)
+        if budgeted:
+            t.exhausted = bool(t.exhausted or bool(serve.exhausted))
 
 
 def variant_setup(variant: str, seed: int = 0) -> tuple[Scheduler, bool]:

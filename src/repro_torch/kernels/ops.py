@@ -9,14 +9,16 @@ CUDA counterpart.  Each runs its CUDA kernel for CUDA tensors and its plain
 version for CPU tensors.
 
 The hop's kernels (the ignorance update, the vector quantize-dequant and
-the int4 encode and decode) are also ``torch.library`` custom ops with
-fake implementations and vmap rules, so that ``torch.func.vmap`` (a fleet
-of sessions, ``core.compiled.fleet_run``) reaches the CUDA launches: a
-ctypes launch reads ``data_ptr()``, which a batched tensor does not have.
-Each rule takes the F sessions' payloads as rows and makes the launch of
-the whole batch (``ignorance.ignorance_update_batched``,
-``quantize.*_rows``), whose row f is bit for bit the call of session f
-alone; a batched launch counts once.  Outside a functorch transform the
+the int4 encode and decode) and the serve codec's block quantize-dequant
+are also ``torch.library`` custom ops with fake implementations and vmap
+rules, so that ``torch.func.vmap`` (a fleet of sessions,
+``core.compiled.fleet_run``; a serve bucket's slots,
+``core.compiled.serve_batch``) reaches the CUDA launches: a ctypes launch
+reads ``data_ptr()``, which a batched tensor does not have.  Each rule
+takes the batch's payloads as rows and makes the launch of the whole
+batch (``ignorance.ignorance_update_batched``, ``quantize.*_rows``), whose
+row f is bit for bit the call of session f alone; a batched launch counts
+once.  Outside a functorch transform the
 wrappers call the kernels directly, as before: same bits, same counts,
 without the dispatcher's host time on every eager hop.
 """
@@ -89,6 +91,30 @@ def _(info, in_dims, x, u, qmax, bn):
     return _q.quantize_dequant_rows(_rows(x, in_dims[0], size),
                                     _rows(u, in_dims[1], size), qmax,
                                     bn=bn), (0, 0, 0)
+
+
+@torch.library.custom_op("repro_torch::quantize_dequant_block",
+                         mutates_args=())
+def _quantize_dequant_block_op(x: torch.Tensor, u: torch.Tensor, qmax: float,
+                               bn: int) -> tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    return _q.quantize_dequant_block(x, u, qmax, bn=bn)
+
+
+@_quantize_dequant_block_op.register_fake
+def _(x, u, qmax, bn):
+    n, k = x.shape
+    return (torch.empty_like(x), torch.empty((n, k), dtype=torch.int8,
+                                             device=x.device),
+            x.new_empty(n // _q.rows_for(n, k, bn)))
+
+
+@_quantize_dequant_block_op.register_vmap
+def _(info, in_dims, x, u, qmax, bn):
+    size = info.batch_size
+    return _q.quantize_dequant_block_rows(_rows(x, in_dims[0], size),
+                                          _rows(u, in_dims[1], size), qmax,
+                                          bn=bn), (0, 0, 0)
 
 
 @torch.library.custom_op("repro_torch::quantize_pack_int4", mutates_args=())
@@ -199,8 +225,11 @@ def quantize_dequant(x: torch.Tensor, u: torch.Tensor, qmax, *,
 def quantize_dequant_block(x: torch.Tensor, u: torch.Tensor, qmax, *,
                            bn: int = 1024):
     """Row-tiled quantize-dequant for [n, k] score blocks: returns
-    (dequantized [n, k], int8 wire values [n, k], per-row-tile scales)."""
-    return _q.quantize_dequant_block(x, u, qmax, bn=bn)
+    (dequantized [n, k], int8 wire values [n, k], per-row-tile scales);
+    under vmap (a serve bucket's slots) one launch for all blocks."""
+    if not _transformed():
+        return _q.quantize_dequant_block(x, u, qmax, bn=bn)
+    return _quantize_dequant_block_op(x, u, float(qmax), int(bn))
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:

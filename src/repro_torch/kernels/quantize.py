@@ -39,7 +39,9 @@ The ``*_rows`` functions take F payloads at once, rows of an [F, ...]
 batch (``kernels.ops``' vmap rules call them for a fleet): the same
 kernels, one launch on the flat [F·m] payload in the tiles each payload
 alone would use, so no tile spans two rows and each row gets the bits of
-its own call.  They count under the single calls' counters.
+its own call.  They count under the single calls' counters, except
+:func:`quantize_dequant_block_rows` (the serve step's blocks over a
+bucket's slots), which counts its own.
 """
 from __future__ import annotations
 
@@ -498,6 +500,48 @@ def quantize_dequant_rows(x: torch.Tensor, u: torch.Tensor, qmax, *,
         quantize_dequant_tiles.launches += 1
     return (xhat.view(rows, n), q.view(rows, n),
             scales.view(rows, n // tile))
+
+
+def quantize_dequant_block_rows_plain(x: torch.Tensor, u: torch.Tensor, qmax,
+                                      bn: int = DEFAULT_BN):
+    """:func:`quantize_dequant_block_plain` of each [n, k] block of ``x``
+    [B, n, k] with draws ``u``: (xhat [B, n, k], q [B, n, k] int8, scales
+    [B, n / rows_for(n, k)])."""
+    rows, n, k = x.shape
+    tile = rows_for(n, k, bn) * k
+    xhat, q, scales = _quantize_flat(x, u, qmax, tile)
+    return (xhat.view(rows, n, k), q.view(rows, n, k),
+            scales.view(rows, n * k // tile))
+
+
+def quantize_dequant_block_rows(x: torch.Tensor, u: torch.Tensor, qmax, *,
+                                bn: int = DEFAULT_BN):
+    """B score blocks' quantize-dequant in one launch: the [n, k] blocks of
+    ``x`` [B, n, k] with draws ``u`` [B, n, k], each in tiles of
+    ``rows_for(n, k, bn)`` rows (the serve step over a bucket's slots,
+    ``kernels.ops``' vmap rule).  One launch of the quantize kernel on the
+    flat B·n·k payload in tiles of ``rows_for(n, k, bn)·k`` elements: each
+    block is a whole number of tiles, so block b gets the bits of
+    :func:`quantize_dequant_block` on block b alone.  Returns ``(xhat [B,
+    n, k], q [B, n, k] int8, scales [B, n / rows])``; counts its own
+    launches."""
+    if x.dim() != 3 or x.numel() < 1:
+        raise ValueError(f"x must be a non-empty [B, n, k] batch of "
+                         f"blocks, got {tuple(x.shape)}")
+    qmax = _check_qmax(qmax)
+    rows, n, k = x.shape
+    _check("x", x, torch.float32, (rows, n, k), x.device)
+    _check("u", u, torch.float32, (rows, n, k), x.device)
+    if not on_card(x, "quantize"):
+        return quantize_dequant_block_rows_plain(x, u, qmax, bn)
+    tile = rows_for(n, k, bn) * k
+    xhat, q, scales = _launch_quantize(x, u, qmax, tile)
+    quantize_dequant_block_rows.launches += 1
+    return (xhat.view(rows, n, k), q.view(rows, n, k),
+            scales.view(rows, n * k // tile))
+
+
+quantize_dequant_block_rows.launches = 0
 
 
 def quantize_pack_int4_rows(x: torch.Tensor, u: torch.Tensor, qmax,

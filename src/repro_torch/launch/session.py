@@ -363,7 +363,9 @@ def run(args: argparse.Namespace) -> Run:
         # bits and DP releases the snapshot misses
         before = (transport.bits_by_kind().get("score_block", 0)
                   if isinstance(transport, MeteredTransport) else 0)
-        preds = session.predict_distributed(Xte)
+        preds = (engine.predict_distributed(Xte)
+                 if args.backend == "compiled"
+                 else session.predict_distributed(Xte))
         _print_serve(transport, preds, cte, before)
     _print_comm(transport)
     if paused:

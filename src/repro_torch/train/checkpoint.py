@@ -12,8 +12,9 @@ Counterpart of ``repro/train/checkpoint.py``:
     template's dtype).
   * ``save_structured`` / ``restore_structured`` -- a nested
     dict/list/tuple tree of tensors and Python scalars -> .npz of arrays +
-    a JSON structure manifest (the sessions' checkpoints).  Restored
-    arrays become tensors on the caller's device.
+    a JSON structure manifest (the sessions' checkpoints, the serve
+    cache's spills).  Restored arrays become tensors on the caller's
+    device; ``exists_structured`` says whether a directory holds one.
 """
 from __future__ import annotations
 
@@ -161,6 +162,12 @@ def save_structured(directory: str, step: int, tree: Tree,
         if os.path.exists(os.path.join(directory, sidecar)):
             os.remove(os.path.join(directory, sidecar))
     return path
+
+
+def exists_structured(directory: str) -> bool:
+    """Whether ``directory`` holds a restorable structured checkpoint (the
+    serve cache's test between a spilled session and an unknown one)."""
+    return os.path.exists(os.path.join(directory, "latest_state.json"))
 
 
 def restore_structured(directory: str, step: int | None = None, *,
