@@ -145,7 +145,8 @@
    under the budget; compiled = eager on the card: ledgers, rungs, round
    orders, stop rounds, predictions exact, w bit-equal; async under
    --backend compiled raises NotImplementedError.  (c) Fleets: 32 MIMIC
-   int8 sessions (keys 0..31) and 8 Fashion-MLP sessions on shared data;
+   int8 sessions (keys 0..31) and 8 Fashion-MLP sessions (3 rounds) on
+   shared data;
    every Fashion session and 8 of the 32 MIMIC ones (0-6 and 31) against
    compiled_session with the same key (bit-equal; an MLP session may
    part only at a hop that rounding decides: w and alphas bit-equal
@@ -190,6 +191,28 @@
    (call and device ms, plain, B lone launches, bound, launch floor).  (d)
    ``serve_batch`` of 8 slots on inputs already on the card under
    ``torch.cuda.set_sync_debug_mode("error")``: no host read.
+16. Scenarios and protocol variants (``repro_torch.scenarios``).  (a)
+   MIMIC at full size (n = 15000, agents of 3 and 13 features, depth-4
+   trees, 10 rounds), ASCII under the churn, noniid and subsample presets
+   and under ``--variant async`` with clock_skew (0, 2): card = CPU bit
+   for bit (participants, components, alphas, ledger, predictions); one
+   ignorance launch a participating hop (one unnormalized launch a
+   positive alpha in the async merge).  (b) MIMIC Assisted Learning
+   ([10500, 2] residuals) through the CLI's make_transport: int8, int4
+   with DP epsilon 1, a byte budget that walks fp32 -> int4 and exhausts;
+   card = CPU ledgers, the ledger = wire_bits, residuals within 1e-5 of
+   max|R|; one block quantize an int-coded shipped hop.  (c) Fashion
+   FedAvg at full width (42000 rows, 2 x 392 pixels, 5 rounds) with
+   LogisticRegression(steps=300) (d = 3930) and MLP(128, 64) with 200
+   steps (d = 59210), under fp32, int8, int4, DP epsilon 1 with
+   subsampled-rdp under the subsample preset, and a byte budget: the
+   card's one-program FedAvg = its eager FedAvg bit for bit (g, history,
+   ledger, rungs, skips, releases, exhaustion); quantize launches = the
+   int-coded shipped uplinks eager, slots x int rungs compiled; each
+   accuracy beside phase 5's ASCII; the int4 encode -> decode of a real
+   uplink = its roundtrip (one launch each).  (d) One FedAvg program
+   under ``torch.cuda.set_sync_debug_mode("error")``: no host read.
+   Prints session seconds eager and compiled, ms a round, peak memory.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -225,6 +248,9 @@ SMOKE_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # so at 50 the phase's MIMIC sessions and fleets take about a
 # minute there
 MIMIC_STEPS = 50
+# phase 14(c)'s Fashion-MLP fleet's rounds (the session's 5 cut to 3: its
+# 8 sessions three ways took ~100 s of a script that phase 16 grew)
+FASHION_FLEET_ROUNDS = 3
 
 
 def _cuda_time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
@@ -3067,7 +3093,9 @@ class Smoke:
         shared data; each against compiled_session calls and eager
         sessions: all 8 Fashion sessions, and 8 of the 32 MIMIC ones (the
         first 7 and the last; 32 of each took 150 s on the card, more
-        than phase 14's share of the script's time limit)."""
+        than phase 14's share of the script's time limit).  The Fashion
+        fleet runs 3 rounds of the session's 5 (FASHION_FLEET_ROUNDS), to
+        leave phase 16 its share of the script's time."""
         torch = self.torch
         from repro_torch.comm.codecs import QuantCodec
         from repro_torch.core import compiled as C
@@ -3080,8 +3108,8 @@ class Smoke:
              [LogisticRegression(steps=MIMIC_STEPS, device="cuda")] * 2, 2,
              10, lambda: QuantCodec(8)),
             ("fashion MLP", 8, self._fashion_data(),
-             [MLP(hidden=(128, 64), steps=200, device="cuda")] * 2, 10, 5,
-             lambda: None))
+             [MLP(hidden=(128, 64), steps=200, device="cuda")] * 2, 10,
+             FASHION_FLEET_ROUNDS, lambda: None))
         for name, F, (Xtr, ctr, Xte, _), learners, k, rounds, codec \
                 in fleets:
             plan = C.plan_for(learners, k, max_rounds=rounds, codec=codec())
@@ -3595,6 +3623,384 @@ class Smoke:
                 "set_sync_debug_mode('error'): no host read; slot 3 = "
                 "serve_session")
 
+    # ------------------------------------------- scenarios and protocols
+    def scenarios(self) -> str:
+        t0 = time.perf_counter()
+        parts = [self._scenario_ascii(), self._scenario_al(),
+                 self._scenario_fedavg(), self._scenario_sync()]
+        secs = time.perf_counter() - t0
+        return "; ".join(parts) + f"; phase 16 {secs:.1f} s"
+
+    def _scenario_ascii(self) -> str:
+        """(a) MIMIC ASCII under the churn, noniid and subsample presets and
+        the async barrier with a clock skew of (0, 2): card = CPU bit for
+        bit (participants, components, alphas, ledger, predictions); one
+        ignorance launch a participating hop (an unnormalized one a
+        positive alpha in the async merge)."""
+        torch = self.torch
+        from repro_torch.core import engine as E
+        from repro_torch.learners.tree import DecisionTree
+        from repro_torch.scenarios import PRESETS, Scenario
+        configs = [("churn", PRESETS["churn"], False),
+                   ("noniid", PRESETS["noniid"], False),
+                   ("subsample", PRESETS["subsample"], False),
+                   ("async clock_skew=(0,2)",
+                    Scenario("skew", clock_skew=(0, 2)), True)]
+        out = []
+        for name, scen, stale in configs:
+            runs = {}
+            for device in ("cuda", "cpu"):
+                Xtr, ctr, Xte, cte = self._mimic_data(device)
+                proto = E.Protocol(
+                    E.SessionConfig(num_classes=2, max_rounds=10),
+                    scheduler=(E.AsyncStaleScheduler() if stale
+                               else E.SequentialScheduler()),
+                    transport=E.MeteredTransport(), scenario=scen,
+                    device=device)
+                eps = E.endpoints_for([DecisionTree(depth=4,
+                                                    num_thresholds=16,
+                                                    device=device)
+                                       for _ in Xtr], Xtr)
+                if device == "cuda":
+                    self.reset_counts()
+                t0 = time.perf_counter()
+                session = proto.start(0, eps, ctr)
+                session.run()
+                preds = session.fitted().predict(Xte)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    comps = len(session.state.components)
+                    if stale:
+                        self.read_counts(0, f"mimic {name}",
+                                         ignorance_update_unnormalized=comps)
+                    else:
+                        self.read_counts(comps, f"mimic {name}")
+                runs[device] = (session, preds.cpu(), cte.cpu(),
+                                time.perf_counter() - t0)
+            (gs, gp, cte, gsec), (cs, cp, _, csec) = runs["cuda"], runs["cpu"]
+            self.require(gs.state.history == cs.state.history,
+                         f"{name}: participants, alphas or accuracies "
+                         f"differ between card and CPU")
+            self.require([(c.agent, c.round, c.alpha)
+                          for c in gs.state.components]
+                         == [(c.agent, c.round, c.alpha)
+                             for c in cs.state.components],
+                         f"{name}: components differ between card and CPU")
+            self.require(gs.transport.log.entries
+                         == cs.transport.log.entries,
+                         f"{name}: ledgers differ between card and CPU")
+            self.require(torch.equal(gp, cp),
+                         f"{name}: predictions differ between card and CPU")
+            w_err = float((gs.state.w.cpu() - cs.state.w).abs().max())
+            self.require(w_err <= 1e-6, f"{name}: w differs by {w_err}")
+            hist = gs.state.history
+            sizes = [len(r["participants"]) for r in hist]
+            if scen.has_churn:
+                self.require(min(sizes) < 2, f"{name}: no round churned")
+            acc = float((gp == cte).float().mean())
+            out.append(f"[{name}] rounds={len(hist)} participants={sizes} "
+                       f"components={len(gs.state.components)} "
+                       f"acc={acc:.4f} w_bit_equal="
+                       f"{torch.equal(gs.state.w.cpu(), cs.state.w)} "
+                       f"card {gsec:.2f} s cpu {csec:.2f} s")
+        return ("(a) mimic ascii under scenarios, card = cpu bit for bit: "
+                + " ".join(out))
+
+    def _scenario_al(self) -> str:
+        """(b) MIMIC Assisted Learning through the CLI's make_transport:
+        int8, int4 with DP epsilon 1, a byte budget that degrades fp32 -> int4
+        and then exhausts; card = CPU: ledger = wire_bits exactly,
+        residuals within 1e-5 of max|R|; one block quantize an int-coded
+        shipped hop."""
+        torch = self.torch
+        from repro_torch.comm.budget import BudgetSpec
+        from repro_torch.comm.codecs import QuantCodec
+        from repro_torch.core import engine as E
+        from repro_torch.launch import session as cli
+        from repro_torch.learners.logistic import LogisticRegression
+        from repro_torch.scenarios import make_variant
+        n, m = 10500, 2
+        block = (n, 2)
+        costs = BudgetSpec().payload_costs(block)
+        budget = -(-((m - 1) * 2 * n * 32 + sum(costs) + 100) // 8)
+        configs = [["--codec", "int8"],
+                   ["--codec", "int4", "--dp-epsilon", "1"],
+                   ["--byte-budget", str(budget)]]
+        out = []
+        for argv in configs:
+            name = " ".join(argv)
+            runs = {}
+            for device in ("cuda", "cpu"):
+                args = cli.parser().parse_args(
+                    ["--device", device, "--protocol", "al", *argv])
+                cli.check_args(args)
+                scen = cli.make_scenario(args)
+                transport = cli.make_transport(args, scen)
+                Xtr, ctr, Xte, cte = self._mimic_data(device)
+                proto = E.Protocol(E.SessionConfig(num_classes=2,
+                                                   max_rounds=10),
+                                   transport=transport,
+                                   variant=make_variant("al"), device=device)
+                eps = E.endpoints_for([LogisticRegression(device=device)
+                                       for _ in Xtr], Xtr)
+                if device == "cuda":
+                    self.reset_counts()
+                t0 = time.perf_counter()
+                session = proto.start(0, eps, ctr)
+                session.run()
+                preds = session.fitted().predict(Xte)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                runs[device] = (session, transport, preds.cpu(), cte.cpu(),
+                                time.perf_counter() - t0)
+            (gs, gt, gp, cte, gsec), (cs, ct, cp, _, csec) = (runs["cuda"],
+                                                               runs["cpu"])
+            coded = 0
+            for e in gt.log.entries:
+                if e["kind"] != "residual":
+                    continue
+                codec = (gt.budget.ladder[e["rung"]] if "rung" in e
+                         else gt.codec)
+                self.require(e["bits"] == codec.wire_bits(block),
+                             f"al {name}: ledger entry {e} != wire_bits")
+                coded += isinstance(codec, QuantCodec)
+            self.read_counts(0, f"al {name}", quantize_dequant_block=coded)
+            self.require(gt.log.entries == ct.log.entries,
+                         f"al {name}: card and CPU ledgers differ")
+            self.require([(c.agent, c.round) for c in gs.state.components]
+                         == [(c.agent, c.round)
+                             for c in cs.state.components],
+                         f"al {name}: components differ")
+            gR, cR = gs.state.proto["R"].cpu(), cs.state.proto["R"]
+            r_err = float((gR - cR).abs().max())
+            r_tol = 1e-5 * max(1.0, float(cR.abs().max()))
+            self.require(r_err <= r_tol,
+                         f"al {name}: residual differs by {r_err} > {r_tol}")
+            agree = float((gp == cp).float().mean())
+            extra = ""
+            if hasattr(gt, "budget"):
+                used = sorted({e["rung"] for e in gt.log.entries
+                               if "rung" in e})
+                self.require(used == [0, 1, 2, 3] and gt.exhausted,
+                             f"al {name}: the walk used rungs {used}, "
+                             f"exhausted={gt.exhausted}")
+                extra = (f" rungs={used} skipped={len(gt.skipped)} "
+                         f"exhausted={gt.exhausted}")
+            if gt.privacy is not None:
+                extra += f" releases={sum(gt.accountant.releases.values())}"
+            out.append(f"[{name}] components={len(gs.state.components)}"
+                       f"{extra} residual_bits="
+                       f"{gt.log.bits_by_kind().get('residual', 0)} "
+                       f"block_quantize={coded} R_err={r_err:.3g} "
+                       f"acc={float((gp == cte).float().mean()):.4f} "
+                       f"predictions_agree={agree:.4f} card {gsec:.2f} s "
+                       f"cpu {csec:.2f} s")
+        return ("(b) mimic assisted learning [10500, 2] residuals, card = "
+                "cpu ledgers, R within 1e-5 max|R|: " + " ".join(out))
+
+    def _fedavg_budget(self, d: int, n: int) -> int:
+        """Bytes that setup, one fp32 round and an fp16 uplink use up:
+        round 1 degrades, round 2 skips and exhausts."""
+        return -(-((2 - 1) * 2 * n * 32 + 2 * d * 32 + d * 16 + d * 8)
+                 // 8)
+
+    def _scenario_fedavg(self) -> str:
+        """(c) Fashion FedAvg at full width, logistic(300) and the paper's
+        MLP(128, 64) with 200 steps, 5 rounds, under fp32, int8, int4, DP
+        epsilon 1 with subsampled-rdp under the subsample preset, and a
+        byte budget: the card's one-program FedAvg = its eager FedAvg bit
+        for bit (g, history, ledger, rungs, skips, releases, exhaustion);
+        quantize launches = int-coded shipped uplinks eager, slots x int
+        rungs compiled; int4 encode -> decode of a real uplink =
+        its roundtrip."""
+        torch = self.torch
+        from repro_torch.comm.codecs import QuantCodec
+        from repro_torch.core import engine as E
+        from repro_torch.launch import session as cli
+        from repro_torch.learners.logistic import LogisticRegression
+        from repro_torch.learners.mlp import MLP
+        from repro_torch.scenarios import make_variant
+        from repro_torch.scenarios.protocols import param_template
+        Xtr, ctr, Xte, cte = self._fashion_data()
+        n = int(ctr.shape[0])
+        learners = {
+            "logistic(300)": lambda: LogisticRegression(steps=300,
+                                                        device="cuda"),
+            "mlp(128,64)": lambda: MLP(hidden=(128, 64), steps=200,
+                                       device="cuda")}
+        ascii_acc = (f"{self.fashion_fp32[4]:.4f}" if self.fashion_fp32
+                     else "not run")
+        out = []
+        for lname, make in learners.items():
+            core = make().core(10)
+            d = param_template(core, (int(Xtr[0].shape[1]),)).size
+            channels = [[], ["--codec", "int8"], ["--codec", "int4"],
+                        ["--dp-epsilon", "1", "--accountant",
+                         "subsampled-rdp", "--scenario", "subsample"],
+                        ["--byte-budget", str(self._fedavg_budget(d, n))]]
+            for argv in channels:
+                name = " ".join(argv) or "fp32"
+                runs = {}
+                for backend in ("eager", "compiled"):
+                    args = cli.parser().parse_args(
+                        ["--protocol", "fedavg", "--learner", "logistic",
+                         "--backend", backend, *argv])
+                    cli.check_args(args)
+                    scen = cli.make_scenario(args)
+                    transport = cli.make_transport(args, scen)
+                    captured = []
+                    if backend == "eager" and argv == ["--codec", "int4"]:
+                        inner = transport.ship
+
+                        def ship(src, dst, payload, wrap, *, draws=None,
+                                 _inner=inner):
+                            if not captured:
+                                captured.append((payload.clone(), draws))
+                            return _inner(src, dst, payload, wrap,
+                                          draws=draws)
+                        transport.ship = ship
+                    proto = E.Protocol(
+                        E.SessionConfig(num_classes=10, max_rounds=5),
+                        transport=transport, variant=make_variant("fedavg"),
+                        scenario=None if scen.trivial else scen,
+                        backend=backend, device="cuda")
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    self.reset_counts()
+                    t0 = time.perf_counter()
+                    fit = proto.fit(0, E.endpoints_for(
+                        [make() for _ in Xtr], Xtr), ctr)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    ladder = (transport.budget.ladder
+                              if hasattr(transport, "budget")
+                              else (transport.codec,))
+                    if backend == "eager":
+                        want = sum(
+                            isinstance(ladder[e.get("rung", 0)], QuantCodec)
+                            for e in transport.log.entries
+                            if e["kind"] == "gradient"
+                            and e["src"] != "agent0")
+                    else:
+                        want = 5 * (len(Xtr) - 1) * sum(
+                            isinstance(c, QuantCodec) for c in ladder)
+                    self.read_counts(0, f"fedavg {lname} {name} {backend}",
+                                     quantize_dequant_tiles=want)
+                    acc = float((fit.predict(Xte) == cte).float().mean())
+                    runs[backend] = (fit, transport, secs, peak, acc, want)
+                    if captured:
+                        out.append(self._int4_uplink(*captured[0]))
+                (ef, et, esec, epeak, eacc, ewant), \
+                    (cf, ct, csec, cpeak, _, cwant) = (runs["eager"],
+                                                       runs["compiled"])
+                where = f"fedavg {lname} {name}"
+                self.require(torch.equal(cf.g, ef.g),
+                             f"{where}: compiled g != eager g")
+                self.require(cf.history == ef.history,
+                             f"{where}: compiled history != eager")
+                self.require(ct.log.entries == et.log.entries,
+                             f"{where}: compiled ledger != eager")
+                for attr in ("skipped", "exhausted", "link_spent"):
+                    self.require(getattr(ct, attr, None)
+                                 == getattr(et, attr, None),
+                                 f"{where}: {attr} differs")
+                if et.accountant is not None:
+                    self.require(ct.accountant.releases
+                                 == et.accountant.releases,
+                                 f"{where}: DP releases differ")
+                extra = ""
+                if hasattr(et, "budget"):
+                    used = sorted({e["rung"] for e in et.log.entries
+                                   if "rung" in e})
+                    self.require(et.exhausted and et.skipped,
+                                 f"{where}: the budget never ran dry")
+                    extra = (f" rungs={used} skipped={len(et.skipped)} "
+                             f"exhausted={et.exhausted}")
+                if et.accountant is not None:
+                    rep = et.accountant.report(et.privacy)
+                    eps = max(r["epsilon"] for r in rep.values())
+                    extra += (" releases=" + json.dumps(
+                        {a: r["releases"] for a, r in rep.items()})
+                        + f" eps={eps:.3f}")
+                rounds = max(1, len(ef.history))
+                out.append(
+                    f"[{lname} {name}] d={d} rounds={len(ef.history)} "
+                    f"acc={eacc:.4f} (ascii fp32 {ascii_acc}) "
+                    f"bits={et.total_bits}{extra} quantize eager={ewant} "
+                    f"compiled={cwant}; eager {esec:.2f} s "
+                    f"({esec * 1e3 / rounds:.0f} ms a round, peak "
+                    f"{epeak:.3f} GiB), compiled {csec:.2f} s "
+                    f"({csec * 1e3 / 5:.0f} ms a round, peak "
+                    f"{cpeak:.3f} GiB); g, history, ledger bit-equal")
+        return ("(c) fashion fedavg n_train=42000 agents=(392,392) 5 "
+                "rounds, compiled = eager on the card: " + " ".join(out))
+
+    def _int4_uplink(self, delta, draws) -> str:
+        """int4's encode (quantize with the pack fused in) then decode
+        (the unpack fused with the dequantize) of a real uplink's delta =
+        its roundtrip; each one launch."""
+        torch = self.torch
+        from repro_torch.comm.codecs import QuantCodec
+        codec = QuantCodec(bits=4)
+        self.reset_counts()
+        wire, _ = codec.encode(delta, draws)
+        decoded = codec.decode(wire)
+        fused, _ = codec.roundtrip(delta, draws)
+        torch.cuda.synchronize()
+        self.read_counts(0, "int4 uplink encode/decode",
+                         quantize_pack_int4=1, unpack_dequant_int4=1,
+                         quantize_dequant_tiles=1)
+        self.require(torch.equal(decoded, fused),
+                     "int4 encode -> decode != roundtrip on an uplink")
+        step = float(wire[1].max())
+        self.require(float((decoded - delta).abs().max()) <= step,
+                     "int4: an uplink element is more than one step off")
+        return (f"[int4 uplink d={delta.numel()}] encode -> decode = "
+                f"roundtrip, within one step")
+
+    def _scenario_sync(self) -> str:
+        """(d) One Fashion FedAvg program (logistic, 30 steps, DP and a
+        byte budget, the churn preset) under set_sync_debug_mode("error")
+        after a warm-up: no host read."""
+        torch = self.torch
+        from repro_torch.comm import BudgetSpec, GaussianMechanism
+        from repro_torch.learners.logistic import LogisticRegression
+        from repro_torch.scenarios import PRESETS
+        from repro_torch.scenarios import compiled as SC
+        from repro_torch.scenarios.protocols import fedavg_fit_weights
+        Xtr, ctr, _, _ = self._fashion_data()
+        n = int(ctr.shape[0])
+        core = LogisticRegression(steps=30, device="cuda").core(10)
+        shape = (int(Xtr[0].shape[1]),)
+        plan = SC.FedAvgPlan(
+            core=core, num_classes=10, num_agents=2, max_rounds=5,
+            privacy=GaussianMechanism(epsilon=1.0, nonneg=False),
+            budget=BudgetSpec(session_bits=8 * self._fedavg_budget(3930,
+                                                                   n)))
+        draws = SC.draws_for(plan, 0, n, shape, self.dev)
+        mask = torch.from_numpy(PRESETS["churn"].participation(5, 2)).to(
+            self.dev)
+        fit_w = fedavg_fit_weights(ctr, 2)
+        fn = SC.make_fedavg_fn(plan, shape)
+        fn(draws, tuple(Xtr), ctr, mask, fit_w)         # warm-up
+        torch.cuda.synchronize()
+        self.reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = fn(draws, tuple(Xtr), ctr, mask, fit_w)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        self.read_counts(0, "sync-checked fedavg program",
+                         quantize_dequant_tiles=5 * 2)
+        again = SC.fedavg_session(plan, 0, Xtr, ctr, mask, fit_w)
+        self.require(torch.equal(res.g, again.g),
+                     "the sync-checked program's g != fedavg_session's")
+        return ("(d) one fashion fedavg program (DP, budget, churn) under "
+                "set_sync_debug_mode('error'): no host read; = "
+                "fedavg_session")
+
 
 def _bf16_backbone_logits(params: dict, X, cfg):
     """``learners.neural.logits`` with the backbone computed in bf16 (the
@@ -3642,7 +4048,7 @@ def main(argv: list[str]) -> int:
               5: s.fashion, 6: s.mimic_channel, 7: s.fashion_channel,
               8: s.flash_vs_plain, 9: s.serve, 10: s.ce_vs_plain,
               11: s.train, 12: s.learners, 13: s.control,
-              14: s.compiled, 15: s.serve_path}
+              14: s.compiled, 15: s.serve_path, 16: s.scenarios}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])

@@ -17,10 +17,11 @@ budget, interchange hops against both budgets, an async barrier's release
 against the session budget alone (it is a broadcast, not a link).  An
 adaptive controller or a serve controller on a budgeted transport shares
 the budget's ladder, and its rung is a floor on the walk: the budget may
-degrade further, never finer.  Protocol-variant hops (``ship``) belong to
-a later slice and raise (the base transport's method).
-:class:`TenantBudget` is the serve engine's per-tenant view of serve
-spend, which admission (``repro_torch.serve.admission``) gates on.
+degrade further, never finer.  A protocol-variant hop (``ship``: a
+FedAvg delta, an Assisted-Learning residual) walks the ladder over its
+bare payload's costs against both budgets.  :class:`TenantBudget` is the
+serve engine's per-tenant view of serve spend, which admission
+(``repro_torch.serve.admission``) gates on.
 """
 from __future__ import annotations
 
@@ -225,3 +226,14 @@ class BudgetedTransport(MeteredTransport):
             return None, codec_state
         return super().barrier_release(head, w_bar, draws=draws,
                                        codec_state=codec_state)
+
+    def ship(self, src, dst, payload, wrap, *, draws=None):
+        """Budgeted protocol-variant hop: the same degrade-then-skip walk,
+        priced at the bare encoded payload.  A skipped hop returns None
+        (the receiver keeps its stale state: FedAvg's server averages
+        without this client, AL's next agent fits the old residual); a
+        session-budget skip flips ``exhausted``."""
+        if self._walk(self.budget.payload_costs(tuple(payload.shape)),
+                      (src.name, dst.name)) is None:
+            return None
+        return super().ship(src, dst, payload, wrap, draws=draws)

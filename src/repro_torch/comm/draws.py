@@ -48,6 +48,16 @@ what ran.  :class:`TensorHopDraws` hands one hop's slice to
 way (:func:`serve_draws`; :func:`serve_draws_batch` for a bucket of
 requests): each agent's block's, as ``serve(key, agent, request)`` gives
 them, a block that a budget will skip or admission holds back included.
+
+The protocol variants draw by coordinates too: FedAvg one fit and one
+hop a roster slot ``(round, slot)``, whether or not the slot takes part,
+and its global init from :meth:`ChannelDraws.init`; Assisted Learning one
+hop a ring position ``(round, position)``; ASCII under churn a fit and a
+hop at its position in the round's filtered order.  The reference splits
+its key once a hop it executes, so a test that replays its keys maps a
+coordinate to the running count of splits.  The one-program FedAvg takes
+its draws before it runs with :func:`session_draws` over the flat
+delta's length (``repro_torch.scenarios.compiled.draws_for``).
 """
 from __future__ import annotations
 
@@ -69,6 +79,7 @@ HOP_SPACE = 0x484F50        # "HOP"
 SERVE_SPACE = 0x535256      # "SRV"
 FIT_SPACE = 0x464954        # "FIT"
 BARRIER_SPACE = 0x424152    # "BAR"
+INIT_SPACE = 0x494E49       # "INI": a global model's init (FedAvg's)
 
 _MASK64 = (1 << 64) - 1
 
@@ -195,6 +206,12 @@ class ChannelDraws:
         the round's order)."""
         return FitDraws((*self._key_words(key), FIT_SPACE, int(round_idx),
                          int(position)))
+
+    def init(self, key) -> FitDraws:
+        """Draws of a session's global model init (FedAvg's ``g0``; the
+        reference folds ``FEDAVG_INIT_FOLD`` off the session key), apart
+        from every fit's."""
+        return FitDraws((*self._key_words(key), INIT_SPACE))
 
     def barrier(self, key, round_idx: int) -> HopDraws:
         """Draws of round ``round_idx``'s async barrier release."""

@@ -7,7 +7,10 @@ a JSON manifest, the format both packages share) and returns the port's
 reference fitted.  A session checkpointed mid-run with a wire channel comes
 with its per-link top-k residuals (``codec_state``) and its budget spend
 and DP release counts (``comm``), which ``Protocol.resume_state`` restores
-onto the port's transport.  ``params_from_numpy`` converts one learner's fitted
+onto the port's transport; a protocol variant's or a scenario's session
+with its variant state (``proto``: FedAvg's flat global params ``g``,
+Assisted Learning's residual ``R``, the clock-skew history ``w_hist``),
+which the resumed session continues from.  ``params_from_numpy`` converts one learner's fitted
 params the same way, ``model_params_from_numpy`` a model-zoo parameter
 tree (the serve and training paths' weights), ``neural_params_from_numpy``
 a classifier's or neural backbone's tree and ``opt_state_from_numpy``

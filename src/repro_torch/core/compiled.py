@@ -70,7 +70,7 @@ from repro_torch.control.scheduler import (REWARD_SMOOTHING,
 from repro_torch.core import scores
 from repro_torch.core.encoding import encode_labels
 from repro_torch.core.engine import (LabelsMsg, SampleIdsMsg, _later_slice,
-                                     key_data)
+                                     key_data, tree_map)
 from repro_torch.kernels import ops
 
 
@@ -256,17 +256,6 @@ def rung_select(rung: torch.Tensor, values: Sequence[torch.Tensor],
     for i in reversed(range(len(values))):
         out = torch.where(rung == i, values[i], out)
     return out
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the tensor leaves of nested dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)
 
 
 def _pick(x: torch.Tensor, i) -> torch.Tensor:

@@ -19,9 +19,16 @@ compiled`) and books the ledger afterwards by replaying the result
 (:meth:`Protocol._replay_traffic`), bit for bit the eager run's; it serves
 through the compiled serve step and replays the serve ledger
 (:meth:`Protocol._replay_serve`).  Its async-stale lowering is a later
-slice.  Telemetry, scenarios, protocol
-variants and the mesh ring belong to later slices of the port; their
-arguments raise ``NotImplementedError``.
+slice.
+
+The round rule is a :class:`ProtocolVariant`: :class:`ASCIIVariant`, or
+FedAvg and Assisted Learning (:mod:`repro_torch.scenarios.protocols`),
+whose hops cross the same channel through :meth:`Transport.ship`
+(:class:`GradientMsg`, :class:`ResidualMsg`).  A scenario
+(:mod:`repro_torch.scenarios.scenario`) filters each round's order by
+its participation mask, masks the fit weights to non-IID shards and lags
+the async reads by a clock skew.  Telemetry and the mesh ring belong to
+later slices of the port; their arguments raise ``NotImplementedError``.
 
 One rule differs from the reference, and it is deliberate: every standard
 hop (``Transport._execute_update``) goes through
@@ -91,6 +98,26 @@ def key_data(key) -> np.ndarray:
     return np.asarray(key).astype(np.uint32)
 
 
+def shard_fit_weight(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Fit weights ``w`` masked to one agent's non-IID shard and
+    renormalized, the sum taken in float64 and rounded (the same on the
+    card and the CPU), floored at 1e-12 as the reference's."""
+    wm = w * mask
+    total = torch.sum(wm.to(torch.float64)).to(torch.float32)
+    return wm / torch.clamp(total, min=1e-12)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
 # ===================================================================== messages
 @dataclass(frozen=True)
 class Message:
@@ -158,6 +185,38 @@ class ScoreBlockMsg(Message):
     @property
     def num_elements(self) -> int:
         return int(self.scores.numel())
+
+
+@dataclass(frozen=True)
+class GradientMsg(Message):
+    """A FedAvg flat model delta (client -> server uplink), or the server's
+    raw broadcast of the new global model.  ``delta`` is the decoded
+    payload the server averages; ``wire_bits`` its encoded size under a
+    codec."""
+    delta: torch.Tensor = None
+    wire_bits: int | None = None
+
+    kind = "gradient"
+
+    @property
+    def num_elements(self) -> int:
+        return int(np.prod(tuple(self.delta.shape), dtype=np.int64))
+
+
+@dataclass(frozen=True)
+class ResidualMsg(Message):
+    """An Assisted-Learning [n, K] residual block passed along the ring:
+    what remains of the label signal after the sender's fit.  ``residual``
+    is the decoded payload the next agent fits; ``wire_bits`` its encoded
+    size under a codec."""
+    residual: torch.Tensor = None
+    wire_bits: int | None = None
+
+    kind = "residual"
+
+    @property
+    def num_elements(self) -> int:
+        return int(np.prod(tuple(self.residual.shape), dtype=np.int64))
 
 
 @dataclass(frozen=True)
@@ -358,8 +417,27 @@ class Transport(abc.ABC):
                                 wire_bits=wire_bits))
         return block
 
-    def ship(self, src, dst, payload, wrap, *, draws=None):
-        raise _later_slice("protocol-variant hops (ship)")
+    def ship(self, src: "AgentEndpoint", dst: "AgentEndpoint",
+             payload: torch.Tensor, wrap, *, draws=None):
+        """One protocol-variant hop: ship ``payload`` (a FedAvg delta, an
+        Assisted-Learning residual block) src -> dst through the wire
+        channel (DP noise, then the codec), priced at its encoded size and
+        wrapped in ``wrap`` (:class:`GradientMsg` / :class:`ResidualMsg`).
+        Returns the decoded payload the receiver computes with, or None
+        when a budgeted transport drops the hop (the receiver keeps its
+        stale state).  ``draws`` are the hop's channel draws.  A stateful
+        codec runs with a fresh residual: variant traffic keeps no
+        per-link state."""
+        wire_bits = None
+        if self.has_channel:
+            payload, _ = channel_apply(self.codec, self.privacy, payload,
+                                       draws, None)
+            if self.privacy is not None:
+                self.accountant.record(src.name)
+            if self.codec is not None:
+                wire_bits = int(self.codec.wire_bits(tuple(payload.shape)))
+        self.send(wrap(src.name, dst.name, payload, wire_bits=wire_bits))
+        return payload
 
     def barrier_release(self, head: "AgentEndpoint", w_bar: torch.Tensor,
                         *, draws=None, codec_state=None):
@@ -593,12 +671,54 @@ class FittedASCII:
         return max((c.round for c in self.components), default=-1) + 1
 
 
-# ============================================================ protocol variant
-class ASCIIVariant:
+# ============================================================ protocol variants
+class ProtocolVariant(abc.ABC):
+    """The round rule of one decentralized-learning protocol.  The session
+    loop (scheduling, churn filtering, budget exhaustion, the CV stop,
+    checkpoints) is the engine's; a variant supplies one round and how its
+    trained model predicts.  ASCII is the built-in variant; FedAvg and
+    Assisted Learning (:mod:`repro_torch.scenarios.protocols`) ship their
+    traffic through the same transports, codecs, budgets and accountants:
+    one wire, comparable ledgers."""
+
+    name = "variant"
+
+    def bind(self, session: "Session") -> None:
+        """Session-start hook (fresh starts and resumes): check the roster
+        and initialize ``session.state.proto`` when it is missing."""
+
+    @abc.abstractmethod
+    def run_round(self, session: "Session", order: list[int],
+                  rec: dict) -> bool:
+        """One round over the churn-filtered agent ``order``, recorded into
+        ``rec``; True when the protocol's own stop fired."""
+
+    @abc.abstractmethod
+    def fitted(self, session: "Session"):
+        """The trained, predict-capable result of this session."""
+
+    def fit_compiled(self, protocol: "Protocol", key, endpoints, classes,
+                     validation):
+        """The whole run as one program (optional); variants without a
+        lowering run eager only."""
+        raise ValueError(
+            f"protocol variant {self.name!r} has no compiled lowering; "
+            f"use backend='eager'")
+
+
+class ASCIIVariant(ProtocolVariant):
     """The paper's protocol: ignorance-score interchange around the chain
     (Algorithm 1 lines 3-11), and the stale-read async barrier."""
 
     name = "ascii"
+
+    def bind(self, session: "Session") -> None:
+        sc = session.scenario
+        if sc is not None and sc.clock_skew \
+                and session.state.proto is None:
+            # the clock-skew history: agent m reads the score of skew_m
+            # barriers ago
+            session.state.proto = {"w_hist": [session.state.w]}
 
     def run_round(self, session: "Session", order: list[int],
                   rec: dict) -> bool:
@@ -617,7 +737,8 @@ class ASCIIVariant:
         for j, m in enumerate(order):
             dst = eps[order[(j + 1) % len(order)]]
             params = eps[m].fit_local(session.draws.fit(st.key, t, j),
-                                      session.classes, st.w, k)
+                                      session.classes,
+                                      session.fit_weight(m, st.w), k)
             r = eps[m].reward(params, session.classes)
             a, rbar = scores.model_weight(
                 st.w, r, k, u=u if cfg.upstream and j > 0 else None,
@@ -680,16 +801,18 @@ class SessionState:
     # spend, link spend, exhaustion, DP release counts), in the reference's
     # ``Session._comm_snapshot`` format
     comm: dict | None = None
+    # protocol-variant state, a tree of tensors: FedAvg's flat global
+    # params ``{"g"}``, Assisted Learning's running residual ``{"R"}``, the
+    # clock-skew history ``{"w_hist": [...]}``; None for plain ASCII
+    proto: Any = None
 
     def to_tree(self) -> tuple[dict, dict]:
-        """Split into (array tree, JSON-able metadata).  The format's
-        protocol-variant slot (``proto``) is always empty in the port so
-        far."""
+        """Split into (array tree, JSON-able metadata)."""
         tree = {"w": self.w,
                 "key": self.key,
                 "params": [c.params for c in self.components],
                 "codec_state": self.codec_state,
-                "proto": None}
+                "proto": self.proto}
         meta = {"round": self.round,
                 "stopped": self.stopped,
                 "best_val": self.best_val,
@@ -704,8 +827,6 @@ class SessionState:
 
     @classmethod
     def from_tree(cls, tree: dict, meta: dict) -> "SessionState":
-        if tree.get("proto") is not None:
-            raise _later_slice("a checkpoint with protocol-variant state")
         comm = meta.get("comm")
         later = sorted(set(comm or ()) - set(COMM_KEYS))
         if later:
@@ -724,7 +845,8 @@ class SessionState:
                    order_sizes=[int(s) for s in meta.get("order_sizes", [])],
                    active=meta.get("active"),
                    codec_state=tree.get("codec_state"),
-                   comm=comm)
+                   comm=comm,
+                   proto=tree.get("proto"))
 
     def save(self, directory: str, step: int | None = None) -> str:
         from repro_torch.train import checkpoint
@@ -773,23 +895,24 @@ class Session:
     blocks, labels and validation data are placed on ``device``; every
     endpoint's learner must live on the same device type.  ``draws`` is the
     wire channel's draw source (default :class:`~repro_torch.comm.draws.
-    ChannelDraws`).
+    ChannelDraws`).  ``variant`` is the round rule (ASCII by default;
+    FedAvg and Assisted Learning in :mod:`repro_torch.scenarios`),
+    ``scenario`` a :class:`~repro_torch.scenarios.Scenario`: its
+    participation mask filters each round's order, its shard masks the
+    fit weights, its clock skew the async reads.
     """
 
     def __init__(self, cfg: SessionConfig, scheduler: Scheduler,
                  transport: Transport, endpoints: Sequence[AgentEndpoint],
                  classes: torch.Tensor, state: SessionState,
-                 validation=None, variant: ASCIIVariant | None = None,
+                 validation=None, variant: ProtocolVariant | None = None,
                  scenario=None, telemetry=None,
                  device: str | torch.device = "cuda",
                  draws: ChannelDraws | None = None,
                  _send_setup: bool = True) -> None:
-        if variant is not None and not isinstance(variant, ASCIIVariant):
-            raise _later_slice(f"protocol variant {variant.name!r}")
-        if scenario is not None:
-            raise _later_slice("scenarios (scenario=)")
         if telemetry is not None:
             raise _later_slice("telemetry (telemetry=)")
+        variant = variant if variant is not None else ASCIIVariant()
         if scheduler.stale and transport.controller is not None:
             raise ValueError(
                 "adaptive controllers do not apply to the stale-read async "
@@ -797,6 +920,19 @@ class Session:
                 "interchange, and the barrier releases once per round; "
                 "drop controller= (codec/privacy/budget channels release "
                 "per barrier and are supported)")
+        if not isinstance(variant, ASCIIVariant):
+            if scheduler.stale:
+                raise ValueError(
+                    f"the stale-read async barrier is an ASCII merge rule; "
+                    f"protocol variant {variant.name!r} needs a "
+                    f"sequential or random scheduler")
+            if transport.controller is not None \
+                    or transport.serve_controller is not None:
+                raise ValueError(
+                    "adaptive controllers read ignorance-vector statistics; "
+                    f"they do not apply to protocol variant "
+                    f"{variant.name!r} traffic — drop controller=/"
+                    "serve_controller=")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scheduler = scheduler
@@ -818,13 +954,28 @@ class Session:
             Xs_val, c_val = validation
             self.validation = ([self._place(x) for x in Xs_val],
                                self._place(c_val))
-        self.variant = variant if variant is not None else ASCIIVariant()
+        self.variant = variant
+        self.scenario = scenario
         self.draws = draws if draws is not None else ChannelDraws()
+        # per-session variant context (derived, not checkpointed: the
+        # flattening template, one-hot labels, fit-weight tables)
+        self.vctx: dict = {}
         if state.codec_state is not None:
             state.codec_state = {name: self._place(x)
                                  for name, x in state.codec_state.items()}
+        if state.proto is not None:
+            state.proto = tree_map(self._place, state.proto)
+        self._participation = None
+        self._shard_w = None
+        if scenario is not None:
+            scenario.validate(len(self.endpoints), scheduler, variant)
+            self._participation = scenario.participation(
+                cfg.max_rounds, len(self.endpoints))
+            self._shard_w = scenario.shard_weights(
+                self.classes, len(self.endpoints), self.device)
         transport.bind(self.endpoints)
         scheduler.bind_transport(transport)
+        variant.bind(self)
         if _send_setup:
             self._send_setup()
 
@@ -847,6 +998,14 @@ class Session:
                 w, r, a, cfg.num_classes)), False
         return scores.ignorance_update, True
 
+    def fit_weight(self, m: int, w: torch.Tensor) -> torch.Tensor:
+        """Agent m's fit weights: ``w`` masked to its non-IID shard and
+        renormalized (the sum in float64, rounded: the same on the card and
+        the CPU); ``w`` itself under IID."""
+        if self._shard_w is None:
+            return w
+        return shard_fit_weight(w, self._shard_w[m])
+
     # ---- the round loop -----------------------------------------------------
     def step(self) -> bool:
         """One interchange round (Algorithm 1 lines 3-11 / the Section-IV
@@ -865,9 +1024,15 @@ class Session:
             st.stopped = True          # everyone dropped out
             return False
         order = self.scheduler.round_order(t, active)
+        # the order's size before churn: a resume replays the scheduler's
+        # draws from the active roster, then re-applies the participation
         st.order_sizes.append(len(order))
         rec: dict = {"round": t}
-        stop = self.variant.run_round(self, order, rec)
+        if self._participation is not None:
+            order = [m for m in order if self._participation[t, m]]
+            rec["participants"] = list(order)
+        # a round that churn emptied is empty, not a stop: stragglers return
+        stop = self.variant.run_round(self, order, rec) if order else False
         if self.validation is not None:
             Xs_val, c_val = self.validation
             hits = (self.fitted().predict(Xs_val) == c_val).to(torch.float32)
@@ -901,10 +1066,12 @@ class Session:
         t = st.round
         fits = []
         for j, m in enumerate(order):
+            w_read = self._stale_view(m)
             params = eps[m].fit_local(self.draws.fit(st.key, t, j),
-                                      self.classes, st.w, k)
+                                      self.classes,
+                                      self.fit_weight(m, w_read), k)
             r = eps[m].reward(params, self.classes)
-            a, rbar = scores.model_weight(st.w, r, k,
+            a, rbar = scores.model_weight(w_read, r, k,
                                           alpha_cap=cfg.alpha_cap)
             fits.append((m, params, r, a, rbar))
         w_next, partials = st.w, None
@@ -948,7 +1115,26 @@ class Session:
                 st.codec_state["barrier"] = link_state
             if released is not None:
                 st.w = released        # a skipped release stays stale
+        self._push_stale_hist()
         return not any_pos and cfg.stop_on_negative_alpha
+
+    def _stale_view(self, m: int) -> torch.Tensor:
+        """The score agent ``m`` reads at the barrier: the current one, or
+        under a clock skew the one of ``skew_m`` barriers ago."""
+        skew = None if self.scenario is None else self.scenario.clock_skew
+        if not skew or not skew[m]:
+            return self.state.w
+        hist = self.state.proto["w_hist"]
+        return hist[max(0, len(hist) - 1 - int(skew[m]))]
+
+    def _push_stale_hist(self) -> None:
+        """Advance the bounded clock-skew history after a barrier merge."""
+        skew = None if self.scenario is None else self.scenario.clock_skew
+        if not skew:
+            return
+        hist = self.state.proto["w_hist"]
+        hist.append(self.state.w)
+        del hist[:-(max(int(s) for s in skew) + 1)]
 
     def run(self, max_rounds: int | None = None) -> SessionState:
         """Drive ``step()`` to completion (or for ``max_rounds`` more)."""
@@ -960,7 +1146,7 @@ class Session:
         return self.state
 
     # ---- results ------------------------------------------------------------
-    def fitted(self) -> FittedASCII:
+    def fitted(self):
         return self.variant.fitted(self)
 
     def predict_distributed(self, Xs: Sequence[torch.Tensor] | None = None,
@@ -972,6 +1158,11 @@ class Session:
         (:meth:`Transport.serve_block`), with the draws of
         ``draws.serve(key, agent, request)``; a block a budget skips is
         left out (the answer degrades toward head-only)."""
+        if not isinstance(self.variant, ASCIIVariant):
+            raise ValueError(
+                f"score-block serving is ASCII's prediction protocol; "
+                f"variant {self.variant.name!r} predicts via "
+                f"session.fitted().predict(Xs)")
         head = self.endpoints[0]
         serve = self.transport.has_serve_channel
         total = None
@@ -1049,23 +1240,21 @@ class Protocol:
     on ``device``.  ``start`` opens a fresh session, ``resume`` restores
     one from a checkpoint directory (fast-forwarding the scheduler RNG), and
     ``fit`` runs a session to completion.  With ``backend="compiled"``,
-    ``fit`` runs the session as one program (``core/compiled.py``) and
-    replays its ledger; such a run has no live session to step, pause or
-    checkpoint.
+    ``fit`` runs the session as one program (``core/compiled.py``; a
+    protocol variant's own lowering, ``variant.fit_compiled``) and replays
+    its ledger; such a run has no live session to step, pause or
+    checkpoint.  ``variant`` and ``scenario`` are handed to every session
+    (see :class:`Session`).
     """
 
     def __init__(self, cfg: SessionConfig, scheduler: Scheduler | None = None,
                  transport: Transport | None = None, backend: str = "eager",
-                 variant: ASCIIVariant | None = None, scenario=None,
+                 variant: ProtocolVariant | None = None, scenario=None,
                  telemetry=None, device: str | torch.device = "cuda",
                  draws: ChannelDraws | None = None) -> None:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected "
                              f"{BACKENDS}")
-        if variant is not None and not isinstance(variant, ASCIIVariant):
-            raise _later_slice(f"protocol variant {variant.name!r}")
-        if scenario is not None:
-            raise _later_slice("scenarios (scenario=)")
         if telemetry is not None:
             raise _later_slice("telemetry (telemetry=)")
         self.device = resolve_device(device)
@@ -1074,7 +1263,8 @@ class Protocol:
                           else SequentialScheduler())
         self.transport = (transport if transport is not None
                           else InProcessTransport())
-        self.variant = variant
+        self.variant = variant if variant is not None else ASCIIVariant()
+        self.scenario = scenario
         self.draws = draws
         self.backend = backend
         self._session: Session | None = None
@@ -1099,8 +1289,8 @@ class Protocol:
         self.scheduler.reset()
         return Session(self.cfg, self.scheduler, self.transport, endpoints,
                        classes, state, validation=validation,
-                       variant=self.variant, device=self.device,
-                       draws=self.draws)
+                       variant=self.variant, scenario=self.scenario,
+                       device=self.device, draws=self.draws)
 
     def resume(self, directory: str, endpoints: Sequence[AgentEndpoint],
                classes: torch.Tensor, validation=None,
@@ -1125,14 +1315,21 @@ class Protocol:
                 ep.active = bool(flag)
         session = Session(self.cfg, self.scheduler, self.transport,
                           endpoints, classes, state, validation=validation,
-                          variant=self.variant, device=self.device,
-                          draws=self.draws, _send_setup=False)
+                          variant=self.variant, scenario=self.scenario,
+                          device=self.device, draws=self.draws,
+                          _send_setup=False)
         session._comm_restore(state.comm)
         return session
 
     def fit(self, key, endpoints: Sequence[AgentEndpoint],
-            classes: torch.Tensor, validation=None) -> FittedASCII:
+            classes: torch.Tensor, validation=None):
         if self.backend == "compiled":
+            if not isinstance(self.variant, ASCIIVariant):
+                # a protocol variant owns its lowering (FedAvg's one
+                # program, repro_torch.scenarios.compiled)
+                self._session = self._compiled_ctx = None
+                return self.variant.fit_compiled(self, key, endpoints,
+                                                 classes, validation)
             return self._fit_compiled(key, endpoints, classes, validation)
         session = self.start(key, endpoints, classes, validation=validation)
         session.run()
@@ -1148,6 +1345,12 @@ class Protocol:
         :meth:`predict_distributed` serves through the compiled serve
         step."""
         from repro_torch.core import compiled
+        if self.scenario is not None and not self.scenario.trivial:
+            raise ValueError(
+                "backend='compiled' does not lower ASCII scenario knobs "
+                "(churn/subsampling/partitions change the chain per round); "
+                "use backend='eager', or protocol='fedavg' whose lowering "
+                "takes a participation mask")
         if self.scheduler.stale:
             raise _later_slice("the compiled async-stale lowering "
                                "(--variant async with --backend compiled)")

@@ -22,10 +22,17 @@ checkpointing and resume.
   PYTHONPATH=src python -m repro_torch.launch.session --learner mlp
   PYTHONPATH=src python -m repro_torch.launch.session --learner logistic \
       --backend compiled                   # the session as one program
+  PYTHONPATH=src python -m repro_torch.launch.session --protocol fedavg \
+      --learner logistic --scenario churn --codec int8   # FedAvg, churn
+  PYTHONPATH=src python -m repro_torch.launch.session --protocol al \
+      --partition dirichlet --skew 0.3     # Assisted Learning, non-IID
+  PYTHONPATH=src python -m repro_torch.launch.session --variant async \
+      --clock-skew 0,0,2,1                 # stale reads lagging barriers
   PYTHONPATH=src python -m repro_torch.launch.session --device cpu
 
-It prints the reference's ``dataset,variant,transport,rounds=..,
-components=..,acc=..[,bits=..]`` line, its ``serve:`` line and its channel
+It prints the reference's ``dataset,[protocol,]variant,transport,
+rounds=..,components=..|params=..,acc=..[,bits=..]`` line, its ``serve:``
+line (ASCII only) and its channel
 lines (``controller: ..``, ``codec=..``, ``serve_codec=..``,
 ``serve_controller: ..``, ``budget: ..``, ``dp: ..``).  The
 data are drawn from a ``torch.Generator`` seeded with ``--seed``, so the
@@ -56,6 +63,8 @@ from repro_torch.device import resolve_device
 from repro_torch.learners.logistic import LogisticRegression
 from repro_torch.learners.mlp import MLP
 from repro_torch.learners.tree import DecisionTree
+from repro_torch.scenarios import (PARTITIONS, PRESETS, PROTOCOLS, Scenario,
+                                   make_variant)
 
 DATASETS = {
     "blob3": lambda gen, n, dev: synthetic.blob_fig3(gen, n=n, device=dev),
@@ -83,10 +92,15 @@ LEARNERS = {
 # manifest written before a key existed implies
 RUN_KEYS = ("dataset", "n", "variant", "learner", "depth", "steps", "seed",
             "codec", "serve_codec", "byte_budget", "dp_epsilon", "controller",
-            "accountant", "scheduler", "serve_controller")
+            "accountant", "scheduler", "serve_controller", "protocol",
+            "scenario", "subsample", "dropout", "straggle", "partition",
+            "skew", "clock_skew", "scenario_seed")
 RUN_DEFAULTS = {"codec": "", "serve_codec": "", "byte_budget": 0,
                 "dp_epsilon": 0.0, "controller": "", "accountant": "basic",
-                "scheduler": "", "serve_controller": ""}
+                "scheduler": "", "serve_controller": "", "protocol": "ascii",
+                "scenario": "", "subsample": 0.0, "dropout": 0.0,
+                "straggle": 0.0, "partition": "iid", "skew": 0.5,
+                "clock_skew": "", "scenario_seed": 0}
 CODEC_NAMES = ["", "fp32", "fp16", "int8", "int4", "topk"]
 
 
@@ -96,6 +110,35 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--n", type=int, default=600)
     ap.add_argument("--variant", default="ascii",
                     choices=["ascii", "simple", "random", "async"])
+    ap.add_argument("--protocol", default="ascii", choices=sorted(PROTOCOLS),
+                    help="protocol variant: ascii (the ignorance "
+                         "interchange), fedavg (federated averaging over a "
+                         "homogeneous functional roster, GradientMsg "
+                         "uplinks through the same channel) or al "
+                         "(assisted-learning residual rounds, ResidualMsg "
+                         "around the ring, eager only)")
+    ap.add_argument("--scenario", default="", choices=[""] + sorted(PRESETS),
+                    help="deployment-reality preset (clean, noniid, churn, "
+                         "subsample); fixes the knob flags below")
+    ap.add_argument("--subsample", type=float, default=0.0,
+                    help="per-round client subsampling fraction in (0, 1] "
+                         "(FedAvg's C; unlocks --accountant subsampled-rdp)")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="per-round permanent-departure probability")
+    ap.add_argument("--straggle", type=float, default=0.0,
+                    help="per-(round, agent) transient-miss probability")
+    ap.add_argument("--partition", default="iid", choices=sorted(PARTITIONS),
+                    help="non-IID horizontal shards: dirichlet label skew "
+                         "or power-law quantity skew (agents fit only on "
+                         "their shard's rows)")
+    ap.add_argument("--skew", type=float, default=0.5,
+                    help="partition skew: dirichlet alpha / quantity "
+                         "exponent")
+    ap.add_argument("--clock-skew", default="",
+                    help="comma-separated per-agent barrier lags (ASCII "
+                         "--variant async only), e.g. 0,0,2,1")
+    ap.add_argument("--scenario-seed", type=int, default=0,
+                    help="seed of the scenario's churn and partition draws")
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--transport", default="metered",
                     choices=sorted(TRANSPORTS))
@@ -138,9 +181,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--accountant", default="basic",
                     choices=["basic", "rdp", "subsampled-rdp"],
                     help="privacy accountant for --dp-epsilon releases: "
-                         "basic additive or Renyi-DP composition "
-                         "(subsampled-rdp needs a scenario's --subsample, "
-                         "not ported yet)")
+                         "basic additive or Renyi-DP composition, or "
+                         "subsampled-rdp: RDP amplified by the scenario's "
+                         "--subsample rate (capped at the full-batch "
+                         "bound)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint SessionState here after the run "
@@ -155,7 +199,8 @@ def parser() -> argparse.ArgumentParser:
                     help="eager: the host loop; compiled: the whole session "
                          "as one fixed-shape program with no host read "
                          "(functional learners, sequential or budget-aware "
-                         "order, no checkpointing), its ledger replayed")
+                         "order, no checkpointing; fedavg lowers its "
+                         "scenarios too), its ledger replayed")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the whole session (default cuda; "
                          "raises when no card is present)")
@@ -164,16 +209,20 @@ def parser() -> argparse.ArgumentParser:
 
 @dataclass
 class Run:
-    """What one CLI run produced (for callers that drive it in-process)."""
-    session: Session
+    """What one CLI run produced (for callers that drive it in-process).
+    ``session`` is None for a protocol variant's compiled run, which has
+    no live session; ``fitted`` is the trained result either way."""
+    session: Session | None
     transport: Transport
     line: str
     paused: bool
+    fitted: object = None
 
 
 def check_args(args: argparse.Namespace) -> None:
-    """The reference CLI's argument rules for the backend and the wire
-    channel; a broken rule exits with its message."""
+    """The reference CLI's argument rules for the backend, the wire
+    channel, the protocol and the scenario flags; a broken rule exits with
+    its message.  The scenario's own rules are :func:`make_scenario`'s."""
     if args.backend == "compiled":
         if args.resume or args.stop_after or args.ckpt_dir:
             raise SystemExit("--backend compiled runs fit-to-completion with "
@@ -216,17 +265,78 @@ def check_args(args: argparse.Namespace) -> None:
     if args.accountant != "basic" and args.dp_epsilon <= 0:
         raise SystemExit(f"--accountant {args.accountant} accounts "
                          f"--dp-epsilon releases; set --dp-epsilon too")
-    if args.accountant == "subsampled-rdp":
-        raise SystemExit("--accountant subsampled-rdp amplifies privacy by a "
-                         "scenario's --subsample rate; scenarios are not "
-                         "ported yet (use basic or rdp)")
+    if args.protocol != "ascii":
+        if args.variant in ("simple", "async"):
+            raise SystemExit(
+                f"--variant {args.variant} is an ASCII scheduling mode; "
+                f"--protocol {args.protocol} runs its own round rule over an "
+                f"ordered roster (--variant ascii|random)")
+        if args.controller or args.serve_controller:
+            raise SystemExit("adaptive controllers read ignorance-vector "
+                             f"statistics; they do not apply to --protocol "
+                             f"{args.protocol} traffic")
+    if args.protocol == "fedavg" and args.learner == "tree":
+        raise SystemExit("--protocol fedavg averages flat parameter deltas "
+                         "from a functional learner core; --learner tree has "
+                         "none (use logistic|mlp)")
+    if args.protocol == "al" and args.backend == "compiled":
+        raise SystemExit("--protocol al is eager-only: its ring of "
+                         "closed-form ridge hops has no compiled lowering")
+    if args.scenario and (args.subsample or args.dropout or args.straggle
+                          or args.partition != "iid" or args.clock_skew):
+        raise SystemExit("--scenario presets fix the scenario knobs; drop "
+                         "the individual --subsample/--dropout/--straggle/"
+                         "--partition/--clock-skew flags (or drop "
+                         "--scenario)")
+    if args.clock_skew and args.variant != "async":
+        raise SystemExit("--clock-skew lags agents behind the stale-read "
+                         "barrier; it needs --variant async")
 
 
-def make_transport(args: argparse.Namespace) -> Transport:
-    """The CLI's transport with its wire channel."""
-    privacy = (GaussianMechanism(epsilon=args.dp_epsilon)
+def make_scenario(args: argparse.Namespace) -> Scenario:
+    """The CLI's scenario (a preset or the knob flags), with the
+    reference's rules for the accountant and the compiled backend."""
+    if args.scenario:
+        scenario = PRESETS[args.scenario]
+    else:
+        try:
+            clock = (tuple(int(s) for s in args.clock_skew.split(","))
+                     if args.clock_skew else ())
+        except ValueError:
+            raise SystemExit(f"--clock-skew wants comma-separated "
+                             f"non-negative ints, got {args.clock_skew!r}")
+        try:
+            scenario = Scenario("cli", subsample=args.subsample or None,
+                                dropout=args.dropout, straggle=args.straggle,
+                                partition=args.partition, skew=args.skew,
+                                clock_skew=clock, seed=args.scenario_seed)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if args.accountant == "subsampled-rdp" and scenario.subsample is None:
+        raise SystemExit("--accountant subsampled-rdp amplifies privacy by "
+                         "the client-sampling rate; set --subsample (or a "
+                         "subsampling --scenario) so there is a rate to "
+                         "amplify by")
+    if args.backend == "compiled" and args.protocol == "ascii" \
+            and not scenario.trivial:
+        raise SystemExit("--backend compiled does not lower ASCII scenario "
+                         "knobs (churn changes the chain's shape per round); "
+                         "use the eager backend — fedavg scenarios do "
+                         "compile")
+    return scenario
+
+
+def make_transport(args: argparse.Namespace,
+                   scenario: Scenario | None = None) -> Transport:
+    """The CLI's transport with its wire channel.  The Gaussian mechanism
+    clamps at zero for ASCII's nonnegative scores only (FedAvg's deltas and
+    AL's residuals are signed); the accountant takes the scenario's
+    subsampling rate."""
+    privacy = (GaussianMechanism(epsilon=args.dp_epsilon,
+                                 nonneg=(args.protocol == "ascii"))
                if args.dp_epsilon > 0 else None)
-    accountant = (make_accountant(args.accountant)
+    q = None if scenario is None else scenario.subsample
+    accountant = (make_accountant(args.accountant, q=q)
                   if privacy is not None else None)
     controller = (AdaptiveController(stat=args.controller)
                   if args.controller else None)
@@ -297,6 +407,7 @@ def _print_serve(transport: Transport, preds: torch.Tensor,
 def run(args: argparse.Namespace) -> Run:
     """Run (or resume) one session as the CLI does, printing its lines."""
     check_args(args)
+    scenario = make_scenario(args)
     device = resolve_device(args.device)
     gen = torch.Generator().manual_seed(args.seed)
     ds = DATASETS[args.dataset](gen, args.n, device)
@@ -308,12 +419,19 @@ def run(args: argparse.Namespace) -> Run:
     ctr, cte = ds.classes[tr], ds.classes[te]
 
     scheduler, upstream = make_scheduler(args)
-    transport = make_transport(args)
+    variant = make_variant(args.protocol)
+    try:
+        scenario.validate(len(Xs), scheduler, variant)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    transport = make_transport(args, scenario)
     engine = Protocol(SessionConfig(num_classes=ds.num_classes,
                                     max_rounds=args.rounds,
                                     upstream=upstream),
                       scheduler=scheduler, transport=transport,
-                      backend=args.backend, device=device)
+                      backend=args.backend, variant=variant,
+                      scenario=None if scenario.trivial else scenario,
+                      device=device)
     endpoints = endpoints_for([LEARNERS[args.learner](args) for _ in Xs], Xtr)
 
     run_cfg = {k: getattr(args, k) for k in RUN_KEYS}
@@ -334,31 +452,36 @@ def run(args: argparse.Namespace) -> Run:
         session = engine.resume(args.ckpt_dir, endpoints, ctr)
         print(f"resumed {args.ckpt_dir} at round {session.state.round}")
     elif args.backend == "compiled":
-        engine.fit(args.seed, endpoints, ctr)
-        session = engine._session
+        fitted = engine.fit(args.seed, endpoints, ctr)
+        session = engine._session      # None for a protocol variant's run
     else:
         session = engine.start(args.seed, endpoints, ctr)
 
-    if args.backend == "eager":
-        session.run(max_rounds=args.stop_after or None)
-    paused = bool(args.stop_after and not session.state.stopped
-                  and session.state.round < args.rounds)
-    if args.ckpt_dir:
-        path = session.checkpoint(args.ckpt_dir)
-        with open(cfg_path, "w") as f:
-            json.dump(run_cfg, f)
-        print(f"checkpointed round {session.state.round} -> {path}")
+    paused = False
+    if session is not None:
+        if args.backend == "eager":
+            session.run(max_rounds=args.stop_after or None)
+        paused = bool(args.stop_after and not session.state.stopped
+                      and session.state.round < args.rounds)
+        if args.ckpt_dir:
+            path = session.checkpoint(args.ckpt_dir)
+            with open(cfg_path, "w") as f:
+                json.dump(run_cfg, f)
+            print(f"checkpointed round {session.state.round} -> {path}")
+        fitted = session.fitted()
 
-    fitted = session.fitted()
     acc = float(torch.mean((fitted.predict(Xte) == cte).to(torch.float32)))
-    line = (f"{args.dataset},{args.variant},{args.transport},"
-            f"rounds={fitted.num_rounds},components={len(fitted.components)},"
-            f"acc={acc:.3f}")
+    tag = "" if args.protocol == "ascii" else f"{args.protocol},"
+    size = (f"params={fitted.g.numel()}" if args.protocol == "fedavg"
+            else f"components={len(fitted.components)}")
+    line = (f"{args.dataset},{tag}{args.variant},{args.transport},"
+            f"rounds={fitted.num_rounds},{size},acc={acc:.3f}")
     if isinstance(transport, MeteredTransport):
         line += f",bits={transport.total_bits}"
     print(line)
-    if not paused:
-        # serve only on the terminal run: the checkpoint above snapshots the
+    if not paused and args.protocol == "ascii":
+        # only ASCII has a serve path (score blocks to the head), and only
+        # the terminal run serves: the checkpoint above snapshots the
         # channel's spend first, so serving from a paused run would book
         # bits and DP releases the snapshot misses
         before = (transport.bits_by_kind().get("score_block", 0)
@@ -372,7 +495,7 @@ def run(args: argparse.Namespace) -> Run:
         print(f"paused after {session.state.round} rounds"
               + ("; rerun with --resume to continue" if args.ckpt_dir
                  else "; nothing was saved (pass --ckpt-dir)"))
-    return Run(session, transport, line, paused)
+    return Run(session, transport, line, paused, fitted)
 
 
 def main(argv: list[str] | None = None) -> None:

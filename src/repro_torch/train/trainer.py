@@ -4,8 +4,8 @@ checkpoints.
 
 Counterpart of ``repro/train/trainer.py``.  The step runs eagerly (the
 reference jits it); the weighted-CE kernels carry its loss on the card.
-Mesh shardings are not ported (ROADMAP Queue 1 item 12): passing ``mesh``
-or ``in_shardings`` raises.
+Mesh shardings are not ported (ROADMAP Queue 1, multi-device): passing
+``mesh`` or ``in_shardings`` raises.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ class Trainer:
         if self.mesh is not None or self.in_shardings is not None:
             raise NotImplementedError(
                 "Trainer: mesh shardings are not ported yet (ROADMAP "
-                "Queue 1 item 12); the port trains on one device")
+                "Queue 1, multi-device); the port trains on one device")
         if self.tcfg.ckpt_every and not self.tcfg.ckpt_dir:
             raise ValueError("TrainerConfig.ckpt_every needs a ckpt_dir")
 

@@ -235,7 +235,7 @@ def _record(transport):
 
     def interchange(src, dst, w, r, alpha, reweight, standard=True, **kw):
         out, state = inner(src, dst, w, r, alpha, reweight, standard, **kw)
-        hops.append({"w": np.array(w), "r": np.array(r),
+        hops.append({"m": src.agent_id, "w": np.array(w), "r": np.array(r),
                      "alpha": float(alpha), "out": np.array(out),
                      "codec": transport.codec, "skipped": out is w})
         return out, state

@@ -410,20 +410,23 @@ def test_entry_points_raise_without_card(blob):
 
 def test_later_slice_arguments_raise(blob):
     """What later slices of the port bring raises NotImplementedError: the
-    compiled backend's async-stale lowering, telemetry, scenarios,
-    protocol-variant hops and the mesh ring.  The wire channel
-    (tests/test_torch_comm_session.py), the control plane with the async
-    variant (tests/test_torch_control.py) and the compiled backend's
-    sequential lowering (tests/test_torch_compiled.py) are ported: their
-    arguments construct."""
+    compiled backend's async-stale lowering, telemetry and the mesh ring.
+    The wire channel (tests/test_torch_comm_session.py), the control plane
+    with the async variant (tests/test_torch_control.py), the compiled
+    backend's sequential lowering (tests/test_torch_compiled.py) and the
+    scenarios with the protocol variants and their hops
+    (tests/test_torch_scenarios.py) are ported: their arguments
+    construct."""
     from repro_torch.comm import BudgetedTransport, BudgetSpec
     from repro_torch.control import AdaptiveController, ServeController
     from repro_torch.learners.logistic import LogisticRegression
+    from repro_torch.scenarios import PRESETS, FedAvgVariant
     Xtr, ctr, _, _, k = blob
     cfg = T.SessionConfig(num_classes=k)
-    for kwargs in ({"telemetry": object()}, {"scenario": object()}):
-        with pytest.raises(NotImplementedError):
-            T.Protocol(cfg, device=CPU, **kwargs)
+    with pytest.raises(NotImplementedError):
+        T.Protocol(cfg, device=CPU, telemetry=object())
+    T.Protocol(cfg, device=CPU, scenario=PRESETS["churn"],
+               variant=FedAvgVariant())
     T.Protocol(cfg, device=CPU, backend="compiled")
     with pytest.raises(NotImplementedError):
         T.Protocol(cfg, scheduler=T.AsyncStaleScheduler(), device=CPU,
@@ -436,9 +439,12 @@ def test_later_slice_arguments_raise(blob):
                    {"serve_controller": ServeController()}):
         T.MeteredTransport(**kwargs)
         BudgetedTransport(BudgetSpec(), **kwargs)
+    eps = T.endpoints_for([LogisticRegression(steps=2, device=CPU)
+                           for _ in Xtr], [torch.from_numpy(x) for x in Xtr])
     for transport in (T.MeteredTransport(), BudgetedTransport(BudgetSpec())):
-        with pytest.raises(NotImplementedError):
-            transport.ship(None, None, torch.zeros(3), T.IgnoranceMsg)
+        transport.bind(eps)
+        out = transport.ship(eps[1], eps[0], torch.zeros(3), T.GradientMsg)
+        assert out.shape == (3,)
     with pytest.raises(SystemExit):
         cli.run(cli.parser().parse_args(["--device", CPU, "--dp-epsilon",
                                          "1", "--accountant",

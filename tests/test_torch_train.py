@@ -380,7 +380,7 @@ def test_trainer_checkpoints_and_refuses_a_mesh(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(
         topt.tree_leaves(restored), topt.tree_leaves(
             {"params": params, "opt": opt_state})))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1, multi-device"):
         Trainer(cfg, topt.adamw(1e-3), mesh=object())
     with pytest.raises(ValueError, match="ckpt_dir"):
         Trainer(cfg, topt.adamw(1e-3), TrainerConfig(ckpt_every=2))
