@@ -145,7 +145,7 @@
    under the budget; compiled = eager on the card: ledgers, rungs, round
    orders, stop rounds, predictions exact, w bit-equal; async under
    --backend compiled raises NotImplementedError.  (c) Fleets: 32 MIMIC
-   int8 sessions (keys 0..31) and 8 Fashion-MLP sessions (3 rounds) on
+   int8 sessions (keys 0..31) and 8 Fashion-MLP sessions (2 rounds) on
    shared data;
    every Fashion session and 8 of the 32 MIMIC ones (0-6 and 31) against
    compiled_session with the same key (bit-equal; an MLP session may
@@ -202,7 +202,8 @@
    with DP epsilon 1, a byte budget that walks fp32 -> int4 and exhausts;
    card = CPU ledgers, the ledger = wire_bits, residuals within 1e-5 of
    max|R|; one block quantize an int-coded shipped hop.  (c) Fashion
-   FedAvg at full width (42000 rows, 2 x 392 pixels, 5 rounds) with
+   FedAvg at full width (42000 rows, 2 x 392 pixels, 3 rounds of the
+   paper's 5) with
    LogisticRegression(steps=300) (d = 3930) and MLP(128, 64) with 200
    steps (d = 59210), under fp32, int8, int4, DP epsilon 1 with
    subsampled-rdp under the subsample preset, and a byte budget: the
@@ -213,6 +214,38 @@
    uplink = its roundtrip (one launch each).  (d) One FedAvg program
    under ``torch.cuda.set_sync_debug_mode("error")``: no host read.
    Prints session seconds eager and compiled, ms a round, peak memory.
+17. Telemetry (``repro_torch.telemetry``).  (a) MIMIC at full size
+   (n = 15000, agents of 3 and 13 features, depth-4 trees, 10 rounds)
+   eager, and MIMIC LogisticRegression(steps=50) agents compiled with
+   --controller resid, --serve-codec int8 and DP epsilon 1, each fitted
+   and served once untimed without ``Telemetry()``, then three times with
+   it and three times without, the order alternating (off, on, on, off,
+   off, on), and with it on the CPU: w, ledger, alphas, DP releases, predictions and kernel
+   launches equal with telemetry on and off, the card's counter series =
+   the CPU's, the span tree well formed (session -> round -> hop and
+   serve eager; session, replay and serve compiled), the trace, snapshot
+   and .prom pass ``repro_torch.telemetry.check`` and the trace reloads
+   the registry.  (b) That compiled session with ``Telemetry(live=True)``
+   = its dark run, its ``live_*`` series = the replay-booked ones; the
+   same program under ``torch.cuda.set_sync_debug_mode("error")``; a
+   fleet of 8 MIMIC int8 sessions dark, live and live under sync debug
+   mode: bit-equal, the live sums = the sessions' bits priced from the
+   dark fleet's result; the device operations (every kernel, copy and
+   memset, torch.profiler's count) of one dark and one live session
+   program (that configuration at one logistic step a fit) and
+   ``serve_batch``.  (c) 15(b)'s engine cut to 64 requests,
+   dark three times and with ``Telemetry(live=True)`` streaming a trace
+   three times, alternating as (a): every request equal,
+   launches equal, flush/flush_wave/bucket_dispatch spans,
+   ``live_serve_requests_total`` = the requests delivered, one tap copy a
+   bucket; a live ``serve_batch`` of 8 under sync debug mode = the dark
+   one.  (d) The session CLI on blob3 with --profile-dir and --trace: the
+   profiler's trace has the span names as ranges.  Prints
+   ``telemetry_table``: seconds of each run with telemetry on and off,
+   the overhead of the medians and the spread of each side (no bound),
+   ``span_seconds`` p50 of session, round, hop and flush_wave, the tap
+   copies of a session, a fleet and the engine beside the device
+   operations a live program adds, and each part's seconds.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -248,9 +281,13 @@ SMOKE_DIR = os.path.join(ROOT, "build", "chip_smoke")
 # so at 50 the phase's MIMIC sessions and fleets take about a
 # minute there
 MIMIC_STEPS = 50
-# phase 14(c)'s Fashion-MLP fleet's rounds (the session's 5 cut to 3: its
-# 8 sessions three ways took ~100 s of a script that phase 16 grew)
-FASHION_FLEET_ROUNDS = 3
+# phase 14(c)'s Fashion-MLP fleet's rounds (the session's 5 cut to 2: its
+# 8 sessions three ways took ~100 s at 3 rounds, and phases 16 and 17
+# took the script past 800 s)
+FASHION_FLEET_ROUNDS = 2
+# phase 16(c)'s FedAvg rounds (the paper's 5 cut to 3: its twenty
+# sessions took ~150 s, and phase 17 would take the script past 800 s)
+FEDAVG_ROUNDS = 3
 
 
 def _cuda_time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
@@ -472,6 +509,28 @@ def _device_profile(fn, top: int = 8) -> dict:
             "top": [[k[:70], v] for k, v in ranked]}
 
 
+def _device_op_counts(fn) -> dict:
+    """The device operations one ``fn()`` (ending in a synchronize) runs,
+    by kind, as torch.profiler's tracer records them: kernels (every
+    kernel, the library's and the hand-written ones), copies and
+    memsets."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "copies": 0, "memsets": 0}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            kind = ("copies" if evt.key.startswith("Memcpy") else "memsets"
+                    if evt.key.startswith("Memset") else "kernels")
+            out[kind] += evt.count
+    return out
+
+
 def _ptxas_usage(log: str) -> dict:
     """Registers and spill stores / loads (bytes) of each kernel in an
     ``nvcc -Xptxas=-v`` log, by demangled name without its arguments."""
@@ -563,6 +622,8 @@ class Smoke:
         self.fashion_fp32 = None       # phase 5's data and accuracy
         self.mlp_limit = None          # phase 12a's logits limit
         self.floor_ms = None           # phase 2's launch floor
+        self.serve_protos = None       # phase 15(b)'s fitted sessions
+        self.tele_dark = {}            # phase 17(a)'s dark runs
 
     def phase(self, num: int, fn) -> None:
         t0 = time.perf_counter()
@@ -3094,8 +3155,8 @@ class Smoke:
         sessions: all 8 Fashion sessions, and 8 of the 32 MIMIC ones (the
         first 7 and the last; 32 of each took 150 s on the card, more
         than phase 14's share of the script's time limit).  The Fashion
-        fleet runs 3 rounds of the session's 5 (FASHION_FLEET_ROUNDS), to
-        leave phase 16 its share of the script's time."""
+        fleet runs 2 rounds of the session's 5 (FASHION_FLEET_ROUNDS), to
+        leave phases 16 and 17 their share of the script's time."""
         torch = self.torch
         from repro_torch.comm.codecs import QuantCodec
         from repro_torch.core import compiled as C
@@ -3470,6 +3531,7 @@ class Smoke:
             "compiled", s, E.MeteredTransport(
                 serve_codec=codecs.QuantCodec(8)), data) for s in range(8)}
         fit_s = time.perf_counter() - t0
+        self.serve_protos = protos
         engine = ServeEngine(cache_capacity=4, max_batch=8, device="cuda")
         for sid, proto in protos.items():
             engine.add_session(sid, proto)
@@ -3806,13 +3868,13 @@ class Smoke:
 
     def _scenario_fedavg(self) -> str:
         """(c) Fashion FedAvg at full width, logistic(300) and the paper's
-        MLP(128, 64) with 200 steps, 5 rounds, under fp32, int8, int4, DP
-        epsilon 1 with subsampled-rdp under the subsample preset, and a
-        byte budget: the card's one-program FedAvg = its eager FedAvg bit
-        for bit (g, history, ledger, rungs, skips, releases, exhaustion);
-        quantize launches = int-coded shipped uplinks eager, slots x int
-        rungs compiled; int4 encode -> decode of a real uplink =
-        its roundtrip."""
+        MLP(128, 64) with 200 steps, FEDAVG_ROUNDS rounds, under fp32,
+        int8, int4, DP epsilon 1 with subsampled-rdp under the subsample
+        preset, and a byte budget: the card's one-program FedAvg = its
+        eager FedAvg bit for bit (g, history, ledger, rungs, skips,
+        releases, exhaustion); quantize launches = int-coded shipped
+        uplinks eager, slots x int rungs compiled; int4 encode -> decode
+        of a real uplink = its roundtrip."""
         torch = self.torch
         from repro_torch.comm.codecs import QuantCodec
         from repro_torch.core import engine as E
@@ -3860,7 +3922,8 @@ class Smoke:
                                           draws=draws)
                         transport.ship = ship
                     proto = E.Protocol(
-                        E.SessionConfig(num_classes=10, max_rounds=5),
+                        E.SessionConfig(num_classes=10,
+                                        max_rounds=FEDAVG_ROUNDS),
                         transport=transport, variant=make_variant("fedavg"),
                         scenario=None if scen.trivial else scen,
                         backend=backend, device="cuda")
@@ -3883,7 +3946,7 @@ class Smoke:
                             if e["kind"] == "gradient"
                             and e["src"] != "agent0")
                     else:
-                        want = 5 * (len(Xtr) - 1) * sum(
+                        want = FEDAVG_ROUNDS * (len(Xtr) - 1) * sum(
                             isinstance(c, QuantCodec) for c in ladder)
                     self.read_counts(0, f"fedavg {lname} {name} {backend}",
                                      quantize_dequant_tiles=want)
@@ -3931,10 +3994,11 @@ class Smoke:
                     f"compiled={cwant}; eager {esec:.2f} s "
                     f"({esec * 1e3 / rounds:.0f} ms a round, peak "
                     f"{epeak:.3f} GiB), compiled {csec:.2f} s "
-                    f"({csec * 1e3 / 5:.0f} ms a round, peak "
+                    f"({csec * 1e3 / FEDAVG_ROUNDS:.0f} ms a round, peak "
                     f"{cpeak:.3f} GiB); g, history, ledger bit-equal")
-        return ("(c) fashion fedavg n_train=42000 agents=(392,392) 5 "
-                "rounds, compiled = eager on the card: " + " ".join(out))
+        return (f"(c) fashion fedavg n_train=42000 agents=(392,392) "
+                f"{FEDAVG_ROUNDS} rounds, compiled = eager on the card: "
+                + " ".join(out))
 
     def _int4_uplink(self, delta, draws) -> str:
         """int4's encode (quantize with the pack fused in) then decode
@@ -4001,6 +4065,517 @@ class Smoke:
                 "set_sync_debug_mode('error'): no host read; = "
                 "fedavg_session")
 
+    # ----------------------------------------------------------- telemetry
+    def telemetry(self) -> str:
+        """Phase 17: telemetry on = off, card = CPU registries, live
+        programs, the serve engine's spans and taps, the profiler."""
+        table: dict = {"part_seconds": {}}
+        parts = []
+        for part in (self._tele_sessions, self._tele_live, self._tele_serve,
+                     self._tele_profile):
+            t0 = time.perf_counter()
+            parts.append(part(table))
+            table["part_seconds"][part.__name__] = time.perf_counter() - t0
+        print("telemetry_table " + json.dumps(table), flush=True)
+        return " ".join(parts)
+
+    @staticmethod
+    def _launch_snapshot() -> dict:
+        return {name: fn.launches for name, fn in _counters().items()}
+
+    #: phase 17's timed runs, telemetry off (False) and on (True), in
+    #: alternating order so that neither side always runs first
+    TELE_ORDER = (False, True, True, False, False, True)
+
+    @staticmethod
+    def _tele_overhead(off: list, on: list) -> tuple[dict, str]:
+        """Each run's seconds, the medians, telemetry's overhead as the
+        ratio of the medians, and each side's spread ((max - min) /
+        median); the row and its text."""
+        m_off, m_on = statistics.median(off), statistics.median(on)
+        row = {"seconds_off": off, "seconds_on": on, "median_off": m_off,
+               "median_on": m_on, "overhead": m_on / m_off - 1,
+               "spread_off": (max(off) - min(off)) / m_off,
+               "spread_on": (max(on) - min(on)) / m_on}
+        text = (f"off {m_off:.3f} s ({min(off):.3f}-{max(off):.3f}) on "
+                f"{m_on:.3f} s ({min(on):.3f}-{max(on):.3f}), medians' "
+                f"overhead {row['overhead']:+.3f}, spread off "
+                f"{row['spread_off']:.3f} on {row['spread_on']:.3f}")
+        return row, text
+
+    @staticmethod
+    def _tele_counters(reg) -> dict:
+        return {name: reg.series(name) for name in reg.counter_names()}
+
+    def _tele_tree(self, tracer, want: set, where: str) -> None:
+        """The span tree is well formed, and its (name, parent's name)
+        pairs are ``want``."""
+        by_id = {s.span_id: s for s in tracer.spans}
+        got = {(s.name, None if s.parent_id is None
+                else by_id[s.parent_id].name) for s in tracer.spans}
+        self.require(tracer.well_formed() and got == want,
+                     f"{where}: span tree {sorted(got, key=str)} != "
+                     f"{sorted(want, key=str)}")
+
+    def _tele_artifacts(self, tele, transport, name: str) -> None:
+        """Trace, snapshot and .prom of ``tele`` pass the checker, and the
+        trace reloads the registry's counters."""
+        from repro_torch.telemetry import check as tcheck
+        from repro_torch.telemetry import export as texport
+        base = os.path.join(SMOKE_DIR, f"telemetry_{name}")
+        paths = [base + s for s in (".jsonl", ".json", ".prom")]
+        tele.write_artifacts(trace=paths[0], metrics_out=paths[1],
+                             transport=transport)
+        tele.write_artifacts(metrics_out=paths[2])
+        for path in paths:
+            errors = tcheck.validate_file(path)
+            self.require(not errors, f"{path}: {errors[:3]}")
+        self.require(self._tele_counters(texport.load_registry(paths[0]))
+                     == self._tele_counters(tele.registry),
+                     f"{name}: the trace does not reload the registry")
+
+    def _tele_sessions(self, table: dict) -> str:
+        """(a) MIMIC trees eager and MIMIC logistic(50) compiled (the
+        resid controller, an int8 serve codec, DP epsilon 1), each three
+        times with and three times without Telemetry on the card, in
+        ``TELE_ORDER``, and with it on the CPU."""
+        torch = self.torch
+        from repro_torch.core import engine as E
+        from repro_torch.launch import session as cli
+        from repro_torch.learners.tree import DecisionTree
+        from repro_torch.telemetry import Telemetry
+        data = {d: self._mimic_data(d) for d in ("cuda", "cpu")}
+        argv = ["--learner", "logistic", "--backend", "compiled",
+                "--controller", "resid", "--serve-codec", "int8",
+                "--dp-epsilon", "1"]
+
+        def build(kind, device, steps=MIMIC_STEPS):
+            if kind == "eager":
+                cfg = E.SessionConfig(num_classes=2, max_rounds=10)
+                transport = E.MeteredTransport()
+                learners = [DecisionTree(depth=4, num_thresholds=16,
+                                         device=device) for _ in range(2)]
+                return cfg, transport, learners, "eager"
+            args = cli.parser().parse_args(["--device", device, "--steps",
+                                            str(steps), *argv])
+            cli.check_args(args)
+            return (E.SessionConfig(num_classes=2, max_rounds=10),
+                    cli.make_transport(args),
+                    [cli.LEARNERS["logistic"](args) for _ in range(2)],
+                    "compiled")
+
+        def run(kind, device, tele):
+            Xtr, ctr, Xte, _ = data[device]
+            cfg, transport, learners, backend = build(kind, device)
+            proto = E.Protocol(cfg, transport=transport, backend=backend,
+                               telemetry=tele, device=device)
+            eps = E.endpoints_for(learners, Xtr)
+            self.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fitted = proto.fit(0, eps, ctr)
+            preds = proto.predict_distributed(Xte)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            snap = self._launch_snapshot()
+            where = f"telemetry {kind} {'on' if tele else 'off'}"
+            if device == "cuda" and kind == "eager":
+                self.read_counts(len(fitted.components), where)
+            elif device == "cuda":
+                self._compiled_counts(proto._compiled_ctx[1], False, where,
+                                      served=1)
+            w = (proto._compiled_result.w if backend == "compiled"
+                 else proto._session.state.w)
+            return dict(proto=proto, fitted=fitted, preds=preds.cpu(),
+                        w=w.cpu(), secs=secs, snap=snap, tele=tele)
+
+        out, self.tele_dark = [], {}
+        for kind in ("eager", "compiled"):
+            # an untimed dark run first (the reference of the checks), so
+            # that no timed run pays a first call's warm-up
+            dark = run(kind, "cuda", None)
+            runs = [run(kind, "cuda", Telemetry() if lit else None)
+                    for lit in self.TELE_ORDER]
+            cpu = run(kind, "cpu", Telemetry())
+            lit = runs[self.TELE_ORDER.index(True)]
+            self.tele_dark[kind] = dict(
+                dark, build=lambda steps=MIMIC_STEPS, _kind=kind: build(
+                    _kind, "cuda", steps))
+            for other in runs:
+                t_d, t_o = dark["proto"].transport, other["proto"].transport
+                self.require(torch.equal(other["w"], dark["w"])
+                             and torch.equal(other["preds"], dark["preds"]),
+                             f"{kind}: w or predictions differ with "
+                             f"telemetry")
+                self.require(t_o.log.entries == t_d.log.entries,
+                             f"{kind}: ledgers differ with telemetry")
+                self.require([c.alpha for c in other["fitted"].components]
+                             == [c.alpha for c in dark["fitted"]
+                                 .components], f"{kind}: alphas differ")
+                if t_d.accountant is not None:
+                    self.require(t_o.accountant.releases
+                                 == t_d.accountant.releases,
+                                 f"{kind}: DP releases differ")
+                self.require(other["snap"] == dark["snap"],
+                             f"{kind}: launches {other['snap']} != "
+                             f"{dark['snap']} without telemetry")
+            reg = lit["tele"].registry
+            self.require(self._tele_counters(reg)
+                         == self._tele_counters(cpu["tele"].registry),
+                         f"{kind}: the card's counters differ from the "
+                         f"CPU's")
+            self.require(reg.total("wire_bits_total")
+                         == lit["proto"].transport.log.total_bits,
+                         f"{kind}: wire_bits_total != the ledger")
+            want = ({("session", None), ("round", "session"),
+                     ("hop", "round"), ("serve", None)} if kind == "eager"
+                    else {("session", None), ("replay", None),
+                          ("serve", None)})
+            self._tele_tree(lit["tele"].tracer, want, kind)
+            self._tele_artifacts(lit["tele"], lit["proto"].transport, kind)
+            row, timing = self._tele_overhead(
+                [r["secs"] for r, on in zip(runs, self.TELE_ORDER)
+                 if not on],
+                [r["secs"] for r, on in zip(runs, self.TELE_ORDER) if on])
+            row["bits"] = lit["proto"].transport.total_bits
+            if kind == "eager":
+                for name in ("session", "round", "hop"):
+                    row[f"{name}_p50_s"] = reg.quantile(
+                        "span_seconds", 0.5, name=name)
+            table[f"{kind}_session"] = row
+            out.append(f"[{kind}] on = off (w, ledger, releases, "
+                       f"predictions, launches), card counters = CPU's, "
+                       f"{timing}")
+        return ("(a) mimic trees eager, logistic compiled (resid "
+                "controller, int8 serve, DP 1): " + "; ".join(out)
+                + "; span trees well formed, trace/json/prom pass the "
+                "checker")
+
+    def _tele_live(self, table: dict) -> str:
+        """(b) the compiled session of (a) with live taps, a fleet of 8
+        MIMIC int8 sessions with live taps, and both under
+        set_sync_debug_mode("error")."""
+        torch = self.torch
+        from repro_torch.comm.codecs import QuantCodec
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.core.engine import LabelsMsg, SampleIdsMsg
+        from repro_torch.learners.logistic import LogisticRegression
+        from repro_torch.telemetry import MetricsRegistry, Telemetry
+        from repro_torch.telemetry.live import LiveSink, installed
+        dark = self.tele_dark["compiled"]
+        Xtr, ctr, Xte, _ = self._mimic_data()
+        n = int(ctr.shape[0])
+        # the Protocol run with Telemetry(live=True) against (a)'s dark run
+        tele = Telemetry(live=True)
+        dproto = dark["proto"]
+        cfg, transport, learners, backend = dark["build"]()
+        proto = E.Protocol(cfg, transport=transport, backend=backend,
+                           telemetry=tele, device="cuda")
+        self.reset_counts()
+        proto.fit(0, E.endpoints_for(learners, Xtr), ctr)
+        preds = proto.predict_distributed(Xte).cpu()
+        torch.cuda.synchronize()
+        self.require(self._launch_snapshot() == dark["snap"],
+                     "live session: launches differ from the dark run's")
+        plan = proto._compiled_ctx[1]
+        self._compiled_counts(plan, False, "live session", served=1)
+        self.require(torch.equal(proto._compiled_result.w.cpu(), dark["w"])
+                     and torch.equal(preds, dark["preds"])
+                     and transport.log.entries
+                     == dproto.transport.log.entries
+                     and transport.accountant.releases
+                     == dproto.transport.accountant.releases,
+                     "live session != its dark run")
+        reg = tele.registry
+        for live_name, name, kind in (
+                ("live_wire_bits_total", "wire_bits_total", None),
+                ("live_messages_total", "messages_total", "ignorance"),
+                ("live_messages_total", "messages_total", "score_block"),
+                ("live_budget_skips_total", "budget_skips_total", None)):
+            got = (reg.total(live_name) if kind is None
+                   else reg.value(live_name, kind=kind))
+            want = (reg.total(name) if kind is None
+                    else reg.value(name, kind=kind))
+            self.require(got == want, f"live session: {live_name}"
+                         f"{'' if kind is None else '{' + kind + '}'} "
+                         f"{got} != replay-booked {want}")
+        session_copies = tele.live.copies
+        # the same program, its draws taken first, under sync debug mode
+        shapes = tuple(tuple(x.shape[1:]) for x in Xtr)
+        fn = C.make_session_fn(plan, shapes, live=True)
+        draws = C._draws_for(plan, E.key_data(0), n, shapes, self.dev, None,
+                             fleet=False)
+        sink = LiveSink(MetricsRegistry())
+        with installed(sink):
+            self.reset_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = fn(draws, tuple(Xtr), ctr)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        self._compiled_counts(plan, False, "sync-checked live session")
+        fit_bits = sum(e["bits"] for e in transport.log.entries
+                       if e["kind"] != "score_block")
+        self.require(torch.equal(res.w, proto._compiled_result.w)
+                     and sink.registry.total("live_wire_bits_total")
+                     == fit_bits, "the sync-checked live session differs")
+        # every device operation of a dark and a live session program: the
+        # hand-written kernels' launches are equal (above), the taps add
+        # their pricing and packing ops and one copy a round.  Counted at
+        # one logistic step a fit: the taps do not depend on the steps,
+        # and the profiler takes about a minute over 50 steps' ~80000
+        # kernels
+        cfg1, transport1, learners1, _ = dark["build"](steps=1)
+        proto1 = E.Protocol(cfg1, transport=transport1, backend="compiled",
+                            device="cuda")
+        proto1.fit(0, E.endpoints_for(learners1, Xtr), ctr)
+        plan1 = proto1._compiled_ctx[1]
+        draws1 = C._draws_for(plan1, E.key_data(0), n, shapes, self.dev,
+                              None, fleet=False)
+        ops = {}
+        for mode in ("dark", "live"):
+            fn1 = C.make_session_fn(plan1, shapes, live=mode == "live")
+            sink = LiveSink(MetricsRegistry())
+            with installed(sink if mode == "live" else None):
+                ops[mode] = _device_op_counts(
+                    lambda: fn1(draws1, tuple(Xtr), ctr))
+        ops["tap_copies"] = sink.copies
+        # a fleet of 8 MIMIC int8 sessions, dark and live
+        fplan = C.plan_for([LogisticRegression(steps=MIMIC_STEPS,
+                                               device="cuda")] * 2, 2,
+                           max_rounds=10, codec=QuantCodec(8))
+        keys = list(range(8))
+        runs = {}
+        for mode in ("dark", "live", "checked"):
+            sink = LiveSink(MetricsRegistry())
+            self.reset_counts()
+            with installed(sink if mode != "dark" else None):
+                if mode == "checked":
+                    vfn = torch.func.vmap(
+                        C.make_session_fn(fplan, shapes, live=True),
+                        in_dims=(0, None, None))
+                    fdraws = C._draws_for(fplan, [E.key_data(k)
+                                                  for k in keys], n, shapes,
+                                          self.dev, None, fleet=True)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        res = vfn(fdraws, tuple(Xtr), ctr)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                else:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = C.fleet_run(fplan, keys, Xtr, ctr,
+                                      live=mode != "dark")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            snap = self._launch_snapshot()
+            self._compiled_counts(fplan, True, f"{mode} fleet")
+            runs[mode] = (res, sink, snap, secs)
+        fdark = runs["dark"][0]
+        for mode in ("live", "checked"):
+            res, sink, snap, _ = runs[mode]
+            self.require(all(torch.equal(a, b) for a, b in zip(res, fdark)
+                             if isinstance(a, torch.Tensor)),
+                         f"{mode} fleet != the dark fleet")
+            self.require(snap == runs["dark"][2],
+                         f"{mode} fleet: launches differ")
+        # the fleet's sums = the sessions' priced one by one from the dark
+        # fleet's result, as each session's replay books them
+        setup = LabelsMsg("", "", n).bits + SampleIdsMsg("", "", n).bits
+        hop = QuantCodec(8).wire_bits(n) + 32
+        sent = fdark.sent.cpu()
+        want = {"live_wire_bits_total": sum(
+                    setup + hop * int(sent[f].sum()) for f in keys),
+                "live_rounds_total": int(fdark.executed.cpu().any(-1).sum()),
+                "live_messages_total": int(sent.sum())}
+        for mode in ("live", "checked"):
+            got = {name: runs[mode][1].registry.total(name) for name in want}
+            self.require(got == want, f"{mode} fleet: live sums {got} != "
+                         f"the sessions' {want}")
+        fleet_copies = runs["live"][1].copies
+        table["live"] = {"session_tap_copies": session_copies,
+                         "fleet_tap_copies": fleet_copies,
+                         "fleet_seconds": {m: runs[m][3] for m in runs},
+                         "session_device_ops": ops}
+        added = {k: ops["live"][k] - ops["dark"][k] for k in ops["dark"]}
+        return (f"(b) live compiled session = dark (w, ledger, releases, "
+                f"predictions, launches), live_* = replay, "
+                f"{session_copies} tap copies (10 rounds + 1 serve); live "
+                f"fleet of 8 mimic int8 = dark, live sums = the sessions' "
+                f"({want['live_wire_bits_total']} bits), {fleet_copies} "
+                f"tap copies; session and fleet under "
+                f"set_sync_debug_mode('error'): no host read; the session "
+                f"program's device ops at 1 step a fit dark {ops['dark']} "
+                f"live {ops['live']}: the taps add {added} beside "
+                f"{ops['tap_copies']} tap copies")
+
+    def _tele_serve(self, table: dict) -> str:
+        """(c) 15(b)'s engine cut to 64 requests, three times dark and
+        three times with Telemetry(live=True) and a streamed trace; a live
+        serve_batch under set_sync_debug_mode("error"), and the device
+        operations of a dark and a live serve_batch."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.comm import codecs
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.serve import ServeEngine
+        from repro_torch.telemetry import MetricsRegistry, Telemetry
+        from repro_torch.telemetry.live import LiveSink, installed
+        data = self._mimic_data()
+        Xte = data[2]
+        n_te = int(Xte[0].shape[0])
+        protos = self.serve_protos or {
+            f"s{s}": self._serve_fit("compiled", s, E.MeteredTransport(
+                serve_codec=codecs.QuantCodec(8)), data) for s in range(8)}
+        plan = protos["s0"]._compiled_ctx[1]
+        stream = self._serve_stream(64, 8, 4, n_te)
+        runs = []
+        for lit in self.TELE_ORDER:
+            tele = Telemetry(live=True) if lit else None
+            trace = os.path.join(SMOKE_DIR, "telemetry_serve.jsonl")
+            if lit:
+                tele.stream_trace(trace)
+            engine = ServeEngine(cache_capacity=4, max_batch=8,
+                                 telemetry=tele, device="cuda")
+            for sid, proto in protos.items():
+                engine.add_session(sid, proto)
+            self.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._run_engine(engine, stream, Xte, 32)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            stats = engine.batcher.stats()
+            snap = self._launch_snapshot()
+            self.read_counts(0, f"telemetry serve engine lit={lit}",
+                             quantize_dequant_block_rows=stats["batches_run"]
+                             * self._serve_quant(plan))
+            outcomes = {rid: (np.asarray(o.preds).tolist(), o.bits,
+                              o.releases)
+                        for rid, o in engine.outcomes.items()}
+            engine.close()
+            runs.append((tele, outcomes, snap, secs, stats))
+        _, dark, dsnap, _, _ = runs[0]
+        for other_tele, other, osnap, _, _ in runs[1:]:
+            self.require(other == dark, "a request differs between the "
+                         "engine's runs with and without telemetry "
+                         "(predictions, bits, releases)")
+            self.require(osnap == dsnap, "serve engine: launches differ "
+                         "with telemetry")
+        # the last run with telemetry wrote the streamed trace
+        tele, lit, _, _, stats = [r for r in runs if r[0] is not None][-1]
+        reg = tele.registry
+        names = {s.name for s in tele.tracer.spans}
+        self.require({"flush", "flush_wave", "bucket_dispatch"} <= names
+                     and tele.tracer.well_formed(),
+                     f"serve spans {names}")
+        delivered = len(lit)
+        self.require(reg.total("live_serve_requests_total") == delivered
+                     == reg.total("serve_requests_total") == 64,
+                     f"live_serve_requests_total "
+                     f"{reg.total('live_serve_requests_total')} != "
+                     f"{delivered} delivered")
+        self.require(tele.live.copies == stats["batches_run"],
+                     f"{tele.live.copies} tap copies != "
+                     f"{stats['batches_run']} buckets")
+        self._tele_artifacts(tele, None, "serve")
+        # a live serve_batch of 8 slots under sync debug mode
+        proto = protos["s0"]
+        _, plan, result = proto._compiled_ctx
+        m = plan.num_agents
+        slots = [{"Xs": [x[b * 400:b * 400 + 1024] for x in Xte],
+                  "params": result.params, "alphas": result.alphas,
+                  "valid": result.valid,
+                  "rem_session": torch.full((), C._INT32_MAX,
+                                            dtype=torch.int32,
+                                            device=self.dev),
+                  "rem_link": torch.full((m,), C._INT32_MAX,
+                                         dtype=torch.int32, device=self.dev),
+                  "deliver": torch.ones(m, dtype=torch.bool,
+                                        device=self.dev)} for b in range(8)]
+        key = proto._session.state.key
+        draws = C._serve_draws_for(plan, [key] * 8, list(range(8)), 1024,
+                                   self.dev, [None] * 8)
+        self.reset_counts()
+        dark_res = C.serve_batch(plan, slots, draws=draws)   # and warm-up
+        torch.cuda.synchronize()
+        self.read_counts(0, "dark serve_batch",
+                         quantize_dequant_block_rows=self._serve_quant(plan))
+        sink = LiveSink(MetricsRegistry())
+        with installed(sink):
+            self.reset_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = C.serve_batch(plan, slots, draws=draws, live=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        self.read_counts(0, "sync-checked live serve_batch",
+                         quantize_dequant_block_rows=self._serve_quant(plan))
+        self.require(all(torch.equal(a, b) for a, b in zip(res, dark_res)),
+                     "the live serve_batch != the dark one")
+        self.require(sink.registry.total("live_serve_requests_total") == 8
+                     and sink.copies == 1, "the live serve_batch's taps")
+        bops = {"dark": _device_op_counts(
+            lambda: C.serve_batch(plan, slots, draws=draws))}
+        sink = LiveSink(MetricsRegistry())
+        with installed(sink):
+            bops["live"] = _device_op_counts(
+                lambda: C.serve_batch(plan, slots, draws=draws, live=True))
+        bops["tap_copies"] = sink.copies
+        badded = {k: bops["live"][k] - bops["dark"][k] for k in bops["dark"]}
+        p50 = reg.quantile("span_seconds", 0.5, name="flush_wave")
+        row, timing = self._tele_overhead(
+            [r[3] for r in runs if r[0] is None],
+            [r[3] for r in runs if r[0] is not None])
+        table["serve_engine"] = dict(row, requests=64, flush_wave_p50_s=p50,
+                                     tap_copies=tele.live.copies,
+                                     serve_batch_device_ops=bops)
+        return (f"(c) serve engine 64 requests, live telemetry = dark "
+                f"(predictions, bits, releases, launches), spans flush/"
+                f"flush_wave/bucket_dispatch, live_serve_requests_total = "
+                f"{delivered}, {tele.live.copies} tap copies (one a "
+                f"bucket), {timing}; a live "
+                f"serve_batch of 8 under set_sync_debug_mode('error'): no "
+                f"host read, = dark; its device ops dark {bops['dark']} "
+                f"live {bops['live']}: the taps add {badded} beside "
+                f"{bops['tap_copies']} tap copy")
+
+    def _tele_profile(self, table: dict) -> str:
+        """(d) the session CLI on blob3 with --profile-dir and --trace on
+        the card: the profiler's trace holds the spans as ranges."""
+        from repro_torch.launch import session as cli
+        from repro_torch.telemetry import check as tcheck
+        out = os.path.join(SMOKE_DIR, "telemetry_profile")
+        shutil.rmtree(out, ignore_errors=True)
+        trace = os.path.join(SMOKE_DIR, "telemetry_cli.jsonl")
+        self.reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = cli.run(cli.parser().parse_args(
+                ["--device", "cuda", "--profile-dir", out, "--trace",
+                 trace]))
+        hops = sum(e["kind"] == "ignorance"
+                   for e in run.transport.log.entries)
+        self.read_counts(hops, "telemetry profile CLI")
+        with open(os.path.join(out, "session.pt.trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name") for e in events}
+        want = {"session", "round#0", "round#5", "hop", "serve"}
+        self.require(want <= names, f"profiler ranges missing: "
+                     f"{sorted(want - names)}")
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        self.require(kernels > 0, "the profiler saw no device kernel")
+        errors = tcheck.validate_file(trace)
+        self.require(not errors, f"{trace}: {errors[:3]}")
+        table["profile"] = {"device_kernels": kernels, "hops": hops}
+        return (f"(d) session CLI --profile-dir --trace on blob3: the "
+                f"profiler's trace has {sorted(want)} as ranges and "
+                f"{kernels} device kernels; the trace passes the checker")
+
 
 def _bf16_backbone_logits(params: dict, X, cfg):
     """``learners.neural.logits`` with the backbone computed in bf16 (the
@@ -4048,7 +4623,8 @@ def main(argv: list[str]) -> int:
               5: s.fashion, 6: s.mimic_channel, 7: s.fashion_channel,
               8: s.flash_vs_plain, 9: s.serve, 10: s.ce_vs_plain,
               11: s.train, 12: s.learners, 13: s.control,
-              14: s.compiled, 15: s.serve_path, 16: s.scenarios}
+              14: s.compiled, 15: s.serve_path, 16: s.scenarios,
+              17: s.telemetry}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])

@@ -153,9 +153,16 @@ class BudgetedTransport(MeteredTransport):
         self.carryover_bits = 0
 
     # ------------------------------------------------------- budget ledger
+    # Every skip and every spend (the eager ladder walks, the compiled
+    # replays of the engine and the scenarios) goes through these two
+    # methods, so a telemetry registry on ``log`` sees the same budget
+    # traffic on both backends.
     def record_skip(self, link) -> None:
         """Book one dropped hop on ``link`` = (src, dst)."""
         self.skipped.append(link)
+        registry = getattr(self.log, "registry", None)
+        if registry is not None:
+            registry.inc("budget_skips_total", 1, src=link[0], dst=link[1])
 
     def record_spend(self, link, cost: int, rung: int) -> None:
         """Book ``cost`` bits of link spend for a hop shipped at ladder
@@ -163,6 +170,9 @@ class BudgetedTransport(MeteredTransport):
         self.codec = self.budget.ladder[int(rung)]
         self.link_spent[link] = self.link_spent.get(link, 0) + cost
         self._pending_rung = int(rung)
+        registry = getattr(self.log, "registry", None)
+        if registry is not None:
+            registry.inc("hops_by_rung_total", 1, rung=int(rung))
 
     @property
     def effective_serve_codec(self):

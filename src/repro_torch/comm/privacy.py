@@ -67,8 +67,15 @@ class PrivacyAccountant:
     vector."""
     releases: dict = field(default_factory=dict)   # agent name -> count
 
+    # optional telemetry MetricsRegistry: a class attribute, not a field,
+    # so that the RDP accountants' dataclass fields keep their order;
+    # Telemetry sets it on the instance
+    registry = None
+
     def record(self, agent: str) -> None:
         self.releases[agent] = self.releases.get(agent, 0) + 1
+        if self.registry is not None:
+            self.registry.inc("dp_releases_total", 1, agent=agent)
 
     def spent(self, agent: str, mechanism: GaussianMechanism
               ) -> tuple[float, float]:

@@ -147,7 +147,15 @@ class BudgetAwareScheduler(Scheduler):
             torch.tensor([spent.get(m, 0) for m in ids], dtype=torch.int64),
             torch.tensor([self._reward_ema.get(m, 0.0) for m in ids],
                          dtype=torch.float32))
-        return [ids[i] for i in order.tolist()]
+        order = [ids[i] for i in order.tolist()]
+        # telemetry (a registry on the transport's ledger): did the spend
+        # reorder this round?  Read after the order is decided
+        registry = getattr(getattr(self._transport, "log", None),
+                           "registry", None)
+        if registry is not None:
+            registry.inc("scheduler_rounds_total", 1,
+                         changed=order != sorted(active))
+        return order
 
     # ---- checkpointing ------------------------------------------------------
     def state_dict(self) -> dict:

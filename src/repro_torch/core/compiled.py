@@ -38,11 +38,21 @@ serve_draws`) and no host read.  :func:`serve_session` runs it for one
 request, :func:`serve_batch` for a bucket of requests as one vmapped
 program, whose block quantize is one launch for all slots.
 
+``live=True`` adds the live plane's taps (:mod:`repro_torch.telemetry.
+live`): one a round of each session and one a served request, each a
+small int32 vector of what the body already computed (the round's bits
+priced with the replay's formulas, hops sent and skipped, the exhaustion
+edge), copied to the host without a read inside the program and folded
+into the installed sink's ``live_*`` series.  Live programs are their
+dark twins bit for bit and make the same launches of the hand-written
+kernels; pricing and packing a tap add a few small device ops a round
+(chip_smoke phase 17(b) counts them beside the tap copies).
+
 PyTorch runs eagerly: "compiled" names the fixed-shape, host-read-free
 program, not a compiler.  The asynchronous lowering, the quantization and
 control sweeps (``qmax_arg``, ``control_arg``: the serve axis of
-``quant_sweep_run`` too), the live taps (``live=``) and ``shard_axis`` are
-later slices of the port and raise ``NotImplementedError``.
+``quant_sweep_run`` too) and ``shard_axis`` are later slices of the port
+and raise ``NotImplementedError``.
 
 Quickstart::
 
@@ -72,6 +82,8 @@ from repro_torch.core.encoding import encode_labels
 from repro_torch.core.engine import (LabelsMsg, SampleIdsMsg, _later_slice,
                                      key_data, tree_map)
 from repro_torch.kernels import ops
+from repro_torch.telemetry import live as live_plane
+from repro_torch.telemetry.spans import tensor_leaves
 
 
 # ========================================================================= plan
@@ -326,12 +338,15 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
     fit: M fits a slot.  That also lowers agents that differ (cores or
     feature widths), which the reference refuses; its gather over stacked
     agent data takes equal agents only.
-    ``qmax_arg``, ``control_arg`` (the sweeps) and ``live`` (the taps) are
-    later slices of the port."""
+    ``live`` stages one round tap a round (:func:`repro_torch.telemetry.
+    live.emit_round`): the round, whether it ran, its bits priced as the
+    replay books them (a shipped hop's encoded score and its 32-bit
+    alpha, the collation setup in round 0), the hops sent and skipped, and
+    whether the budget ran dry in it.
+    ``qmax_arg`` and ``control_arg`` (the sweeps) are later slices of the
+    port."""
     if qmax_arg or control_arg:
         raise _later_slice("the compiled sweeps (qmax_arg, control_arg)")
-    if live:
-        raise _later_slice("the compiled session's live taps (live=)")
     _check_lowering(plan, feature_shapes)
     k = plan.num_classes
     cores = plan.cores
@@ -380,9 +395,26 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
                     + MODEL_WEIGHT_BITS for c in ladder)
                 carry["wire"] = torch.zeros(num, dtype=torch.int64,
                                             device=dev)
+        if live:
+            live_setup = (num - 1) * (LabelsMsg("", "", n).bits
+                                      + SampleIdsMsg("", "", n).bits)
+            # a shipped hop's price at each rung: the replay's
+            # IgnoranceMsg (encoded, or raw float32) and ModelWeightMsg
+            if budget is not None:
+                live_costs = budget.hop_costs(n)
+            else:
+                live_costs = tuple(
+                    (c.wire_bits(n) if c is not None else n * 32)
+                    + MODEL_WEIGHT_BITS for c in ladder)
+            # a draw of the session, which a fleet's vmap batches
+            salt = next(tensor_leaves(draws))
         outs, agent_params = [], []
         for t in range(plan.max_rounds):
             u = torch.ones(n, dtype=torch.float32, device=dev)
+            if live:
+                live_active = ~stopped
+                entry_exh = carry.get("exhausted", false)
+                live_bits = live_sent = live_skip = _full(0, w)
             if scheduler is not None:
                 # the round's permutation from the carried signal, taken at
                 # round entry as the eager scheduler reads its transport
@@ -448,6 +480,14 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
                     add = torch.where(sent, wcost, _full(0, w))
                     carry["wire"] = carry["wire"] + torch.where(
                         ids == src, add, _full(0, w))
+                if live:
+                    cost = rung_select(rung, [_full(c, w)
+                                              for c in live_costs],
+                                       _full(0, w))
+                    live_bits = live_bits + torch.where(sent, cost,
+                                                        _full(0, w))
+                    live_sent = live_sent + sent.to(torch.int64)
+                    live_skip = live_skip + (valid & ~sent).to(torch.int64)
                 stopped = stopped | trigger
                 row.append((params, a, rbar, executed, valid, w, sent, rung,
                             src if scheduler is not None else _full(j, w),
@@ -456,6 +496,11 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
                 # the eager engine sees the exhaustion at the next round's
                 # entry: this round finishes, later ones never start
                 stopped = stopped | carry["exhausted"]
+            if live:
+                live_plane.emit_round(
+                    salt, t, live_active,
+                    live_bits + (live_setup if t == 0 else 0), live_sent,
+                    live_skip, carry.get("exhausted", false) & ~entry_exh)
             outs.append(row)
             if scheduler is not None:
                 # agent m's fit of the round: the one of the slot it took
@@ -587,12 +632,12 @@ def compiled_session(plan: SessionPlan, key, Xs: Sequence[torch.Tensor],
     """One session as one fixed-shape program: its draws taken first
     (``key``: an int seed or uint32 key data; ``source``: the draw source,
     default :class:`~repro_torch.comm.draws.ChannelDraws`), then the
-    program, which reads nothing back to the host."""
-    if live:
-        raise _later_slice("the compiled session's live taps (live=)")
+    program, which reads nothing back to the host.  ``live``: its round
+    taps go to the sink :func:`repro_torch.telemetry.live.installed`
+    routes them to."""
     Xs = tuple(Xs)
     shapes = tuple(tuple(x.shape[1:]) for x in Xs)
-    fn = make_session_fn(plan, shapes)
+    fn = make_session_fn(plan, shapes, live=live)
     draws = _draws_for(plan, key_data(key), int(classes.shape[0]), shapes,
                        classes.device, source, fleet=False)
     return fn(draws, Xs, classes)
@@ -609,17 +654,16 @@ def fleet_run(plan: SessionPlan, keys, Xs: Sequence[torch.Tensor],
     [F, n].  ``source``: the draw source, or one a key.  Returns a
     SessionResult with a leading [F] axis; session f equals
     :func:`compiled_session` with ``keys[f]`` within what batched matrix
-    products change (see tests/test_torch_compiled.py).  ``shard_axis``
-    and ``live`` are later slices."""
+    products change (see tests/test_torch_compiled.py).  ``live``: one
+    round tap a session and round, a round's F taps staged as one copy
+    (the tap's vmap rule).  ``shard_axis`` is a later slice."""
     if shard_axis is not None:
         raise _later_slice("sharded fleets (shard_axis=)")
-    if live:
-        raise _later_slice("the compiled session's live taps (live=)")
     Xs = tuple(Xs)
     shapes = tuple(tuple(x.shape[2:] if data_batched else x.shape[1:])
                    for x in Xs)
     n = int(classes.shape[-1])
-    fn = make_session_fn(plan, shapes)
+    fn = make_session_fn(plan, shapes, live=live)
     draws = _draws_for(plan, [key_data(k) for k in keys], n, shapes,
                        classes.device, source, fleet=True)
     data_ax = 0 if data_batched else None
@@ -665,12 +709,14 @@ def make_serve_fn(plan: SessionPlan, feature_shapes: tuple,
     the walk starts from, ignored without a budget; ``deliver`` [M] bool
     gates which non-head blocks cross at all (all True: a normal serve;
     ``[True, False, ...]``: admission's head-only degrade).  No host read.
-    ``qmax_arg`` (the serve axis of the quantization sweep) and ``live``
-    are later slices."""
+    ``live`` stages one serve tap a request (:func:`repro_torch.telemetry.
+    live.emit_serve`): whether it is a request (``deliver[0]``; False for
+    a bucket's pad slots), its bits priced as the serve replay books them,
+    the blocks sent and, under a budget, those it skipped.
+    ``qmax_arg`` (the serve axis of the quantization sweep) is a later
+    slice."""
     if qmax_arg:
         raise _later_slice("the compiled sweeps (qmax_arg, control_arg)")
-    if live:
-        raise _later_slice("the serve step's live taps (live=)")
     if len(feature_shapes) != plan.num_agents:
         raise ValueError(f"{plan.num_agents} cores but "
                          f"{len(feature_shapes)} feature shapes")
@@ -695,6 +741,13 @@ def make_serve_fn(plan: SessionPlan, feature_shapes: tuple,
             rem_l = rem_link.to(torch.int64)
         exhausted = torch.zeros((), dtype=torch.bool, device=dev)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
+        if live:
+            # a shipped block's price at each rung: what _replay_serve
+            # books (encoded, or raw float32 for an identity rung)
+            live_costs = (budget.serve_costs((n, k)) if budget is not None
+                          else tuple(c.wire_bits((n, k)) if c is not None
+                                     else 32 * n * k for c in ladder))
+            live_bits = live_sent = live_skip = _full(0, zero)
         total = None
         blocks, sent_l, rung_l = [], [], []
         for j, core in enumerate(cores):
@@ -748,6 +801,23 @@ def make_serve_fn(plan: SessionPlan, feature_shapes: tuple,
             sent_l.append(sendable)
             rung_l.append(torch.where(sendable, rung, _full(-1, block)))
             total = total + torch.where(sendable, blk, zero)
+            if live:
+                cost = (_full(live_costs[0], block)
+                        if budget is None and serve_controller is None
+                        else rung_select(rung, [_full(c, block)
+                                                for c in live_costs],
+                                         _full(0, block)))
+                live_bits = live_bits + torch.where(sendable, cost,
+                                                    _full(0, block))
+                live_sent = live_sent + sendable.to(torch.int64)
+                if budget is not None:
+                    # only a budget skips, and only blocks admission asked
+                    # to deliver
+                    live_skip = live_skip + (d_j & ~sendable).to(
+                        torch.int64)
+        if live:
+            live_plane.emit_serve(Xs[0], deliver[0], live_bits, live_sent,
+                                  live_skip)
         return ServeResult(preds=torch.argmax(total, dim=-1),
                            blocks=torch.stack(blocks),
                            sent=torch.stack(sent_l),
@@ -768,16 +838,14 @@ def serve_session(plan: SessionPlan, result: SessionResult, key,
     then the program.  ``valid`` overrides ``result.valid`` (e.g. masked
     by ``max_round``); ``rem_session`` / ``rem_link`` seed the budget
     counters (None: uncapped); ``deliver`` [M] bool gates the non-head
-    blocks (None: all)."""
-    if live:
-        raise _later_slice("the serve step's live taps (live=)")
+    blocks (None: all); ``live``: its serve tap."""
     Xs = tuple(Xs)
     shapes = tuple(tuple(x.shape[1:]) for x in Xs)
     n, dev = int(Xs[0].shape[0]), Xs[0].device
     num = plan.num_agents
     draws = {name: d[0] for name, d in _serve_draws_for(
         plan, [key], [request], n, dev, [source]).items()}
-    return make_serve_fn(plan, shapes)(
+    return make_serve_fn(plan, shapes, live=live)(
         draws, Xs, result.params, result.alphas,
         result.valid if valid is None else valid,
         _stack_field([rem_session], (), dev)[0],
@@ -813,9 +881,9 @@ def serve_batch(plan: SessionPlan, slots, *, draws: dict | None = None,
     Returns a ServeResult with a leading slot axis; slot b is what
     ``serve_session`` gives for that slot alone: the vmap never mixes
     slots, a pad slot with an all-False ``deliver`` ships nothing, and the
-    block quantize is one launch for all slots (``kernels.ops``)."""
-    if live:
-        raise _later_slice("the serve step's live taps (live=)")
+    block quantize is one launch for all slots (``kernels.ops``).
+    ``live``: one serve tap a slot, the bucket's taps staged as one copy
+    (the pad slots' dropped by the sink)."""
     slots = list(slots)
     num = plan.num_agents
     Xs = tuple(torch.stack([s["Xs"][m] for s in slots]) for m in range(num))
@@ -824,7 +892,8 @@ def serve_batch(plan: SessionPlan, slots, *, draws: dict | None = None,
         draws = _serve_draws_for(plan, [s["key"] for s in slots],
                                  [s.get("request") for s in slots], n, dev,
                                  [s.get("source") for s in slots])
-    fn = make_serve_fn(plan, tuple(tuple(x.shape[2:]) for x in Xs))
+    fn = make_serve_fn(plan, tuple(tuple(x.shape[2:]) for x in Xs),
+                       live=live)
     return torch.func.vmap(fn)(
         draws, Xs, stack_trees([s["params"] for s in slots]),
         torch.stack([s["alphas"] for s in slots]),

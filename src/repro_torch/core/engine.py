@@ -27,8 +27,14 @@ whose hops cross the same channel through :meth:`Transport.ship`
 (:class:`GradientMsg`, :class:`ResidualMsg`).  A scenario
 (:mod:`repro_torch.scenarios.scenario`) filters each round's order by
 its participation mask, masks the fit weights to non-IID shards and lags
-the async reads by a clock skew.  Telemetry and the mesh ring belong to
-later slices of the port; their arguments raise ``NotImplementedError``.
+the async reads by a clock skew.  ``telemetry=`` (a
+:class:`repro_torch.telemetry.Telemetry`) observes a run as the
+reference's does: ``session`` -> ``round`` -> ``hop`` spans on the eager
+path, ``session`` and ``replay`` (and ``serve``) on the compiled one, the
+ledger's counters at the transport's choke points, and the live plane's
+round and serve taps; it changes no value and no kernel launch.  The
+mesh ring is a later slice of the port; ``mesh=`` raises
+``NotImplementedError``.
 
 One rule differs from the reference, and it is deliberate: every standard
 hop (``Transport._execute_update``) goes through
@@ -76,6 +82,8 @@ from repro_torch.core.transport import TransportLog
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.learners.base import Learner
+from repro_torch.telemetry.live import installed as live_installed
+from repro_torch.telemetry.spans import fence_of, span_of
 
 Params = Any
 
@@ -736,31 +744,34 @@ class ASCIIVariant(ProtocolVariant):
         u = torch.ones_like(st.w)
         for j, m in enumerate(order):
             dst = eps[order[(j + 1) % len(order)]]
-            params = eps[m].fit_local(session.draws.fit(st.key, t, j),
-                                      session.classes,
-                                      session.fit_weight(m, st.w), k)
-            r = eps[m].reward(params, session.classes)
-            a, rbar = scores.model_weight(
-                st.w, r, k, u=u if cfg.upstream and j > 0 else None,
-                alpha_cap=cfg.alpha_cap)
-            alpha = float(a)
-            rec["alphas"].append(alpha)
-            rec["accs"].append(float(rbar))
-            session.scheduler.observe(m, float(rbar))
-            if cfg.stop_on_negative_alpha and alpha <= 0:
-                return True        # Algorithm 1, line 8
-            st.components.append(Component(m, st.round, alpha, params))
-            u = scores.upstream_factor_update(u, a, r, k)
-            link_state = (None if st.codec_state is None
-                          else st.codec_state.get(eps[m].name))
-            st.w, link_state = session.transport.interchange(
-                eps[m], dst, st.w, r, a, reweight, standard,
-                draws=session.draws.hop(st.key, t, j) if channel else None,
-                codec_state=link_state)
-            if link_state is not None:
-                if st.codec_state is None:
-                    st.codec_state = {}
-                st.codec_state[eps[m].name] = link_state
+            with span_of(session.telemetry, "hop", src=eps[m].name,
+                         dst=dst.name):
+                params = eps[m].fit_local(session.draws.fit(st.key, t, j),
+                                          session.classes,
+                                          session.fit_weight(m, st.w), k)
+                r = eps[m].reward(params, session.classes)
+                a, rbar = scores.model_weight(
+                    st.w, r, k, u=u if cfg.upstream and j > 0 else None,
+                    alpha_cap=cfg.alpha_cap)
+                alpha = float(a)
+                rec["alphas"].append(alpha)
+                rec["accs"].append(float(rbar))
+                session.scheduler.observe(m, float(rbar))
+                if cfg.stop_on_negative_alpha and alpha <= 0:
+                    return True        # Algorithm 1, line 8
+                st.components.append(Component(m, st.round, alpha, params))
+                u = scores.upstream_factor_update(u, a, r, k)
+                link_state = (None if st.codec_state is None
+                              else st.codec_state.get(eps[m].name))
+                st.w, link_state = session.transport.interchange(
+                    eps[m], dst, st.w, r, a, reweight, standard,
+                    draws=(session.draws.hop(st.key, t, j) if channel
+                           else None),
+                    codec_state=link_state)
+                if link_state is not None:
+                    if st.codec_state is None:
+                        st.codec_state = {}
+                    st.codec_state[eps[m].name] = link_state
         return False
 
     def fitted(self, session: "Session") -> FittedASCII:
@@ -899,7 +910,9 @@ class Session:
     FedAvg and Assisted Learning in :mod:`repro_torch.scenarios`),
     ``scenario`` a :class:`~repro_torch.scenarios.Scenario`: its
     participation mask filters each round's order, its shard masks the
-    fit weights, its clock skew the async reads.
+    fit weights, its clock skew the async reads.  ``telemetry`` (a
+    :class:`repro_torch.telemetry.Telemetry`) is attached to the transport
+    before any traffic and only observes.
     """
 
     def __init__(self, cfg: SessionConfig, scheduler: Scheduler,
@@ -910,8 +923,6 @@ class Session:
                  device: str | torch.device = "cuda",
                  draws: ChannelDraws | None = None,
                  _send_setup: bool = True) -> None:
-        if telemetry is not None:
-            raise _later_slice("telemetry (telemetry=)")
         variant = variant if variant is not None else ASCIIVariant()
         if scheduler.stale and transport.controller is not None:
             raise ValueError(
@@ -937,6 +948,11 @@ class Session:
         self.cfg = cfg
         self.scheduler = scheduler
         self.transport = transport
+        # observation only: attached before any traffic so that the
+        # registry sees every booking; nothing of the protocol reads it
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.attach_transport(transport)
         self.endpoints = list(endpoints)
         for i, ep in enumerate(self.endpoints):
             if ep.agent_id != i:
@@ -976,11 +992,41 @@ class Session:
         transport.bind(self.endpoints)
         scheduler.bind_transport(transport)
         variant.bind(self)
+        # the live plane: eager rounds tap the sink directly with the
+        # round's registry deltas, metered transports only (an unmetered
+        # run books nothing).  The counters are read before the collation
+        # setup, so that its bits land in round 0's tap, as in the
+        # compiled program's
+        self._live = None
+        if telemetry is not None and telemetry.live is not None \
+                and getattr(transport, "log", None) is not None:
+            self._live = telemetry.live
+            self._live_prev = self._live_counters()
         if _send_setup:
             self._send_setup()
 
     def _place(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
+
+    # ---- telemetry ----------------------------------------------------------
+    def _live_counters(self) -> tuple:
+        """What an eager round tap differences: total wire bits, ignorance
+        messages, budget skips, the exhausted flag."""
+        reg = self.telemetry.registry
+        return (reg.total("wire_bits_total"),
+                reg.value("messages_total", kind="ignorance"),
+                reg.total("budget_skips_total"),
+                bool(getattr(self.transport, "exhausted", False)))
+
+    def _emit_live_round(self, t: int) -> None:
+        """One eager round tap: the payload the compiled program's
+        ``emit_round`` stages (round, bits, sent, skipped, the exhaustion
+        edge)."""
+        bits, ign, skips, exh = cur = self._live_counters()
+        p_bits, p_ign, p_skips, p_exh = self._live_prev
+        self._live_prev = cur
+        self._live.round_tap(t, int(bits - p_bits), int(ign - p_ign),
+                             int(skips - p_skips), int(exh and not p_exh))
 
     def _send_setup(self) -> None:
         """Collation setup: the head agent shares labels and sample IDs
@@ -1032,7 +1078,10 @@ class Session:
             order = [m for m in order if self._participation[t, m]]
             rec["participants"] = list(order)
         # a round that churn emptied is empty, not a stop: stragglers return
-        stop = self.variant.run_round(self, order, rec) if order else False
+        stop = False
+        with span_of(self.telemetry, "round", step=t, agents=len(order)):
+            if order:
+                stop = self.variant.run_round(self, order, rec)
         if self.validation is not None:
             Xs_val, c_val = self.validation
             hits = (self.fitted().predict(Xs_val) == c_val).to(torch.float32)
@@ -1050,6 +1099,8 @@ class Session:
         st.round += 1
         if stop:
             st.stopped = True
+        if self._live is not None:
+            self._emit_live_round(t)
         return not st.stopped and st.round < cfg.max_rounds
 
     def _step_stale(self, order: list[int], eps: dict, rec: dict) -> bool:
@@ -1139,10 +1190,12 @@ class Session:
     def run(self, max_rounds: int | None = None) -> SessionState:
         """Drive ``step()`` to completion (or for ``max_rounds`` more)."""
         budget = float("inf") if max_rounds is None else max_rounds
-        while budget > 0:
-            budget -= 1
-            if not self.step():
-                break
+        with span_of(self.telemetry, "session", backend="eager",
+                     agents=len(self.endpoints)):
+            while budget > 0:
+                budget -= 1
+                if not self.step():
+                    break
         return self.state
 
     # ---- results ------------------------------------------------------------
@@ -1165,20 +1218,35 @@ class Session:
                 f"session.fitted().predict(Xs)")
         head = self.endpoints[0]
         serve = self.transport.has_serve_channel
+        if self._live is not None:
+            reg = self.telemetry.registry
+            p_bits = reg.total("wire_bits_total")
+            p_blk = reg.value("messages_total", kind="score_block")
+            p_skips = reg.total("budget_skips_total")
         total = None
-        for i, ep in enumerate(self.endpoints):
-            X = None if Xs is None else self._place(Xs[i])
-            block = ep.score_block(self.state.components,
-                                   self.cfg.num_classes, X=X,
-                                   max_round=max_round)
-            if ep is not head:
-                draws = (self.draws.serve(self.state.key, i, request)
-                         if serve else None)
-                block = self.transport.serve_block(ep, head, block,
-                                                   draws=draws)
-                if block is None:
-                    continue           # budget skip: head-only fallback
-            total = block if total is None else total + block
+        with span_of(self.telemetry, "serve", backend="eager",
+                     agents=len(self.endpoints)):
+            for i, ep in enumerate(self.endpoints):
+                X = None if Xs is None else self._place(Xs[i])
+                block = ep.score_block(self.state.components,
+                                       self.cfg.num_classes, X=X,
+                                       max_round=max_round)
+                if ep is not head:
+                    draws = (self.draws.serve(self.state.key, i, request)
+                             if serve else None)
+                    block = self.transport.serve_block(ep, head, block,
+                                                       draws=draws)
+                    if block is None:
+                        continue       # budget skip: head-only fallback
+                total = block if total is None else total + block
+        if self._live is not None:
+            # one serve tap a request, the eager twin of the program's
+            # emit_serve, differencing the same booked counters
+            self._live.serve_tap(
+                int(reg.total("wire_bits_total") - p_bits),
+                int(reg.value("messages_total", kind="score_block")
+                    - p_blk),
+                int(reg.total("budget_skips_total") - p_skips))
         return torch.argmax(total, dim=-1)
 
     # ---- checkpointing ------------------------------------------------------
@@ -1243,8 +1311,12 @@ class Protocol:
     ``fit`` runs the session as one program (``core/compiled.py``; a
     protocol variant's own lowering, ``variant.fit_compiled``) and replays
     its ledger; such a run has no live session to step, pause or
-    checkpoint.  ``variant`` and ``scenario`` are handed to every session
-    (see :class:`Session`).
+    checkpoint.  ``variant``, ``scenario`` and ``telemetry`` are handed to
+    every session (see :class:`Session`); a compiled run attaches
+    ``telemetry`` to the transport before its replay books the ledger,
+    opens ``session`` around the program (fenced) and ``replay`` around
+    the replay, and with ``telemetry.live`` installs the live sink around
+    the program, whose rounds and serves tap it.
     """
 
     def __init__(self, cfg: SessionConfig, scheduler: Scheduler | None = None,
@@ -1255,9 +1327,8 @@ class Protocol:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected "
                              f"{BACKENDS}")
-        if telemetry is not None:
-            raise _later_slice("telemetry (telemetry=)")
         self.device = resolve_device(device)
+        self.telemetry = telemetry
         self.cfg = cfg
         self.scheduler = (scheduler if scheduler is not None
                           else SequentialScheduler())
@@ -1290,7 +1361,8 @@ class Protocol:
         return Session(self.cfg, self.scheduler, self.transport, endpoints,
                        classes, state, validation=validation,
                        variant=self.variant, scenario=self.scenario,
-                       device=self.device, draws=self.draws)
+                       telemetry=self.telemetry, device=self.device,
+                       draws=self.draws)
 
     def resume(self, directory: str, endpoints: Sequence[AgentEndpoint],
                classes: torch.Tensor, validation=None,
@@ -1316,14 +1388,18 @@ class Protocol:
         session = Session(self.cfg, self.scheduler, self.transport,
                           endpoints, classes, state, validation=validation,
                           variant=self.variant, scenario=self.scenario,
-                          device=self.device, draws=self.draws,
-                          _send_setup=False)
+                          telemetry=self.telemetry, device=self.device,
+                          draws=self.draws, _send_setup=False)
         session._comm_restore(state.comm)
         return session
 
     def fit(self, key, endpoints: Sequence[AgentEndpoint],
             classes: torch.Tensor, validation=None):
         if self.backend == "compiled":
+            if self.telemetry is not None:
+                # before any booking: the replays (the engine's and the
+                # variants') then emit through the transport's choke points
+                self.telemetry.attach_transport(self.transport)
             if not isinstance(self.variant, ASCIIVariant):
                 # a protocol variant owns its lowering (FedAvg's one
                 # program, repro_torch.scenarios.compiled)
@@ -1335,6 +1411,16 @@ class Protocol:
         session.run()
         self._session = session
         return session.fitted()
+
+    # ---- telemetry of the compiled backend ----------------------------------
+    def _live_sink(self):
+        """The live sink when the live plane applies to this run: telemetry
+        opened it and the transport is metered (an unmetered run books no
+        bits on either backend)."""
+        if self.telemetry is not None and self.telemetry.live is not None \
+                and getattr(self.transport, "log", None) is not None:
+            return self.telemetry.live
+        return None
 
     def _fit_compiled(self, key, endpoints: Sequence[AgentEndpoint],
                       classes: torch.Tensor, validation) -> FittedASCII:
@@ -1391,13 +1477,19 @@ class Protocol:
                                  f"{self.device}")
             ep.X = torch.as_tensor(ep.X, device=self.device)
         classes = torch.as_tensor(classes, device=self.device)
-        result = compiled.compiled_session(
-            plan, key_data(key), [ep.X for ep in endpoints], classes,
-            source=self.draws)
+        live_sink = self._live_sink()
+        # the fence closes the span when the program is done, not when its
+        # launches are queued
+        with span_of(self.telemetry, "session", backend="compiled",
+                     agents=len(endpoints)), live_installed(live_sink):
+            result = fence_of(self.telemetry, compiled.compiled_session(
+                plan, key_data(key), [ep.X for ep in endpoints], classes,
+                live=live_sink is not None, source=self.draws))
         fitted = compiled.fitted_from_result(plan, result,
                                              [ep.learner for ep in endpoints])
         self.scheduler.reset()
-        self._replay_traffic(endpoints, classes, result, plan)
+        with span_of(self.telemetry, "replay", backend="compiled"):
+            self._replay_traffic(endpoints, classes, result, plan)
         state = SessionState(w=result.w, key=key_data(key),
                              round=len(fitted.history),
                              components=fitted.components,
@@ -1502,11 +1594,16 @@ class Protocol:
             valid = valid & (rounds <= max_round)[:, None]
         shape = (int(Xs_serve[0].shape[0]), self.cfg.num_classes)
         rem_session, rem_link = self._serve_remaining(endpoints, plan)
-        serve = compiled.serve_session(
-            plan, result, self._session.state.key, Xs_serve,
-            request=request, valid=valid, rem_session=rem_session,
-            rem_link=rem_link, source=self.draws)
-        self._replay_serve(endpoints, serve, shape, plan)
+        live_sink = self._live_sink()
+        with span_of(self.telemetry, "serve", backend="compiled",
+                     agents=len(endpoints)), live_installed(live_sink):
+            serve = fence_of(self.telemetry, compiled.serve_session(
+                plan, result, self._session.state.key, Xs_serve,
+                request=request, valid=valid, rem_session=rem_session,
+                rem_link=rem_link, live=live_sink is not None,
+                source=self.draws))
+        with span_of(self.telemetry, "replay", backend="compiled"):
+            self._replay_serve(endpoints, serve, shape, plan)
         return serve.preds
 
     def _serve_remaining(self, endpoints, plan):

@@ -6,6 +6,10 @@ weight, and once at setup the numeric labels and sample IDs; under a wire
 codec the score is booked at its encoded size.  Every booking
 passes through :meth:`TransportLog.send_bits`, which appends the entry and
 updates the (kind, src, dst) accumulator the aggregate views derive from.
+With a telemetry ``registry`` attached (:mod:`repro_torch.telemetry`), the
+same booking emits ``wire_bits_total{kind,src,dst}`` and
+``messages_total{kind}``: one emission point for both backends, since the
+compiled backend books its replayed ledger through this method.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import numpy as np
 @dataclass
 class TransportLog:
     entries: list = field(default_factory=list)
+    #: optional telemetry MetricsRegistry, attached by Telemetry
+    registry: object = None
 
     def __post_init__(self):
         self._total = 0
@@ -55,6 +61,10 @@ class TransportLog:
             entry["rung"] = int(rung)
         self.entries.append(entry)
         self._accumulate(src, dst, kind, bits)
+        if self.registry is not None:
+            self.registry.inc("wire_bits_total", bits,
+                              kind=kind, src=src, dst=dst)
+            self.registry.inc("messages_total", 1, kind=kind)
 
     @property
     def total_bits(self) -> int:

@@ -16,12 +16,15 @@ and the p50 / p99 of the requests' submit-to-settle seconds.
   PYTHONPATH=src python -m repro_torch.launch.serve_fleet \
       --serve-controller margin --dp-epsilon 1.0 --epsilon-cap 8 \
       --tenant-kb 4
-  PYTHONPATH=src python -m repro_torch.launch.serve_fleet --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve_fleet --device cpu \
+      --trace fleet.jsonl --metrics-out fleet.prom --watch   # telemetry
 
 The data are drawn from a ``torch.Generator`` seeded with ``--seed``, so
-the numbers differ from the reference driver's.  ``--trace``,
-``--metrics-out`` and ``--watch`` (the telemetry bundle) are a later
-slice of the port: they exit with a message.
+the numbers differ from the reference CLI's.  ``--trace`` streams a
+JSONL telemetry trace (the fits' session/replay spans, each flush's
+flush/flush_wave/bucket_dispatch spans), ``--metrics-out`` writes the
+fleet's registry, ``--watch`` draws the live dashboard on stderr from the
+bucket programs' serve taps.
 """
 from __future__ import annotations
 
@@ -43,15 +46,16 @@ from repro_torch.data.partition import train_test_split, vertical_split
 from repro_torch.device import resolve_device
 from repro_torch.learners.logistic import LogisticRegression
 from repro_torch.serve import AdmissionController, AdmissionPolicy, ServeEngine
+from repro_torch.telemetry import Telemetry
 from repro_torch.telemetry.slo import SLOConfig
 
 DATASETS = {"blob3": synthetic.blob_fig3, "blob4": synthetic.blob_fig4,
             "blob6": synthetic.blob_fig6}
 
 
-def fit_fleet(args, Xtr, ctr, num_classes, device) -> dict:
+def fit_fleet(args, Xtr, ctr, num_classes, device, telemetry=None) -> dict:
     """Fit ``--sessions`` compiled protocols, session s from seed s (one
-    plan for all)."""
+    plan for all), each observed by ``telemetry``."""
     protos = {}
     for s in range(args.sessions):
         privacy = (GaussianMechanism(epsilon=args.dp_epsilon)
@@ -70,7 +74,7 @@ def fit_fleet(args, Xtr, ctr, num_classes, device) -> dict:
         proto = Protocol(SessionConfig(num_classes=num_classes,
                                        max_rounds=args.rounds),
                          transport=transport, backend="compiled",
-                         device=device)
+                         telemetry=telemetry, device=device)
         endpoints = endpoints_for(
             [LogisticRegression(steps=args.steps, device=device)
              for _ in Xtr], Xtr)
@@ -121,15 +125,17 @@ def parser() -> argparse.ArgumentParser:
                     help="fraction of a tenant's requests that must land "
                          "under --slo-ms")
     ap.add_argument("--watch", action="store_true",
-                    help="the live fleet dashboard (a later slice of the "
-                         "port)")
+                    help="draw the live fleet dashboard on stderr while the "
+                         "workload runs: the serve taps, tenant p50/p99, "
+                         "SLO burn, admission and cache counters")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default="",
-                    help="a JSONL telemetry trace (a later slice of the "
-                         "port)")
+                    help="stream a JSONL telemetry trace here (the fits' "
+                         "and the flushes' spans, live events with "
+                         "--watch), sealed with the final metrics")
     ap.add_argument("--metrics-out", default="",
-                    help="the fleet's metrics registry as a file (a later "
-                         "slice of the port)")
+                    help="write the fleet's metrics registry here (.prom: "
+                         "Prometheus text, else a JSON snapshot)")
     ap.add_argument("--device", default="cuda",
                     help="where the sessions run (cuda, or cpu)")
     return ap
@@ -141,11 +147,6 @@ def main(argv: list[str] | None = None) -> dict:
     if args.serve_controller and args.serve_codec:
         ap.error("--serve-controller drives serve codec choice through "
                  "its ladder; drop --serve-codec")
-    for flag in ("trace", "metrics_out", "watch"):
-        if getattr(args, flag):
-            ap.exit(2, f"--{flag.replace('_', '-')}: the telemetry bundle "
-                       f"is not ported to repro_torch yet (see "
-                       f"ROADMAP.md)\n")
     torch.backends.cuda.matmul.allow_tf32 = False
     device = resolve_device(args.device)
     gen = torch.Generator().manual_seed(args.seed)
@@ -157,8 +158,17 @@ def main(argv: list[str] | None = None) -> dict:
     Xtr, Xte = [x[tr] for x in Xs], [x[te] for x in Xs]
     ctr = ds.classes[tr]
 
+    telemetry = (Telemetry(live=args.watch)
+                 if args.trace or args.metrics_out or args.watch else None)
+    if args.trace:
+        telemetry.stream_trace(args.trace)
+    dash = None
+    if args.watch:
+        from repro_torch.telemetry.dash import Dashboard
+        dash = Dashboard(telemetry.registry,
+                         title="serve fleet").attach(telemetry.live)
     t0 = time.time()
-    protos = fit_fleet(args, Xtr, ctr, ds.num_classes, device)
+    protos = fit_fleet(args, Xtr, ctr, ds.num_classes, device, telemetry)
     print(f"fitted {args.sessions} sessions in {time.time() - t0:.2f}s")
 
     mechanism = (GaussianMechanism(epsilon=args.dp_epsilon)
@@ -173,7 +183,7 @@ def main(argv: list[str] | None = None) -> dict:
                             epsilon_cap=args.epsilon_cap or None),
             tenant_bits=args.tenant_kb * 8 * 1024 or None,
             mechanism=mechanism),
-        slo=slo, device=device)
+        telemetry=telemetry, slo=slo, device=device)
     for sid, proto in protos.items():
         engine.add_session(sid, proto)
 
@@ -197,7 +207,16 @@ def main(argv: list[str] | None = None) -> dict:
     summary["request_seconds"] = {
         q: engine.registry.quantile_all("request_seconds", p)
         for q, p in (("p50", 0.5), ("p99", 0.99))}
+    if dash is not None:
+        dash.final()
     print(json.dumps(summary, indent=2))
+    if telemetry is not None:
+        # fleet-wide: the link gauges are a transport's, so no gauge sync
+        telemetry.write_artifacts(trace=args.trace or None,
+                                  metrics_out=args.metrics_out or None)
+        for path in (args.trace, args.metrics_out):
+            if path:
+                print(f"telemetry: wrote {path}")
     engine.close()
     return summary
 

@@ -28,6 +28,8 @@ checkpointing and resume.
       --partition dirichlet --skew 0.3     # Assisted Learning, non-IID
   PYTHONPATH=src python -m repro_torch.launch.session --variant async \
       --clock-skew 0,0,2,1                 # stale reads lagging barriers
+  PYTHONPATH=src python -m repro_torch.launch.session --trace run.jsonl \
+      --metrics-out run.prom --profile-dir prof --watch   # telemetry
   PYTHONPATH=src python -m repro_torch.launch.session --device cpu
 
 It prints the reference's ``dataset,[protocol,]variant,transport,
@@ -36,11 +38,18 @@ line (ASCII only) and its channel
 lines (``controller: ..``, ``codec=..``, ``serve_codec=..``,
 ``serve_controller: ..``, ``budget: ..``, ``dp: ..``).  The
 data are drawn from a ``torch.Generator`` seeded with ``--seed``, so the
-numbers differ from the reference CLI's.
+numbers differ from the reference CLI's.  ``--trace`` streams a JSONL
+telemetry trace (spans as they close, the metrics at the end),
+``--metrics-out`` writes the registry (``.prom``: Prometheus text, else a
+JSON snapshot), ``--profile-dir`` runs the session under
+``torch.profiler.profile`` (CPU and CUDA activities, the spans as
+``record_function`` ranges) and writes its Chrome trace there, and
+``--watch`` draws the live dashboard on stderr.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 from dataclasses import dataclass
@@ -65,6 +74,7 @@ from repro_torch.learners.mlp import MLP
 from repro_torch.learners.tree import DecisionTree
 from repro_torch.scenarios import (PARTITIONS, PRESETS, PROTOCOLS, Scenario,
                                    make_variant)
+from repro_torch.telemetry import Telemetry
 
 DATASETS = {
     "blob3": lambda gen, n, dev: synthetic.blob_fig3(gen, n=n, device=dev),
@@ -194,6 +204,25 @@ def parser() -> argparse.ArgumentParser:
                          "save a resumable checkpoint and exit)")
     ap.add_argument("--resume", action="store_true",
                     help="resume from --ckpt-dir instead of starting fresh")
+    ap.add_argument("--trace", default="",
+                    help="stream a JSONL telemetry trace here: spans as "
+                         "they close, the final metrics when the run ends "
+                         "(a killed run leaves a prefix that `python -m "
+                         "repro_torch.telemetry.check --allow-partial` "
+                         "accepts)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the final metrics registry here (.prom: "
+                         "Prometheus text, else a JSON snapshot)")
+    ap.add_argument("--profile-dir", default="",
+                    help="run the session under torch.profiler (CPU and "
+                         "CUDA activities) and write its Chrome trace into "
+                         "this directory; the session/round/hop spans are "
+                         "ranges on its timeline")
+    ap.add_argument("--watch", action="store_true",
+                    help="draw the live dashboard on stderr while the "
+                         "session runs (per-round bits, skips, exhaustion; "
+                         "the compiled program's rounds through its live "
+                         "taps)")
     ap.add_argument("--backend", default="eager",
                     choices=["eager", "compiled"],
                     help="eager: the host loop; compiled: the whole session "
@@ -217,6 +246,7 @@ class Run:
     line: str
     paused: bool
     fitted: object = None
+    telemetry: Telemetry | None = None
 
 
 def check_args(args: argparse.Namespace) -> None:
@@ -404,6 +434,54 @@ def _print_serve(transport: Transport, preds: torch.Tensor,
     print(line)
 
 
+def make_telemetry(args: argparse.Namespace):
+    """The run's Telemetry (None without a telemetry flag), its trace
+    streaming when ``--trace`` is set, and the ``--watch`` dashboard."""
+    if not (args.trace or args.metrics_out or args.profile_dir
+            or args.watch):
+        return None, None
+    telemetry = Telemetry(profile=bool(args.profile_dir), live=args.watch)
+    if args.trace:
+        telemetry.stream_trace(args.trace)
+    dash = None
+    if args.watch:
+        from repro_torch.telemetry.dash import Dashboard
+        dash = Dashboard(telemetry.registry,
+                         title=f"session:{args.dataset}").attach(
+                             telemetry.live)
+    return telemetry, dash
+
+
+def _profiler(args: argparse.Namespace, device):
+    """``torch.profiler.profile`` for ``--profile-dir`` (CPU activity, and
+    CUDA on the card), else a no-op context."""
+    if not args.profile_dir:
+        return contextlib.nullcontext()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities)
+
+
+def _finish_telemetry(args, telemetry, transport, dash, prof) -> None:
+    """Write the profiler's trace, draw the dashboard's last frame and
+    write the trace and metrics, after all traffic."""
+    if args.profile_dir:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        path = os.path.join(args.profile_dir, "session.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profile: wrote {path}")
+    if dash is not None:
+        dash.final()
+    if telemetry is not None:
+        telemetry.write_artifacts(trace=args.trace or None,
+                                  metrics_out=args.metrics_out or None,
+                                  transport=transport)
+        for path in (args.trace, args.metrics_out):
+            if path:
+                print(f"telemetry: wrote {path}")
+
+
 def run(args: argparse.Namespace) -> Run:
     """Run (or resume) one session as the CLI does, printing its lines."""
     check_args(args)
@@ -425,15 +503,28 @@ def run(args: argparse.Namespace) -> Run:
     except ValueError as e:
         raise SystemExit(str(e))
     transport = make_transport(args, scenario)
+    telemetry, dash = make_telemetry(args)
     engine = Protocol(SessionConfig(num_classes=ds.num_classes,
                                     max_rounds=args.rounds,
                                     upstream=upstream),
                       scheduler=scheduler, transport=transport,
                       backend=args.backend, variant=variant,
                       scenario=None if scenario.trivial else scenario,
-                      device=device)
+                      telemetry=telemetry, device=device)
     endpoints = endpoints_for([LEARNERS[args.learner](args) for _ in Xs], Xtr)
+    with _profiler(args, device) as prof:
+        out = _drive(args, engine, endpoints, Xtr, ctr, Xte, cte, transport)
+    _finish_telemetry(args, telemetry, transport, dash, prof)
+    if out.paused:
+        print(f"paused after {out.session.state.round} rounds"
+              + ("; rerun with --resume to continue" if args.ckpt_dir
+                 else "; nothing was saved (pass --ckpt-dir)"))
+    out.telemetry = telemetry
+    return out
 
+
+def _drive(args, engine, endpoints, Xtr, ctr, Xte, cte, transport) -> Run:
+    """Fit (or resume) the session, print its lines and serve (ASCII)."""
     run_cfg = {k: getattr(args, k) for k in RUN_KEYS}
     cfg_path = os.path.join(args.ckpt_dir or ".", "cli_config.json")
     if args.resume:
@@ -491,10 +582,6 @@ def run(args: argparse.Namespace) -> Run:
                  else session.predict_distributed(Xte))
         _print_serve(transport, preds, cte, before)
     _print_comm(transport)
-    if paused:
-        print(f"paused after {session.state.round} rounds"
-              + ("; rerun with --resume to continue" if args.ckpt_dir
-                 else "; nothing was saved (pass --ckpt-dir)"))
     return Run(session, transport, line, paused, fitted)
 
 

@@ -41,6 +41,7 @@ from repro_torch.core.engine import (ASCIIVariant, Component, GradientMsg,
                                      LabelsMsg, ProtocolVariant, ResidualMsg,
                                      SampleIdsMsg, SequentialScheduler,
                                      key_data, shard_fit_weight)
+from repro_torch.telemetry.spans import fence_of, span_of
 
 
 # ============================================================ flat parameters
@@ -350,10 +351,13 @@ class FedAvgVariant(ProtocolVariant):
             codec=transport.codec, privacy=transport.privacy,
             budget=getattr(transport, "budget", None))
         Xs = tuple(ep.X for ep in endpoints)
-        result = scompiled.fedavg_session(
-            plan, key_data(key), Xs, classes, mask,
-            fedavg_fit_weights(classes, num, scenario, device),
-            source=protocol.draws)
+        fit_w = fedavg_fit_weights(classes, num, scenario, device)
+        tele = protocol.telemetry
+        with span_of(tele, "session", backend="compiled", variant=self.name,
+                     agents=num):
+            result = fence_of(tele, scompiled.fedavg_session(
+                plan, key_data(key), Xs, classes, mask, fit_w,
+                source=protocol.draws))
         self._replay(protocol, endpoints, classes, result, plan, mask)
         history = self._history(core, shapes, result, mask, Xs, classes,
                                 scenario)

@@ -23,7 +23,7 @@ from typing import Any
 import numpy as np
 
 from repro_torch.core import compiled
-from repro_torch.core.engine import _later_slice
+from repro_torch.telemetry.spans import fence_of, span_of
 
 
 @dataclass
@@ -60,18 +60,21 @@ class Batcher:
     engine plugs its cache in); ``settle`` is called for each slot of a
     wave before the next wave runs.  ``batches_run`` / ``slots_run`` /
     ``padded_slots`` count in the registry as ``batch_events_total
-    {event}``.  ``tracer`` (spans) is a later slice of the port."""
+    {event}``.  ``tracer`` (a :class:`~repro_torch.telemetry.spans.
+    SpanTracer`) opens a ``flush_wave`` span a wave and a fenced
+    ``bucket_dispatch`` span a bucket program; ``live`` makes the bucket
+    programs tap each request (the pad slots' taps are dropped by the
+    sink)."""
     max_batch: int = 8
     resolve: Any = None
     pending: list = field(default_factory=list)
     registry: Any = None
     tracer: Any = None
+    live: bool = False
 
     def __post_init__(self):
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
-        if self.tracer is not None:
-            raise _later_slice("the batcher's spans (tracer=)")
         if self.registry is None:
             from repro_torch.telemetry.registry import MetricsRegistry
             self.registry = MetricsRegistry()
@@ -131,7 +134,11 @@ class Batcher:
             filler = dict(args[0], deliver=np.zeros_like(
                 np.asarray(args[0]["deliver"])))
             args.extend([filler] * pad)
-        res = compiled.serve_batch(plan, args)
+        # the fence: the span times the computation, not the queued launches
+        with span_of(self.tracer, "bucket_dispatch", slots=len(chunk),
+                     pad=pad):
+            res = fence_of(self.tracer,
+                           compiled.serve_batch(plan, args, live=self.live))
         self.registry.inc("batch_events_total", 1, event="batch")
         self.registry.inc("batch_events_total", len(chunk), event="slot")
         if pad:
@@ -149,22 +156,25 @@ class Batcher:
         out = []
         waves = self._waves()
         self.pending = []
-        for wave in waves:
-            buckets: dict = {}
-            for slot in wave:
-                buckets.setdefault(slot.bucket, []).append(slot)
-            wave_out = []
-            for group in buckets.values():
-                for lo in range(0, len(group), self.max_batch):
-                    wave_out.extend(
-                        self._run_chunk(group[lo:lo + self.max_batch]))
-            wave_out.sort(key=lambda pair: pair[0].request_id)
-            if settle is not None:
-                # before the next wave: a later request against the same
-                # session starts from the counters after this one's spend
-                for slot, res in wave_out:
-                    settle(slot, res)
-            out.extend(wave_out)
+        for w, wave in enumerate(waves):
+            with span_of(self.tracer, "flush_wave", step=w,
+                         slots=len(wave)):
+                buckets: dict = {}
+                for slot in wave:
+                    buckets.setdefault(slot.bucket, []).append(slot)
+                wave_out = []
+                for group in buckets.values():
+                    for lo in range(0, len(group), self.max_batch):
+                        wave_out.extend(
+                            self._run_chunk(group[lo:lo + self.max_batch]))
+                wave_out.sort(key=lambda pair: pair[0].request_id)
+                if settle is not None:
+                    # before the next wave: a later request against the
+                    # same session starts from the counters after this
+                    # one's spend
+                    for slot, res in wave_out:
+                        settle(slot, res)
+                out.extend(wave_out)
         out.sort(key=lambda pair: pair[0].request_id)
         return out
 

@@ -25,9 +25,12 @@ counters counted down, and the tenant charged the bits the ledger booked.
 The invariant (tests/test_torch_serve_engine.py): a request served
 through a batch equals the same request served alone by
 ``Protocol.predict_distributed(Xs, request=rid)`` bit for bit:
-predictions, booked bits, DP releases.  The ``Telemetry`` bundle
-(``telemetry=``: spans, live taps, exporters) is a later slice of the
-port; ``slo=`` works.
+predictions, booked bits, DP releases.  With ``telemetry=`` (a
+:class:`repro_torch.telemetry.Telemetry`) every counter goes to its
+registry, a flush opens the ``flush`` span (the batcher's
+``flush_wave`` and ``bucket_dispatch`` under it), and with
+``telemetry.live`` the bucket programs tap each request into the live
+sink while they run.
 """
 from __future__ import annotations
 
@@ -39,13 +42,14 @@ import torch
 
 from repro_torch.comm.privacy import PrivacyAccountant
 from repro_torch.core.compiled import _INT32_MAX
-from repro_torch.core.engine import _later_slice
 from repro_torch.core.transport import TransportLog
 from repro_torch.serve.admission import DENY, AdmissionController, Decision
 from repro_torch.serve.batcher import Batcher, Slot
 from repro_torch.serve.cache import ServeSessionState, SessionCache
+from repro_torch.telemetry.live import installed as live_installed
 from repro_torch.telemetry.registry import MetricsRegistry
 from repro_torch.telemetry.slo import SLOConfig, SLOTracker
+from repro_torch.telemetry.spans import span_of
 
 
 @dataclass
@@ -80,24 +84,28 @@ class ServeEngine:
     """Continuous-batching serve engine over fitted compiled protocols.
     ``device`` is where restored sessions go (the sessions' own device);
     every counter lives in one :class:`~repro_torch.telemetry.registry.
-    MetricsRegistry` (``registry``); ``slo`` tracks a latency objective
-    per tenant.  ``telemetry`` is a later slice."""
+    MetricsRegistry` (``registry``: ``telemetry``'s when given, else the
+    engine's own); ``slo`` tracks a latency objective per tenant."""
 
     def __init__(self, *, cache_capacity: int = 8, max_batch: int = 8,
                  spill_dir: str | None = None,
                  admission: AdmissionController | None = None,
                  telemetry=None, slo: SLOConfig | None = None,
                  device="cuda") -> None:
-        if telemetry is not None:
-            raise _later_slice("the serve engine's telemetry bundle "
-                               "(telemetry=)")
-        self.registry = MetricsRegistry()
+        self.telemetry = telemetry
+        self.registry = (telemetry.registry if telemetry is not None
+                         else MetricsRegistry())
+        # the live plane: the bucket programs tap each request, and flush
+        # installs this sink around them
+        self.live = telemetry.live if telemetry is not None else None
         self.cache = SessionCache(cache_capacity, spill_dir,
                                   registry=self.registry, device=device)
         self.batcher = Batcher(
             max_batch=max_batch,
             resolve=lambda slot: self.cache.get(slot.session_id),
-            registry=self.registry)
+            registry=self.registry,
+            tracer=telemetry.tracer if telemetry is not None else None,
+            live=self.live is not None)
         self.admission = (admission if admission is not None
                           else AdmissionController())
         self.slo = SLOTracker(slo, self.registry) if slo is not None else None
@@ -110,7 +118,7 @@ class ServeEngine:
                     self.registry.inc(e["name"], e["value"], **e["labels"])
             self.admission.registry = self.registry
         self._submitted: dict[int, float] = {}
-        self.log = TransportLog()
+        self.log = TransportLog(registry=self.registry)
         self.sessions: dict[str, SessionMeta] = {}
         self.outcomes: dict[int, ServeOutcome] = {}
         self._next_request = 0
@@ -267,7 +275,9 @@ class ServeEngine:
             self.outcomes[out.request_id] = out
             done[out.request_id] = out
 
-        self.batcher.flush(settle=settle)
+        with span_of(self.telemetry, "flush", queued=len(self.batcher)), \
+                live_installed(self.live):
+            self.batcher.flush(settle=settle)
         return done
 
     # --------------------------------------------------------------- summary

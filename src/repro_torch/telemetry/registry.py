@@ -1,11 +1,14 @@
-"""The metrics registry: one sink for the serve engine's counters.
+"""The metrics registry: one sink for every counter the port keeps.
 
-Counterpart of ``repro/telemetry/registry.py`` (a copy of the part the
-serve engine reads; the reference module is pure Python).  Labeled
-counters, gauges and histograms with deterministic ordering and exact
-integer arithmetic for bit tallies.  The registry is written from host
-code that reads values already computed (ledger bookings, settle hooks);
-it adds no device work and nothing of the protocol reads it.
+Counterpart of ``repro/telemetry/registry.py`` (a copy; the reference
+module is pure Python).  Labeled counters, gauges and histograms with
+deterministic ordering and exact integer arithmetic for bit tallies, and
+a loss-free event form (:meth:`MetricsRegistry.to_events`,
+:meth:`MetricsRegistry.from_events`) in the reference's shapes, so that
+traces of either package reload in the other.  The registry is written
+from host code that reads values already computed (ledger bookings, the
+compiled backend's replays, settle hooks, live taps); it adds no device
+work and nothing of the protocol reads it.
 
 Names: ``*_total`` counters, units in the name (``*_bits``,
 ``*_seconds``), labels for the dimension that varies (tenant, event,
@@ -94,7 +97,8 @@ class MetricsRegistry:
         agg["sum"] += value
         agg["min"] = min(agg["min"], value)
         agg["max"] = max(agg["max"], value)
-        agg["buckets"][bucket_index(value)] += 1
+        if "buckets" in agg:             # absent on reloaded v1 aggregates
+            agg["buckets"][bucket_index(value)] += 1
 
     # --------------------------------------------------------------- reads
     def value(self, name: str, /, **labels) -> int | float:
@@ -106,9 +110,7 @@ class MetricsRegistry:
 
     def histogram(self, name: str, /, **labels) -> dict | None:
         agg = self._hists.get(name, {}).get(_label_key(labels))
-        if agg is None:
-            return None
-        return {**agg, "buckets": list(agg["buckets"])}
+        return None if agg is None else _copy(agg)
 
     def quantile(self, name: str, q: float, /, **labels) -> float | None:
         """Estimated q-quantile of one exact histogram series."""
@@ -123,13 +125,14 @@ class MetricsRegistry:
         merged = None
         for agg in series.values():
             if merged is None:
-                merged = {**agg, "buckets": list(agg["buckets"])}
+                merged = {**agg, "buckets": list(agg.get("buckets")
+                                                 or [0] * NUM_BUCKETS)}
                 continue
             merged["count"] += agg["count"]
             merged["sum"] += agg["sum"]
             merged["min"] = min(merged["min"], agg["min"])
             merged["max"] = max(merged["max"], agg["max"])
-            for i, c in enumerate(agg["buckets"]):
+            for i, c in enumerate(agg.get("buckets") or ()):
                 merged["buckets"][i] += c
         return merged
 
@@ -142,10 +145,17 @@ class MetricsRegistry:
         """A counter's total across its label sets."""
         return sum(self._counters.get(name, {}).values())
 
+    def series(self, name: str) -> dict[tuple, int | float]:
+        """{label-key tuple: value} of one counter, sorted."""
+        return dict(sorted(self._counters.get(name, {}).items()))
+
     def label_values(self, name: str, label: str) -> list[str]:
         """The distinct values of one label across a counter's series."""
         return sorted({v for key in self._counters.get(name, {})
                        for k, v in key if k == label})
+
+    def counter_names(self) -> list[str]:
+        return sorted(self._counters)
 
     # -------------------------------------------------------------- events
     def to_events(self) -> list[dict]:
@@ -160,6 +170,32 @@ class MetricsRegistry:
         for name in sorted(self._hists):
             for key, agg in sorted(self._hists[name].items()):
                 events.append({"type": "histogram", "name": name,
-                               "labels": dict(key), **agg,
-                               "buckets": list(agg["buckets"])})
+                               "labels": dict(key), **_copy(agg)})
         return events
+
+    @classmethod
+    def from_events(cls, events: list[dict]) -> "MetricsRegistry":
+        """A registry rebuilt from :meth:`to_events` output (a reloaded
+        trace); a histogram without buckets (schema v1) stays without."""
+        reg = cls()
+        for e in events:
+            kind = e.get("type")
+            if kind == "counter":
+                reg.inc(e["name"], e["value"], **e.get("labels", {}))
+            elif kind == "gauge":
+                reg.set_gauge(e["name"], e["value"], **e.get("labels", {}))
+            elif kind == "histogram":
+                agg = {f: e[f] for f in ("count", "sum", "min", "max")}
+                if e.get("buckets") is not None:
+                    agg["buckets"] = list(e["buckets"])
+                reg._hists.setdefault(e["name"], {})[
+                    _label_key(e.get("labels", {}))] = agg
+        return reg
+
+
+def _copy(agg: dict) -> dict:
+    """A histogram aggregate with its own bucket list (when it has one)."""
+    out = dict(agg)
+    if "buckets" in out:
+        out["buckets"] = list(out["buckets"])
+    return out

@@ -607,9 +607,10 @@ def test_compiled_rejects_what_it_does_not_lower(blob):
     plan = TC.plan_for([TLogistic(steps=5, device=CPU) for _ in Xtr], k,
                        codec=tcodecs.QuantCodec(8))
     shapes = tuple(tuple(x.shape[1:]) for x in Xtr)
-    for kw in ({"qmax_arg": True}, {"control_arg": True}, {"live": True}):
+    for kw in ({"qmax_arg": True}, {"control_arg": True}):
         with pytest.raises(NotImplementedError):
             TC.make_session_fn(plan, shapes, **kw)
+    TC.make_session_fn(plan, shapes, live=True)   # the live taps lower
     with pytest.raises(NotImplementedError):
         TC.fleet_run(plan, [0, 1], _t(Xtr), c, shard_axis="data")
     with pytest.raises(NotImplementedError):

@@ -40,6 +40,7 @@ from repro_torch.learners.logistic import LogisticRegression
 from repro_torch.serve import (ACCEPT, DEGRADE, DENY, AdmissionController,
                                AdmissionPolicy, Batcher, ServeEngine, Slot)
 from repro_torch.serve.cache import ServeSessionState, SessionCache
+from repro_torch.telemetry import SpanTracer, Telemetry
 from repro_torch.telemetry.registry import MetricsRegistry
 from repro_torch.telemetry.slo import SLOConfig, SLOTracker
 
@@ -332,8 +333,21 @@ def test_serve_batch_matches_serve_session_per_slot(blob, fleet):
     for slot, res in out:
         np.testing.assert_array_equal(
             res.preds, batched.preds[slot.request_id].numpy())
-    with pytest.raises(NotImplementedError):
-        Batcher(tracer=object())
+    # with a tracer: the same results, a flush_wave span a wave and a
+    # bucket_dispatch span a bucket program under it
+    tracer = SpanTracer()
+    traced = Batcher(max_batch=4, tracer=tracer)
+    for rid, (_, Xblk) in enumerate(reqs):
+        traced.add(Slot(request_id=rid, session_id=f"sess{rid}", tenant="t",
+                        plan=plan, key=key, Xs=Xblk,
+                        deliver=np.ones(num, bool), state=state,
+                        request=rid))
+    for (_, res), (_, want) in zip(traced.flush(), out):
+        np.testing.assert_array_equal(res.preds, want.preds)
+    assert [(s.name, s.attrs) for s in tracer.spans] == [
+        ("flush_wave", {"slots": 3, "step": 0}),
+        ("bucket_dispatch", {"slots": 3, "pad": 1})]
+    assert tracer.well_formed()
 
 
 # ================================== the serve controller on both backends
@@ -392,8 +406,9 @@ def test_engine_rejects_unfit_duplicate_and_later_slices(blob, fleet):
     with pytest.raises(KeyError):
         engine.submit("t", "missing", [torch.ones((4, 2))] * 3)
     engine.close()
-    with pytest.raises(NotImplementedError):
-        ServeEngine(telemetry=object(), device=CPU)
+    # a Telemetry bundle's registry is the engine's one registry
+    tele = Telemetry()
+    assert ServeEngine(telemetry=tele, device=CPU).registry is tele.registry
 
 
 def test_summary_schema(blob, fleet):
@@ -416,7 +431,7 @@ def test_summary_schema(blob, fleet):
     engine.close()
 
 
-def test_serve_fleet_cli_runs(capsys):
+def test_serve_fleet_cli_runs(capsys, tmp_path):
     from repro_torch.launch import serve_fleet
     summary = serve_fleet.main(["--device", "cpu", "--sessions", "3",
                                 "--requests", "12", "--serve-codec", "int8",
@@ -425,8 +440,12 @@ def test_serve_fleet_cli_runs(capsys):
     assert summary["requests"] == 12
     assert summary["cache"]["spills"] > 0
     assert summary["request_seconds"]["p99"] > 0
-    with pytest.raises(SystemExit):
-        serve_fleet.main(["--device", "cpu", "--trace", "t.jsonl"])
+    # --trace, --metrics-out (tests/test_torch_telemetry.py checks them)
+    trace = tmp_path / "t.jsonl"
+    serve_fleet.main(["--device", "cpu", "--sessions", "1", "--requests",
+                      "2", "--n", "120", "--steps", "5", "--trace",
+                      str(trace)])
+    assert trace.read_text().startswith('{"schema": "repro-telemetry"')
 
 
 # ===================== the bookkeeping modules, one stream on both sides

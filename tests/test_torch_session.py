@@ -410,8 +410,8 @@ def test_entry_points_raise_without_card(blob):
 
 def test_later_slice_arguments_raise(blob):
     """What later slices of the port bring raises NotImplementedError: the
-    compiled backend's async-stale lowering, telemetry and the mesh ring.
-    The wire channel (tests/test_torch_comm_session.py), the control plane
+    compiled backend's async-stale lowering and the mesh ring.  Telemetry
+    (tests/test_torch_telemetry.py), the wire channel (tests/test_torch_comm_session.py), the control plane
     with the async variant (tests/test_torch_control.py), the compiled
     backend's sequential lowering (tests/test_torch_compiled.py) and the
     scenarios with the protocol variants and their hops
@@ -423,8 +423,8 @@ def test_later_slice_arguments_raise(blob):
     from repro_torch.scenarios import PRESETS, FedAvgVariant
     Xtr, ctr, _, _, k = blob
     cfg = T.SessionConfig(num_classes=k)
-    with pytest.raises(NotImplementedError):
-        T.Protocol(cfg, device=CPU, telemetry=object())
+    from repro_torch.telemetry import Telemetry
+    T.Protocol(cfg, device=CPU, telemetry=Telemetry())
     T.Protocol(cfg, device=CPU, scenario=PRESETS["churn"],
                variant=FedAvgVariant())
     T.Protocol(cfg, device=CPU, backend="compiled")
