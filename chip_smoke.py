@@ -114,7 +114,7 @@
    session is the CPU's bit for bit (ledger, alphas, predictions, w).
    (c) examples/heterogeneous_agents.py: tree + logistic + MLP agents with
    the CV stop; ASCII beats the single tree.  (d) a NeuralBackbone agent at
-   qwen3-0.6b's layer width cut to 2 layers and 20 steps, beside three
+   qwen3-0.6b's layer width cut to 2 layers and 10 steps, beside three
    trees; one backbone fit on the card and on the CPU: logits within
    5e-4 max|logit|; the same card fit with the backbone computed in bf16
    is the control, and must fall outside that limit.
@@ -143,11 +143,11 @@
    with --backend compiled: fp32, phase 6's five channels,
    --controller resid, --controller entropy, --scheduler budget-aware
    under the budget; compiled = eager on the card: ledgers, rungs, round
-   orders, stop rounds, predictions exact, w bit-equal; async under
-   --backend compiled raises NotImplementedError.  (c) Fleets: 32 MIMIC
-   int8 sessions (keys 0..31) and 8 Fashion-MLP sessions (2 rounds) on
+   orders, stop rounds, predictions exact, w bit-equal (the async
+   variant under --backend compiled: phase 18(a)).  (c) Fleets: 32 MIMIC
+   int8 sessions (keys 0..31) and 4 Fashion-MLP sessions (2 rounds) on
    shared data;
-   every Fashion session and 8 of the 32 MIMIC ones (0-6 and 31) against
+   every Fashion session and 4 of the 32 MIMIC ones (0-2 and 31) against
    compiled_session with the same key (bit-equal; an MLP session may
    part only at a hop that rounding decides: w and alphas bit-equal
    before it, its fits within 12(a)'s limit, every parted prediction a
@@ -246,6 +246,43 @@
    ``span_seconds`` p50 of session, round, hop and flush_wave, the tap
    copies of a session, a fleet and the engine beside the device
    operations a live program adds, and each part's seconds.
+18. The rest of the compiled backend, MIMIC at full size (n = 15000,
+   agents of 3 and 13 features, LogisticRegression(steps=50), 10
+   rounds).  (a) The async-stale lowering (``core.compiled.
+   async_session`` through ``Protocol(backend="compiled")``) against the
+   eager async run on the card under the reference's five async channels
+   (plain, int8, DP epsilon 2 clip 0.1, and on the (int8, int4) ladder a
+   budget that finishes and one that runs dry mid-session, both caps
+   rescaled from ``payload_costs(n)``): components, alphas, history, w,
+   ledgers, release rungs, skips, exhaustion, DP releases and
+   predictions bit for bit; launches: one unnormalized ignorance update
+   a positive alpha eager, a (round, agent) compiled, quantize a coded
+   release eager, a round and int rung compiled; eager and compiled
+   seconds; the async program (tight budget and DP) under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host read.  (b)
+   ``quant_sweep_run`` on an int8 plan at qmax [127, 31, 7] with equal
+   keys and the serve axis on the 4500 held-out rows: each row =
+   ``compiled_session`` + ``serve_session`` of the static plan at its
+   range (int8, a 6-bit ``QuantCodec`` built for it, int4) and = the
+   eager run, bit for bit, the fits' params within Queue 3's logistic
+   tolerance (atol 1e-5 + rtol 1e-5); one quantize launch a hop and one
+   block launch a non-head agent whether the sweep holds 1 or 3 ranges;
+   ``codec_sweep_rows`` (bits a element from ``quant_bits_per_element``,
+   interchange and serve bits, accuracy).  (c) ``control_sweep_run``:
+   the reference's four (cut, beta) configs on an (fp16, int4)
+   controller, and four session caps on (int8, int4) (None, one that
+   finishes, two that run dry, one of them before the last round): each
+   row = the static compile bit for bit, ``TRACE_COUNTS ==
+   {"control_sweep": 1}`` a sweep; ``live=True`` = dark, the taps'
+   counters = the static runs' replayed ledgers, one tap copy a round.
+   (d) The quantize kernels with the range as a device operand
+   (``quantize_dequant_rows`` with a tensor qmax at [3, 15000], qmax
+   [127, 31, 7]; ``quantize_dequant_block_rows`` at the serve axis's
+   [3, 4500, 2] with those ranges and at [8, 1024, 2] with eight) = their
+   plain versions = lone launches at the float range, bit for bit, two
+   runs identical, one device kernel a call;
+   ``qmax_rows_table`` (call and device ms, plain, bytes bound at 3.35
+   TB/s, launch floor) beside the card's name and power limit.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -285,6 +322,13 @@ MIMIC_STEPS = 50
 # 8 sessions three ways took ~100 s at 3 rounds, and phases 16 and 17
 # took the script past 800 s)
 FASHION_FLEET_ROUNDS = 2
+# phase 14(c)'s fleet sizes and the MIMIC fleet's sessions held against
+# compiled_session and eager runs (Fashion 8 and 8 of 32 MIMIC ones took
+# 99 s on an H100 80GB HBM3 at 700 W; cut for phase 18)
+FASHION_FLEET, MIMIC_FLEET, MIMIC_HELD = 4, 32, (0, 1, 2, 31)
+# phase 12(d)'s backbone steps (its CPU fit took 57 s at 20; cut to 10
+# for phase 18)
+BACKBONE_STEPS = 10
 # phase 16(c)'s FedAvg rounds (the paper's 5 cut to 3: its twenty
 # sessions took ~150 s, and phase 17 would take the script past 800 s)
 FEDAVG_ROUNDS = 3
@@ -326,6 +370,17 @@ def _counters() -> dict:
             "flash_decode": fd.flash_decode,
             "weighted_ce_fwd": wce.weighted_ce_fwd,
             "weighted_ce_bwd": wce.weighted_ce_bwd}
+
+
+# The quantize kernels with the range as a device operand (the
+# instantiations that read one qmax a row): launched by the float-range
+# batches' wrappers given a tensor qmax, and counted by those wrappers'
+# counters, named here.  Their launches in the kernels' JSON line are those
+# counters' reads over the codec sweep's runs (18(b)), where every quantize
+# and every served block takes the device range.
+QMAX_ROUTES = {"quantize_dequant_rows_qmax": "quantize_dequant_tiles",
+               "quantize_dequant_block_rows_qmax":
+                   "quantize_dequant_block_rows"}
 
 
 def _bound_ms(nbytes: int, ops: int,
@@ -618,12 +673,13 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.failed: list[str] = []
         self.kernels: dict[str, dict] = {}
-        self.launches = {name: 0 for name in _counters()}
+        self.launches = {name: 0 for name in [*_counters(), *QMAX_ROUTES]}
         self.fashion_fp32 = None       # phase 5's data and accuracy
         self.mlp_limit = None          # phase 12a's logits limit
         self.floor_ms = None           # phase 2's launch floor
         self.serve_protos = None       # phase 15(b)'s fitted sessions
         self.tele_dark = {}            # phase 17(a)'s dark runs
+        self.card = ""                 # the card's name and power limit
 
     def phase(self, num: int, fn) -> None:
         t0 = time.perf_counter()
@@ -2403,7 +2459,7 @@ class Smoke:
 
     def _neural_backbone(self) -> str:
         """(d) NeuralBackbone agents at qwen3-0.6b's layer width, cut to 2
-        layers, 20 steps."""
+        layers, BACKBONE_STEPS steps."""
         torch = self.torch
         from repro_torch.comm.draws import ChannelDraws
         from repro_torch.configs.registry import get_arch
@@ -2418,7 +2474,8 @@ class Smoke:
         Xtr, ctr, Xte, cte = self._split(ds)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        learners = [NeuralBackbone(cfg=cfg, steps=20, device="cuda"),
+        learners = [NeuralBackbone(cfg=cfg, steps=BACKBONE_STEPS,
+                                   device="cuda"),
                     DecisionTree(depth=4, device="cuda"),
                     DecisionTree(depth=4, device="cuda"),
                     DecisionTree(depth=4, device="cuda")]
@@ -2449,7 +2506,7 @@ class Smoke:
         logits = {}
         for name, dev in (("cuda", "cuda"), ("cpu", "cpu"),
                           ("cuda_bf16", "cuda")):
-            nb = NeuralBackbone(cfg=cfg, steps=20, device=dev)
+            nb = NeuralBackbone(cfg=cfg, steps=BACKBONE_STEPS, device=dev)
             X = Xtr[0].to(dev)
             t1 = time.perf_counter()
             with (mock.patch.object(neural, "logits", _bf16_backbone_logits)
@@ -2468,7 +2525,8 @@ class Smoke:
                      f"cannot see a bf16 forward")
         return (f"(d) NeuralBackbone qwen3-0.6b width (d_model 1024, 16/8 "
                 f"heads of 128, d_ff 3072, vocab 151936) cut to 2 layers and "
-                f"20 steps, agent 0 of blob n_train=700 beside 3 trees, 2 "
+                f"{BACKBONE_STEPS} steps, agent 0 of blob n_train=700 beside 3 "
+                f"trees, 2 "
                 f"rounds: components={len(st.components)} acc={acc:.4f}; "
                 f"session {secs:.2f} s, {statistics.median(fit_ms):.0f} ms a "
                 f"backbone fit, peak device memory {peak_gib:.3f} GiB; one "
@@ -2900,7 +2958,7 @@ class Smoke:
 
     def _compiled_mimic(self) -> str:
         """(b) MIMIC's nine configs through the CLI's builders, compiled =
-        eager on the card; async raises."""
+        eager on the card (the async variant: phase 18(a))."""
         torch = self.torch
         from repro_torch.comm.budget import BudgetSpec
         from repro_torch.core import compiled as C
@@ -3009,29 +3067,10 @@ class Smoke:
                        f"rounds={len(cf.history)} acc={acc:.4f} "
                        f"bits={ct.total_bits} eager {esec:.2f} s compiled "
                        f"{csec:.2f} s")
-        args = cli.parser().parse_args(["--device", "cuda", "--learner",
-                                        "logistic", "--steps",
-                                        str(MIMIC_STEPS), "--backend",
-                                        "compiled", "--variant", "async",
-                                        "--codec", "int8"])
-        cli.check_args(args)
-        scheduler, upstream = cli.make_scheduler(args)
-        try:
-            E.Protocol(E.SessionConfig(num_classes=2, max_rounds=10),
-                       scheduler=scheduler,
-                       transport=cli.make_transport(args),
-                       backend="compiled", device="cuda").fit(
-                0, E.endpoints_for([cli.LEARNERS["logistic"](args)
-                                    for _ in Xtr], Xtr), ctr)
-            raised = False
-        except NotImplementedError:
-            raised = True
-        self.require(raised, "--variant async --backend compiled did not "
-                     "raise NotImplementedError")
         return (f"(b) mimic logistic({MIMIC_STEPS}) 10 rounds, compiled = "
                 "eager on the "
                 "card (ledgers, rungs, orders, stops, predictions, w "
-                "bit-equal); async raises: " + "; ".join(out))
+                "bit-equal): " + "; ".join(out))
 
     def _fleet_vs_single(self, plan, fleet, keys, held, Xs, ctr, Xte,
                          learners, name, logits_limit=None):
@@ -3150,13 +3189,14 @@ class Smoke:
         return secs
 
     def _fleets(self) -> str:
-        """(c) a MIMIC int8 seed fleet of 32 and a Fashion-MLP fleet of 8 on
+        """(c) a MIMIC int8 seed fleet of 32 and a Fashion-MLP fleet of 4 on
         shared data; each against compiled_session calls and eager
-        sessions: all 8 Fashion sessions, and 8 of the 32 MIMIC ones (the
-        first 7 and the last; 32 of each took 150 s on the card, more
-        than phase 14's share of the script's time limit).  The Fashion
-        fleet runs 2 rounds of the session's 5 (FASHION_FLEET_ROUNDS), to
-        leave phases 16 and 17 their share of the script's time."""
+        sessions: all 4 Fashion sessions, and 4 of the 32 MIMIC ones (the
+        first 3 and the last; 32 of each took 150 s on the card, more
+        than phase 14's share of the script's time limit; 8 and 8 took 99
+        s).  The Fashion fleet runs 2 rounds of the session's 5
+        (FASHION_FLEET_ROUNDS), to leave phases 16 to 18 their share of
+        the script's time."""
         torch = self.torch
         from repro_torch.comm.codecs import QuantCodec
         from repro_torch.core import compiled as C
@@ -3165,17 +3205,17 @@ class Smoke:
         from repro_torch.learners.mlp import MLP
         out = []
         fleets = (
-            ("mimic int8", 32, self._mimic_data(),
+            ("mimic int8", MIMIC_FLEET, self._mimic_data(),
              [LogisticRegression(steps=MIMIC_STEPS, device="cuda")] * 2, 2,
              10, lambda: QuantCodec(8)),
-            ("fashion MLP", 8, self._fashion_data(),
+            ("fashion MLP", FASHION_FLEET, self._fashion_data(),
              [MLP(hidden=(128, 64), steps=200, device="cuda")] * 2, 10,
              FASHION_FLEET_ROUNDS, lambda: None))
         for name, F, (Xtr, ctr, Xte, _), learners, k, rounds, codec \
                 in fleets:
             plan = C.plan_for(learners, k, max_rounds=rounds, codec=codec())
             keys = list(range(F))
-            held = list(range(7)) + [F - 1] if F > 8 else keys
+            held = list(MIMIC_HELD) if F == MIMIC_FLEET else keys
             self.reset_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4576,6 +4616,517 @@ class Smoke:
                 f"profiler's trace has {sorted(want)} as ranges and "
                 f"{kernels} device kernels; the trace passes the checker")
 
+    # ------------------------------------ the rest of the compiled backend
+    def compiled_rest(self) -> str:
+        """Phase 18: (a)-(d) of the module note; every part runs, then the
+        phase fails if one did."""
+        out, failed = [], []
+        for part in (self._qmax_routes, self._async_compiled,
+                     self._codec_sweep, self._control_sweep):
+            t0 = time.perf_counter()
+            try:
+                out.append(part())
+                print(f"phase 18 part ({time.perf_counter() - t0:.1f} s): "
+                      f"{out[-1]}", flush=True)
+            except Exception as e:  # the phase fails below, after the rest
+                traceback.print_exc()
+                failed.append(f"{part.__name__}: {type(e).__name__}: {e}")
+        if failed:
+            raise AssertionError("; ".join(failed))
+        return "; ".join(out)
+
+    def _qmax_routes(self) -> str:
+        """(d) the device-qmax routes against their plain versions and
+        lone launches at the float range, bit for bit, two runs identical,
+        one device kernel a call; ``qmax_rows_table``."""
+        torch = self.torch
+        from repro_torch.kernels import quantize as q
+        gen = torch.Generator(device=self.dev).manual_seed(18)
+        floor = self.floor_ms
+        if floor is None:
+            floor = self.floor_ms = self._launch_floor()
+        table = []
+        # (JSON name, shape, ranges, route, plain, lone call, the TPU
+        # kernel's line, the main path's shape: the sweep's hop and its
+        # serve axis's blocks, which the JSON line reports)
+        cases = (("quantize_dequant_rows_qmax", (3, 15000),
+                  [127.0, 31.0, 7.0], q.quantize_dequant_rows,
+                  q.quantize_dequant_rows_plain, q.quantize_dequant_tiles,
+                  73, True),
+                 ("quantize_dequant_block_rows_qmax", (3, 4500, 2),
+                  [127.0, 31.0, 7.0], q.quantize_dequant_block_rows,
+                  q.quantize_dequant_block_rows_plain,
+                  q.quantize_dequant_block, 178, True),
+                 ("quantize_dequant_block_rows_qmax", (8, 1024, 2),
+                  [127.0, 100.0, 63.0, 31.0, 15.0, 7.0, 3.0, 1.0],
+                  q.quantize_dequant_block_rows,
+                  q.quantize_dequant_block_rows_plain,
+                  q.quantize_dequant_block, 178, False))
+        for name, shape, qm, route, plain_fn, lone_fn, line, main in cases:
+            x = torch.randn(shape, generator=gen, device=self.dev) * 5
+            u = torch.rand(shape, generator=gen, device=self.dev)
+            qmax = torch.tensor(qm, device=self.dev)
+            got, again = route(x, u, qmax), route(x, u, qmax)
+            plain = plain_fn(x, u, qmax)
+            torch.cuda.synchronize()
+            for what, other in (("plain", plain), ("a second run", again)):
+                self.require(all(torch.equal(g, o)
+                                 for g, o in zip(got, other)),
+                             f"{name} {list(shape)}: differs from {what}")
+            for s, qs in enumerate(qm):
+                self.require(all(torch.equal(g[s], o) for g, o in zip(
+                    got, lone_fn(x[s], u[s], qs))),
+                    f"{name} {list(shape)}: row {s} differs from its lone "
+                    f"launch at qmax {qs}")
+
+            def call(x=x, u=u, qmax=qmax, route=route):
+                route(x, u, qmax)
+            per_call, seen = _device_kernels_per_call(call)
+            self.require(per_call == 1, f"{name} {list(shape)}: {per_call} "
+                         f"device kernels a call {seen}")
+            numel, tiles = x.numel(), got[2].numel()
+            bound, by = _bound_ms(13 * numel + 4 * tiles + 4 * len(qm),
+                                  8 * numel)
+            row = {"route": name, "shape": list(shape), "qmax": qm,
+                   "ms": _cuda_time_ms(call),
+                   "device_ms": _kernel_device_ms(call, ""),
+                   "plain_ms": _cuda_time_ms(
+                       lambda x=x, u=u, qmax=qmax, f=plain_fn:
+                       f(x, u, qmax)),
+                   "bound_ms": bound, "bound_by": by,
+                   "launch_floor_device_ms": floor,
+                   "kernels_a_call": per_call,
+                   "max_abs_err": float((got[0] - plain[0]).abs().max())}
+            table.append(row)
+            if not main:
+                continue
+            self.kernels[name] = {
+                "source": "src/repro_torch/csrc/quantize.cu",
+                "replaces": f"src/repro/kernels/quantize.py:{line}",
+                **{k: row[k] for k in ("max_abs_err", "ms", "device_ms",
+                                       "plain_ms", "bound_ms",
+                                       "bound_by")},
+                "library_ms": None}
+        print(f"qmax_rows_table {self.card} " + json.dumps(table),
+              flush=True)
+        return ("(d) " + "; ".join(
+            f"{r['route']} {r['shape']} = plain = lone launches bit for "
+            f"bit, two runs identical, one device kernel a call: call "
+            f"{r['ms']:.5f} ms, device {r['device_ms']:.5f} ms (plain "
+            f"{r['plain_ms']:.5f}, bound {r['bound_ms']:.7f}, launch floor "
+            f"{floor:.6f})" for r in table))
+
+    def _async_channels(self, n: int, m: int) -> dict:
+        """The reference's five async channels at MIMIC size: plain, int8,
+        DP, and two budgets on the (int8, int4) ladder rescaled from
+        ``payload_costs(n)``: one that ten rounds' releases at int8 never
+        exhaust, one that ships three int8 releases and an int4 one, then
+        runs dry (each round's alphas booked before its walk)."""
+        from repro_torch.comm import (BudgetSpec, BudgetedTransport,
+                                      GaussianMechanism)
+        from repro_torch.comm.codecs import QuantCodec
+        from repro_torch.core import engine as E
+        ladder = (QuantCodec(bits=8), QuantCodec(bits=4))
+        costs = BudgetSpec(ladder=ladder).payload_costs(n)
+        setup, alphas = (m - 1) * 2 * n * 32, 32 * m
+        roomy = setup + 10 * (alphas + costs[0]) + 100
+        tight = setup + 3 * (alphas + costs[0]) + alphas + costs[1] + 100
+        return {
+            "plain": lambda: E.MeteredTransport(),
+            "int8": lambda: E.MeteredTransport(codec=QuantCodec(bits=8)),
+            "dp": lambda: E.MeteredTransport(
+                privacy=GaussianMechanism(epsilon=2.0, clip=0.1)),
+            "budget": lambda: BudgetedTransport(BudgetSpec(
+                session_bits=roomy, ladder=ladder)),
+            "budget-tight": lambda: BudgetedTransport(BudgetSpec(
+                session_bits=tight, ladder=ladder))}
+
+    def _async_compiled(self) -> str:
+        """(a) MIMIC async, logistic(50), the five channels: compiled =
+        eager on the card; the program under sync debug mode."""
+        torch = self.torch
+        from repro_torch.comm.codecs import QuantCodec
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.learners.logistic import LogisticRegression
+        Xtr, ctr, Xte, cte = self._mimic_data()
+        n, m, rounds = int(ctr.shape[0]), len(Xtr), 10
+        n_te = int(cte.shape[0])
+        cfg = E.SessionConfig(num_classes=2, max_rounds=rounds)
+        out = []
+        for name, make in self._async_channels(n, m).items():
+            runs = {}
+            for backend in ("eager", "compiled"):
+                transport = make()
+                learners = [LogisticRegression(steps=MIMIC_STEPS,
+                                               device="cuda")
+                            for _ in Xtr]
+                self.reset_counts()
+                proto, fitted, secs, _, _ = self._timed_fit(
+                    backend, 0, learners, Xtr, ctr, cfg,
+                    transport=transport, scheduler=E.AsyncStaleScheduler())
+                served = proto.predict_distributed(Xte)
+                torch.cuda.synchronize()
+                ladder = (transport.budget.ladder
+                          if hasattr(transport, "budget")
+                          else (transport.codec,))
+                plan = C.plan_for(learners, 2, max_rounds=rounds,
+                                  codec=transport.codec,
+                                  privacy=transport.privacy,
+                                  budget=getattr(transport, "budget", None),
+                                  scheduler=C.AsyncStalePlan())
+                if backend == "eager":
+                    self.read_counts(
+                        0, f"async eager {name}",
+                        ignorance_update_unnormalized=len(
+                            fitted.components),
+                        **self._coded_counts(
+                            transport, [c for c in ladder if c is not None],
+                            n, (n_te, 2)))
+                else:
+                    int_rungs = sum(isinstance(c, QuantCodec)
+                                    for c in plan.ladder)
+                    self.read_counts(
+                        0, f"async compiled {name}",
+                        ignorance_update_unnormalized=rounds * m,
+                        quantize_dequant_tiles=(rounds * int_rungs
+                                                if plan.has_channel else 0),
+                        quantize_dequant_block=self._serve_quant(plan))
+                runs[backend] = (proto, fitted, transport, served.cpu(),
+                                 fitted.predict(Xte).cpu(),
+                                 proto._session.state.w, secs)
+            (ep, ef, et, eserve, efit, ew, esec), \
+                (cp, cf, ct, cserve, cfit, cw, csec) = (runs["eager"],
+                                                        runs["compiled"])
+            self.require([(c.agent, c.round, c.alpha) for c in cf.components]
+                         == [(c.agent, c.round, c.alpha)
+                             for c in ef.components],
+                         f"async {name}: components or alphas differ")
+            self.require(cf.history == ef.history,
+                         f"async {name}: histories differ")
+            self.require(torch.equal(cw, ew), f"async {name}: w differs")
+            self.require(ct.log.entries == et.log.entries,
+                         f"async {name}: ledgers differ")
+            self.require(torch.equal(cserve, eserve)
+                         and torch.equal(cfit, efit),
+                         f"async {name}: predictions differ")
+            res = cp._compiled_result
+            rungs = [int(r) for r in res.codec_idx.cpu()[res.sent.cpu()]]
+            erungs = [e.get("rung", 0) for e in et.log.entries
+                      if e["src"] == "barrier"]
+            if et.has_channel:
+                self.require(rungs == erungs, f"async {name}: release rungs "
+                             f"{rungs} != eager {erungs}")
+            if hasattr(et, "budget"):
+                self.require((ct.skipped, ct.exhausted, ct.link_spent)
+                             == (et.skipped, et.exhausted, et.link_spent),
+                             f"async {name}: skips, exhaustion or spend "
+                             f"differ")
+                # the fit's own flag (the serve walk after it may run the
+                # budget dry too)
+                dry = bool(cp._compiled_result.exhausted)
+                self.require(dry == (name == "budget-tight"),
+                             f"async {name}: the fit ran dry: {dry}")
+            if et.accountant is not None:
+                self.require(ct.accountant.releases
+                             == et.accountant.releases,
+                             f"async {name}: DP releases differ")
+            acc = float((cserve == cte.cpu()).float().mean())
+            out.append(f"[{name}] rounds={len(cf.history)} "
+                       f"components={len(cf.components)} rungs={rungs} "
+                       f"bits={ct.total_bits} acc={acc:.4f} eager "
+                       f"{esec:.2f} s compiled {csec:.2f} s")
+        return (f"(a) mimic async logistic({MIMIC_STEPS}) {rounds} rounds, "
+                f"compiled = eager on the card (components, alphas, w, "
+                f"ledgers, rungs, skips, releases, predictions bit-equal); "
+                + "; ".join(out) + "; " + self._async_no_host_read())
+
+    def _async_no_host_read(self) -> str:
+        """The async program (the tight budget with DP noise) under sync
+        debug mode "error", after a warm-up."""
+        torch = self.torch
+        from repro_torch.comm.privacy import GaussianMechanism
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.learners.logistic import LogisticRegression
+        Xtr, ctr, _, _ = self._mimic_data()
+        budget = self._async_channels(int(ctr.shape[0]), len(Xtr))[
+            "budget-tight"]().budget
+        plan = C.plan_for([LogisticRegression(steps=MIMIC_STEPS,
+                                              device="cuda")] * len(Xtr),
+                          2, max_rounds=10, budget=budget,
+                          privacy=GaussianMechanism(epsilon=2.0),
+                          scheduler=C.AsyncStalePlan())
+        shapes = tuple(tuple(x.shape[1:]) for x in Xtr)
+        fn = C.make_async_session_fn(plan, shapes)
+        draws = C._draws_for(plan, E.key_data(0), int(ctr.shape[0]), shapes,
+                             ctr.device, None, fleet=False)
+        fn(draws, tuple(Xtr), ctr)            # warm-up
+        torch.cuda.synchronize()
+        self.reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = fn(draws, tuple(Xtr), ctr)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        self.read_counts(0, "sync-checked async program",
+                         ignorance_update_unnormalized=10 * len(Xtr),
+                         quantize_dequant_tiles=10 * 2)
+        return (f"the async program (tight budget + DP) under "
+                f"set_sync_debug_mode('error'): no host read, "
+                f"{int(res.executed.any(1).sum())} rounds ran")
+
+    def _codec_sweep(self) -> str:
+        """(b) ``quant_sweep_run`` at qmax [127, 31, 7], equal keys, with
+        the serve axis: rows = per-config compiled and eager runs; one
+        quantize launch a hop for 1 or 3 sessions."""
+        torch = self.torch
+        from repro_torch.comm.codecs import QuantCodec, quant_bits_per_element
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.kernels import quantize as q
+        from repro_torch.learners.logistic import LogisticRegression
+        Xtr, ctr, Xte, cte = self._mimic_data()
+        n, m, rounds = int(ctr.shape[0]), len(Xtr), 10
+        n_te, hops = int(cte.shape[0]), rounds * len(Xtr)
+        qmaxes, bits_of = [127.0, 31.0, 7.0], {127.0: 8, 31.0: 6, 7.0: 4}
+
+        def plan(bits):
+            return C.plan_for([LogisticRegression(steps=MIMIC_STEPS,
+                                                  device="cuda")] * m, 2,
+                              max_rounds=rounds, codec=QuantCodec(bits=bits))
+        sweeps, secs = {}, {}
+        for qm in (qmaxes, [31.0]):
+            self.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sweeps[len(qm)] = C.quant_sweep_run(plan(8), [0] * len(qm), Xtr,
+                                                ctr, qm, serve_Xs=Xte)
+            torch.cuda.synchronize()
+            secs[len(qm)] = time.perf_counter() - t0
+            self.read_counts(0, f"codec sweep S={len(qm)}",
+                             ignorance_update_batched=hops,
+                             quantize_dequant_tiles=hops,
+                             quantize_dequant_block_rows=m - 1)
+            for route, counter in QMAX_ROUTES.items():
+                self.launches[route] += getattr(q, counter).launches
+        res, serve = sweeps[3]
+        one, one_serve = sweeps[1]
+        self.require(torch.equal(one.w[0], res.w[1])
+                     and torch.equal(one_serve.preds[0], serve.preds[1]),
+                     "the one-range sweep differs from row 1 of three")
+        rows = []
+        for s, qm in enumerate(qmaxes):
+            p = plan(bits_of[qm])
+            self.reset_counts()
+            single = C.compiled_session(p, 0, Xtr, ctr)
+            sv = C.serve_session(p, single, 0, Xte)
+            self._compiled_counts(p, False, f"codec sweep's config {qm}",
+                                  served=1)
+            for field in single._fields:
+                if field != "params":
+                    self.require(torch.equal(getattr(res, field)[s],
+                                             getattr(single, field)),
+                                 f"sweep row {s} (qmax {qm}): {field} "
+                                 f"differs from compiled_session")
+            # the fits' params under vmap: their products may round apart
+            # from a lone fit's (14(c)), whatever their predictions; held
+            # to ROADMAP Queue 3's logistic tolerance
+            pairs = [(x[s], y) for pa, pb in zip(res.params, single.params)
+                     for x, y in zip(_leaves(pa), _leaves(pb))]
+            dparams = max(float((x - y).abs().max()) for x, y in pairs)
+            self.require(all(torch.allclose(x, y, rtol=1e-5, atol=1e-5)
+                             for x, y in pairs),
+                         f"sweep row {s} (qmax {qm}): the fits' params "
+                         f"part from compiled_session's beyond atol 1e-5 + "
+                         f"rtol 1e-5 (max {dparams:.3g})")
+            for field in sv._fields:
+                self.require(torch.equal(getattr(serve, field)[s],
+                                         getattr(sv, field)),
+                             f"sweep row {s} (qmax {qm}): serve {field} "
+                             f"differs from serve_session")
+            self.reset_counts()
+            proto, fitted, _, _, _ = self._timed_fit(
+                "eager", 0, [LogisticRegression(steps=MIMIC_STEPS,
+                                                device="cuda")] * m,
+                Xtr, ctr, E.SessionConfig(num_classes=2, max_rounds=rounds),
+                transport=E.MeteredTransport(codec=p.codec))
+            preds = proto.predict_distributed(Xte)
+            self.read_counts(
+                sum(e["kind"] == "ignorance"
+                    for e in proto.transport.log.entries),
+                f"codec sweep's eager config {qm}",
+                **self._coded_counts(proto.transport, [p.codec], n,
+                                     (n_te, 2)))
+            self.require(torch.equal(proto._session.state.w, res.w[s])
+                         and torch.equal(preds, serve.preds[s]),
+                         f"sweep row {s} (qmax {qm}): differs from the "
+                         f"eager run")
+            bpe = quant_bits_per_element(qm)
+            train_bits = int(res.sent[s].sum()) * (bpe * n + 32)
+            serve_bits = (m - 1) * (bpe * n_te * 2 + 32)
+            rows.append({"qmax": qm, "bits_per_element": bpe,
+                         "max_abs_dparams": dparams,
+                         "interchange_bits": train_bits,
+                         "serve_bits": serve_bits,
+                         "acc": float((serve.preds[s] == cte).float()
+                                      .mean())})
+        print(f"codec_sweep_rows {self.card} " + json.dumps(rows),
+              flush=True)
+        return (f"(b) quant_sweep_run mimic int8 plan at qmax {qmaxes}, "
+                f"equal keys, serve axis on {n_te} rows: every row = "
+                f"compiled_session + serve_session and = the eager run bit "
+                f"for bit (w, w_trace, alphas, sends, rungs, predictions, "
+                f"blocks; the fits' params within "
+                f"{max(r['max_abs_dparams'] for r in rows):.3g}, held to "
+                f"atol 1e-5 + rtol 1e-5); one "
+                f"quantize launch a hop and one block launch a "
+                f"non-head agent for 3 sessions as for 1 ({hops} and "
+                f"{m - 1}); sweep of 3 {secs[3]:.2f} s, of 1 "
+                f"{secs[1]:.2f} s; " + ", ".join(
+                    f"qmax {r['qmax']:g}: {r['bits_per_element']} bits, "
+                    f"acc {r['acc']:.4f}" for r in rows))
+
+    def _control_sweep(self) -> str:
+        """(c) ``control_sweep_run``: the reference's four (cut, beta)
+        configs and four session caps (one None, one that runs dry before
+        the last round), each row = the static compile, one build a sweep;
+        ``live=True`` = dark, the taps' counters = the replayed ledgers."""
+        torch = self.torch
+        from repro_torch.comm import BudgetSpec, BudgetedTransport
+        from repro_torch.comm.codecs import Fp16Codec, QuantCodec
+        from repro_torch.control.adaptive import AdaptiveController
+        from repro_torch.core import compiled as C
+        from repro_torch.core import engine as E
+        from repro_torch.learners.logistic import LogisticRegression
+        from repro_torch.telemetry import MetricsRegistry
+        from repro_torch.telemetry.live import LiveSink, installed
+        Xtr, ctr, _, _ = self._mimic_data()
+        n, m, rounds = int(ctr.shape[0]), len(Xtr), 10
+        hops = rounds * m
+
+        def learners():
+            return [LogisticRegression(steps=MIMIC_STEPS, device="cuda")] * m
+
+        def rows_equal(sweep, s, single, what):
+            for field in ("alphas", "accs", "executed", "valid", "w",
+                          "w_trace", "sent", "codec_idx", "exhausted",
+                          "order", "ctrl_ema"):
+                self.require(torch.equal(getattr(sweep, field)[s],
+                                         getattr(single, field)),
+                             f"{what}: {field} differs from the static "
+                             f"compile")
+        ladder = (Fp16Codec(), QuantCodec(bits=4))
+        configs = [((0.5,), 0.0), ((0.1,), 0.0), ((0.9,), 0.5),
+                   ((0.3,), 0.9)]
+
+        def ctrl_plan(cut, beta):
+            return C.plan_for(learners(), 2, max_rounds=rounds,
+                              controller=AdaptiveController(
+                                  ladder=ladder, thresholds=cut, beta=beta))
+        C.TRACE_COUNTS.clear()
+        self.reset_counts()
+        sweep = C.control_sweep_run(ctrl_plan(*configs[0]), [0] * 4, Xtr, ctr,
+                                    cuts=[c for c, _ in configs],
+                                    betas=[b for _, b in configs])
+        torch.cuda.synchronize()
+        self.require(C.TRACE_COUNTS == {"control_sweep": 1},
+                     f"TRACE_COUNTS {C.TRACE_COUNTS}")
+        self.read_counts(0, "controller sweep",
+                         ignorance_update_batched=hops,
+                         quantize_dequant_tiles=hops)
+        rungs = []
+        for s, (cut, beta) in enumerate(configs):
+            self.reset_counts()
+            p = ctrl_plan(cut, beta)
+            single = C.compiled_session(p, 0, Xtr, ctr)
+            self._compiled_counts(p, False, f"controller config {s}")
+            rows_equal(sweep, s, single, f"controller config {cut}, {beta}")
+            rungs.append(int((single.codec_idx == 1).sum()))
+        blad = (QuantCodec(bits=8), QuantCodec(bits=4))
+        hop8 = BudgetSpec(ladder=blad).hop_costs(n)[0]
+        setup = (m - 1) * 2 * n * 32
+        caps = [None, setup + (hops + 1) * hop8,
+                setup + 13 * hop8 + 100, setup + 5 * hop8 + 100]
+        C.TRACE_COUNTS.clear()
+        self.reset_counts()
+        base = C.plan_for(learners(), 2, max_rounds=rounds,
+                          budget=BudgetSpec(session_bits=caps[1],
+                                            ladder=blad))
+        dark = C.control_sweep_run(base, [0] * 4, Xtr, ctr,
+                                   session_bits=caps)
+        torch.cuda.synchronize()
+        self.require(C.TRACE_COUNTS == {"control_sweep": 1},
+                     f"TRACE_COUNTS {C.TRACE_COUNTS}")
+        self.read_counts(0, "cap sweep", ignorance_update_batched=hops,
+                         quantize_dequant_tiles=2 * hops)
+        ledger = {"bits": 0, "ignorance": 0, "skips": 0}
+        ran = []
+        for s, cap in enumerate(caps):
+            self.reset_counts()
+            transport = BudgetedTransport(BudgetSpec(session_bits=cap,
+                                                     ladder=blad))
+            proto = E.Protocol(E.SessionConfig(num_classes=2,
+                                               max_rounds=rounds),
+                               transport=transport, backend="compiled",
+                               device="cuda")
+            proto.fit(0, E.endpoints_for(learners(), Xtr), ctr)
+            self._compiled_counts(proto._compiled_ctx[1], False,
+                                  f"static cap {cap}")
+            rows_equal(dark, s, proto._compiled_result, f"cap {cap}")
+            ledger["bits"] += transport.total_bits
+            ledger["ignorance"] += sum(e["kind"] == "ignorance"
+                                       for e in transport.log.entries)
+            ledger["skips"] += len(transport.skipped)
+            ran.append(int(dark.executed[s].any(1).sum()))
+        self.require(not bool(dark.exhausted[0]),
+                     "the uncapped row ran dry")
+        self.require(any(bool(dark.exhausted[s]) and ran[s] < rounds
+                         for s in range(4)),
+                     f"no cap ran dry before the last round: rounds {ran}")
+        sink = LiveSink(MetricsRegistry())
+        self.reset_counts()
+        with installed(sink):
+            live = C.control_sweep_run(base, [0] * 4, Xtr, ctr,
+                                       session_bits=caps, live=True)
+        torch.cuda.synchronize()
+        self.read_counts(0, "live cap sweep", ignorance_update_batched=hops,
+                         quantize_dequant_tiles=2 * hops)
+        for field in ("alphas", "w", "sent", "codec_idx", "exhausted",
+                      "executed"):
+            self.require(torch.equal(getattr(live, field),
+                                     getattr(dark, field)),
+                         f"live cap sweep: {field} differs from dark")
+        reg = sink.registry
+        taps = {"bits": reg.total("live_wire_bits_total"),
+                "ignorance": reg.value("live_messages_total",
+                                       kind="ignorance"),
+                "skips": reg.total("live_budget_skips_total")}
+        self.require(taps == ledger, f"live taps {taps} != the replayed "
+                     f"ledgers {ledger}")
+        self.require(reg.total("live_rounds_total") == sum(ran)
+                     and sink.copies == rounds,
+                     f"live rounds {reg.total('live_rounds_total')} != "
+                     f"{sum(ran)} or copies {sink.copies} != {rounds}")
+        return (f"(c) control_sweep_run, mimic logistic({MIMIC_STEPS}): "
+                f"four (cut, beta) configs on (fp16, int4), int4 hops "
+                f"{rungs}, and caps {caps} on (int8, int4), rounds {ran}, "
+                f"exhausted {dark.exhausted.tolist()}: each row = the "
+                f"static compile bit for bit, TRACE_COUNTS "
+                f"{{'control_sweep': 1}} a sweep, one launch a hop; live = "
+                f"dark, taps {taps} = the replayed ledgers, "
+                f"{sink.copies} tap copies")
+
+
+
+def _leaves(tree) -> list:
+    """The tensor leaves of nested dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 def _bf16_backbone_logits(params: dict, X, cfg):
     """``learners.neural.logits`` with the backbone computed in bf16 (the
@@ -4619,12 +5170,13 @@ def main(argv: list[str]) -> int:
     card = f"card: {smi.stdout.strip().splitlines()[0]}"
     print(card, flush=True)
     s = Smoke()
+    s.card = card
     phases = {1: s.build, 2: s.kernel_vs_plain, 3: s.cli_path, 4: s.mimic,
               5: s.fashion, 6: s.mimic_channel, 7: s.fashion_channel,
               8: s.flash_vs_plain, 9: s.serve, 10: s.ce_vs_plain,
               11: s.train, 12: s.learners, 13: s.control,
               14: s.compiled, 15: s.serve_path, 16: s.scenarios,
-              17: s.telemetry}
+              17: s.telemetry, 18: s.compiled_rest}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])
@@ -4636,7 +5188,8 @@ def main(argv: list[str]) -> int:
               f"no result)")
         return 0
     kernels = [{"name": name, "route": "cuda", **s.kernels[name],
-                "launches": s.launches[name]} for name in _counters()]
+                "launches": s.launches[name]}
+               for name in [*_counters(), *QMAX_ROUTES]]
     print(card)  # again near the end, where a reader of the tail finds it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -163,14 +163,17 @@ class QuantCodec(Codec):
         return torch.full(tuple(x.shape), 0.5, dtype=torch.float32,
                           device=x.device)
 
-    def _quantize(self, x, draws):
+    def _quantize(self, x, draws, qmax=None):
         qd = ops.quantize_dequant_block if x.dim() == 2 \
             else ops.quantize_dequant
         return qd(x.to(torch.float32).contiguous(), self._u(x, draws),
-                  self.qmax, bn=self.bn)
+                  self.qmax if qmax is None else qmax, bn=self.bn)
 
-    def roundtrip(self, x, draws=None, state=None):
-        xhat, _, _ = self._quantize(x, draws)
+    def roundtrip(self, x, draws=None, state=None, qmax=None):
+        """The quantize-dequant; ``qmax`` overrides the static range with
+        a 0-d float32 tensor (a quantization sweep's, batched under vmap:
+        ``core.compiled.quant_sweep_run``)."""
+        xhat, _, _ = self._quantize(x, draws, qmax)
         return xhat, state
 
     def encode(self, x, draws=None, state=None):
@@ -272,7 +275,8 @@ def make_codec(name: str, **kw) -> Codec:
 
 
 # ===================================================================== channel
-def channel_apply(codec, privacy, w: torch.Tensor, draws, state):
+def channel_apply(codec, privacy, w: torch.Tensor, draws, state,
+                  qmax=None):
     """One hop through the wire: DP noise on the outgoing payload (the
     draws' normals), then the codec roundtrip (the draws' uniforms, for a
     stochastic codec).  Returns (what the receiver decodes, codec state).
@@ -280,13 +284,18 @@ def channel_apply(codec, privacy, w: torch.Tensor, draws, state):
     :class:`~repro_torch.comm.draws.HopDraws`, or in a compiled session
     the hop's slice of the draws taken before the program
     (:class:`~repro_torch.comm.draws.TensorHopDraws`), so nothing is drawn
-    on the host inside the session."""
+    on the host inside the session.  ``qmax`` overrides a
+    :class:`QuantCodec`'s range with a tensor (the quantization sweep's,
+    ``core.compiled.quant_sweep_run``)."""
     if privacy is not None:
         if draws is None:
             raise ValueError("the Gaussian mechanism needs the hop's draws")
         w = privacy.apply(w, draws.normal(tuple(w.shape), w.device))
     if codec is not None:
-        w, state = codec.roundtrip(w, draws, state)
+        if qmax is not None:
+            w, state = codec.roundtrip(w, draws, state, qmax=qmax)
+        else:
+            w, state = codec.roundtrip(w, draws, state)
     return w, state
 
 

@@ -262,7 +262,8 @@ def stack_trees(trees: list):
 
 def session_draws(keys, rounds: int, slots: int, n: int, fit, *,
                   uniform: bool = False, normal: bool = False,
-                  device="cpu", source=None, fleet: bool = False) -> dict:
+                  device="cpu", source=None, fleet: bool = False,
+                  barrier: bool = False) -> dict:
     """Every draw of a session, taken before it runs: ``{"fit": [slot j's
     fit draws, each leaf [rounds, ...]], "u": [rounds, slots, n],
     "z": [rounds, slots, n]}`` (``u``, the codecs' uniforms, when
@@ -271,7 +272,10 @@ def session_draws(keys, rounds: int, slots: int, n: int, fit, *,
     of tensors (``LearnerCore.draw``).  ``keys`` is the session's key
     data, or with ``fleet`` a sequence of F keys, and then every leaf has
     a leading [F] axis.  ``source`` is the draw source (default
-    :class:`ChannelDraws`), or with ``fleet`` one source a key."""
+    :class:`ChannelDraws`), or with ``fleet`` one source a key.  With
+    ``barrier`` (an async session) ``u`` and ``z`` are ``[rounds, n]``,
+    each round's barrier release's (:meth:`ChannelDraws.barrier`), and the
+    fits are the agents' at their place in the round."""
     if not fleet:
         keys, source = [keys], [source]
     elif not isinstance(source, (list, tuple)):
@@ -282,8 +286,9 @@ def session_draws(keys, rounds: int, slots: int, n: int, fit, *,
         out = {"fit": [stack_trees([fit(j, src.fit(key, t, j))
                                     for t in range(rounds)])
                        for j in range(slots)]}
-        hops = [[src.hop(key, t, j) for j in range(slots)]
-                for t in range(rounds)]
+        hops = ([[src.barrier(key, t)] for t in range(rounds)] if barrier
+                else [[src.hop(key, t, j) for j in range(slots)]
+                      for t in range(rounds)])
         # drawn on the host, then one copy to the device
         if uniform:
             out["u"] = torch.stack([torch.stack([h.uniform((n,), "cpu")
@@ -293,6 +298,9 @@ def session_draws(keys, rounds: int, slots: int, n: int, fit, *,
             out["z"] = torch.stack([torch.stack([h.normal((n,), "cpu")
                                                  for h in row])
                                     for row in hops]).to(device)
+        if barrier:
+            out = {name: (d[:, 0] if name != "fit" else d)
+                   for name, d in out.items()}
         sessions.append(out)
     return stack_trees(sessions) if fleet else sessions[0]
 

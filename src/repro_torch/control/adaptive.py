@@ -107,16 +107,27 @@ def ema_step_tensor(beta, prev: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """:func:`ema_step` on 0-d float32 tensors, on their device: the same
     roundings (``(1 - beta) * x`` in float32, then the exact float32
-    product ``beta * prev`` added in float64 and rounded once)."""
-    b = np.float32(beta)
-    tail = x * float(np.float32(np.float32(1.0) - b))
-    return (prev.to(torch.float64) * float(b)
+    product ``beta * prev`` added in float64 and rounded once).  ``beta``
+    is a number, or a 0-d float32 tensor (a control sweep's, one a session
+    under vmap), which gives the number's bits."""
+    if isinstance(beta, torch.Tensor):
+        b64 = beta.to(torch.float64)
+        tail = x * (1.0 - beta)                 # both rounded in float32
+    else:
+        b = np.float32(beta)
+        b64 = float(b)
+        tail = x * float(np.float32(np.float32(1.0) - b))
+    return (prev.to(torch.float64) * b64
             + tail.to(torch.float64)).to(torch.float32)
 
 
-def rung_tensor(value: torch.Tensor, cuts: tuple) -> torch.Tensor:
+def rung_tensor(value: torch.Tensor, cuts) -> torch.Tensor:
     """:func:`_rung` as a 0-d int64 tensor on ``value``'s device: how many
-    float32 cuts the float32 ``value`` lies below."""
+    float32 cuts the float32 ``value`` lies below, each a strict ``<``.
+    ``cuts`` is a tuple of numbers, or a float32 tensor [R - 1] (a control
+    sweep's, one row a session under vmap)."""
+    if isinstance(cuts, torch.Tensor):
+        return (value < cuts).to(torch.int64).sum()
     rung = torch.zeros((), dtype=torch.int64, device=value.device)
     for c in cuts:
         rung = rung + (value < float(np.float32(c))).to(torch.int64)
@@ -188,12 +199,17 @@ class AdaptiveController:
         return _rung(ema, self.thresholds), ema
 
     def step_tensor(self, w_prev: torch.Tensor, w_out: torch.Tensor,
-                    ema: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                    ema: torch.Tensor, cuts=None,
+                    beta=None) -> tuple[torch.Tensor, torch.Tensor]:
         """:meth:`step` as tensors on the device: ``(rung int64, new_ema
-        float32)``, both 0-d, the bits :meth:`step` gives."""
-        ema = ema_step_tensor(self.beta, ema,
+        float32)``, both 0-d, the bits :meth:`step` gives.  ``cuts`` [R - 1]
+        and ``beta`` (float32 tensors) override ``thresholds`` and
+        ``beta``: a control sweep's operands
+        (``core.compiled.control_sweep_run``)."""
+        ema = ema_step_tensor(self.beta if beta is None else beta, ema,
                               self.observe_tensor(w_prev, w_out))
-        return rung_tensor(ema, self.thresholds), ema
+        return rung_tensor(ema, self.thresholds if cuts is None
+                           else cuts), ema
 
 
 def controller_rung(controller: AdaptiveController, w_prev: torch.Tensor,

@@ -48,11 +48,22 @@ dark twins bit for bit and make the same launches of the hand-written
 kernels; pricing and packing a tap add a few small device ops a round
 (chip_smoke phase 17(b) counts them beside the tap copies).
 
+:func:`async_session` lowers the stale-read async barrier
+(:class:`AsyncStalePlan`, the eager ``AsyncStaleScheduler``): each round
+every agent fits against one score, the positive alphas merge through
+the unnormalized ignorance kernel, and under a channel one release a
+round crosses it; the merge's ``alpha > 0`` test is a mask, not a host
+read.  :func:`quant_sweep_run` sweeps a codec's range across sessions in
+one vmapped program (the range a device operand of the quantize kernel,
+one launch a hop for all sessions; ``serve_Xs`` adds the serve step), and
+:func:`control_sweep_run` sweeps the controller's cuts and beta and the
+budget's caps (``TRACE_COUNTS`` counts the sweep's builds).  Each sweep
+row equals the static plan's run bit for bit.
+
 PyTorch runs eagerly: "compiled" names the fixed-shape, host-read-free
-program, not a compiler.  The asynchronous lowering, the quantization and
-control sweeps (``qmax_arg``, ``control_arg``: the serve axis of
-``quant_sweep_run`` too) and ``shard_axis`` are later slices of the port
-and raise ``NotImplementedError``.
+program, not a compiler.  ``fleet_run(shard_axis=)`` spans several cards
+and is a later slice of the port (ROADMAP Queue 1, item 5,
+multi-device); it raises ``NotImplementedError``.
 
 Quickstart::
 
@@ -60,6 +71,9 @@ Quickstart::
     result = compiled_session(plan, 0, Xs, classes)
     fitted = fitted_from_result(plan, result, learners)    # FittedASCII
     fleet = fleet_run(plan, list(range(32)), Xs, classes)  # 32 sessions
+    sweep = quant_sweep_run(plan_int8, [0] * 3, Xs, classes, [127, 31, 7])
+    stale = async_session(dataclasses.replace(
+        plan, scheduler=AsyncStalePlan()), 0, Xs, classes)
 """
 from __future__ import annotations
 
@@ -70,7 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.budget import MODEL_WEIGHT_BITS
-from repro_torch.comm.codecs import channel_apply
+from repro_torch.comm.codecs import QuantCodec, channel_apply
 from repro_torch.comm.draws import (TensorHopDraws, serve_draws_batch,
                                     session_draws, stack_trees)
 from repro_torch.control.scheduler import (REWARD_SMOOTHING,
@@ -81,6 +95,7 @@ from repro_torch.core import scores
 from repro_torch.core.encoding import encode_labels
 from repro_torch.core.engine import (LabelsMsg, SampleIdsMsg, _later_slice,
                                      key_data, tree_map)
+from repro_torch.kernels import ignorance as _ig
 from repro_torch.kernels import ops
 from repro_torch.telemetry import live as live_plane
 from repro_torch.telemetry.spans import tensor_leaves
@@ -157,8 +172,11 @@ class SessionPlan:
 
 @dataclass(frozen=True)
 class AsyncStalePlan:
-    """Marker for the stale-read asynchronous lowering (the reference's
-    ``make_async_session_fn``), a later slice of the port."""
+    """Marker for the stale-read asynchronous lowering: rides
+    ``SessionPlan.scheduler`` as a :class:`~repro_torch.control.scheduler.
+    BudgetAwarePlan` does, and selects :func:`make_async_session_fn`
+    (:func:`async_session`) instead of the sequential one.  No knobs: the
+    clock skew comes from scenarios, which the compiled backend refuses."""
 
 
 class SessionResult(NamedTuple):
@@ -298,25 +316,60 @@ class SlotDraws:
 
 
 def _check_lowering(plan: SessionPlan, feature_shapes: tuple) -> None:
+    """The sequential lowering's argument rules, but for the budget's caps
+    (:func:`_check_caps`, which a control sweep's operands replace)."""
     if len(feature_shapes) != plan.num_agents:
         raise ValueError(f"{plan.num_agents} cores but "
                          f"{len(feature_shapes)} feature shapes")
     scheduler = plan.scheduler
-    if isinstance(scheduler, AsyncStalePlan):
-        raise _later_slice("the compiled async-stale lowering")
     if scheduler is not None:
         if not isinstance(scheduler, BudgetAwarePlan):
             raise ValueError(
                 f"SessionPlan.scheduler must be a BudgetAwarePlan for the "
-                f"sequential lowering, got {type(scheduler).__name__}")
+                f"sequential lowering, got {type(scheduler).__name__} "
+                f"(an AsyncStalePlan lowers through async_session)")
         if scheduler.spend_signal == "link" and plan.budget is None:
             raise ValueError("spend_signal='link' orders by budgeted link "
                              "spend, but the plan has no budget")
-    if plan.budget is not None:
-        for cap in (plan.budget.session_bits, plan.budget.link_bits):
-            if cap is not None and cap >= _INT32_MAX:
-                raise ValueError(f"budget caps must fit int32 (the "
-                                 f"reference's spend counters), got {cap}")
+
+
+def _check_caps(budget) -> None:
+    if budget is None:
+        return
+    for cap in (budget.session_bits, budget.link_bits):
+        if cap is not None and cap >= _INT32_MAX:
+            raise ValueError(f"budget caps must fit int32 (the "
+                             f"reference's spend counters), got {cap}")
+
+
+def _check_sweep(plan: SessionPlan, qmax_arg: bool,
+                 control_arg: bool) -> None:
+    """The reference's rules for the two sweep modes."""
+    if qmax_arg:
+        if plan.budget is not None or plan.controller is not None \
+                or not isinstance(plan.codec, QuantCodec):
+            raise ValueError("qmax_arg sweeps need a plain QuantCodec plan")
+    if control_arg:
+        if qmax_arg:
+            raise ValueError("qmax_arg and control_arg are separate sweep "
+                             "modes; pick one")
+        if plan.budget is None and plan.controller is None:
+            raise ValueError("control_arg sweeps trace controller cuts/beta "
+                             "and budget caps; the plan has neither")
+
+
+def _cap(cap, like: torch.Tensor) -> torch.Tensor:
+    """A budget cap as a 0-d int64 tensor: a static int filled on the
+    device, or a sweep's traced cap (the int32 sentinel for none)."""
+    if isinstance(cap, torch.Tensor):
+        return cap.to(torch.int64)
+    return _full(cap, like)
+
+
+#: Builds of a sweep's session function, by family: a control sweep builds
+#: one, whatever its number of configs (the port has no tracer; the
+#: reference counts traces, one a compile).
+TRACE_COUNTS: dict = {}
 
 
 def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
@@ -343,11 +396,29 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
     replay books them (a shipped hop's encoded score and its 32-bit
     alpha, the collation setup in round 0), the hops sent and skipped, and
     whether the budget ran dry in it.
-    ``qmax_arg`` and ``control_arg`` (the sweeps) are later slices of the
-    port."""
-    if qmax_arg or control_arg:
-        raise _later_slice("the compiled sweeps (qmax_arg, control_arg)")
+    ``qmax_arg`` makes a plain :class:`~repro_torch.comm.codecs.
+    QuantCodec` plan's range an operand, ``session_fn(draws, Xs, classes,
+    qmax)`` with ``qmax`` a 0-d float32 tensor, so that a codec sweep
+    vmaps into one program (:func:`quant_sweep_run`: each hop's quantize
+    is one launch for all sessions, each at its range).  ``control_arg``
+    makes the control plane operands instead, ``session_fn(draws, Xs,
+    classes, cuts, beta, session_cap, link_cap)``: the controller's cuts
+    [R - 1] and beta (float32) and the budget's caps (int, ``_INT32_MAX``
+    for none), so that a controller or budget sweep vmaps too
+    (:func:`control_sweep_run`).  Under ``control_arg`` the budget's
+    session and link terms are always traced, the sentinel standing for an
+    uncapped one; a row at the sentinel gives the uncapped plan's bits.
+    ``TRACE_COUNTS['control_sweep']`` counts the ``control_arg`` builds."""
+    _check_sweep(plan, qmax_arg, control_arg)
     _check_lowering(plan, feature_shapes)
+    if control_arg:
+        TRACE_COUNTS["control_sweep"] = TRACE_COUNTS.get("control_sweep",
+                                                         0) + 1
+    else:
+        _check_caps(plan.budget)
+    operands = (("qmax",) if qmax_arg else
+                ("cuts", "beta", "session_cap", "link_cap") if control_arg
+                else ())
     k = plan.num_classes
     cores = plan.cores
     num = plan.num_agents
@@ -357,9 +428,23 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
     has_channel = plan.has_channel
     stateful = codec is not None and codec.stateful
     reweight = _make_reweight(plan)
+    # which budget terms the program traces: the plan's caps, or every
+    # term under a control sweep (its caps are operands)
+    capped_s = budget is not None and (control_arg
+                                       or budget.session_bits is not None)
+    capped_l = budget is not None and (control_arg
+                                       or budget.link_bits is not None)
 
-    def session_fn(draws: dict, Xs: tuple, classes: torch.Tensor
-                   ) -> SessionResult:
+    def session_fn(draws: dict, Xs: tuple, classes: torch.Tensor,
+                   *args) -> SessionResult:
+        if len(args) != len(operands):
+            raise TypeError(f"session_fn takes (draws, Xs, classes"
+                            f"{''.join(', ' + o for o in operands)}), got "
+                            f"{len(args)} operands after classes")
+        sweep = dict(zip(operands, args))
+        if not control_arg:
+            sweep["session_cap"] = getattr(budget, "session_bits", None)
+            sweep["link_cap"] = getattr(budget, "link_bits", None)
         classes = classes.to(torch.int64)
         n = classes.shape[0]
         dev = classes.device
@@ -472,7 +557,7 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
                 else:
                     w, sent, rung = _channel_hop(
                         carry, t, j, src, dst, w, w_upd, valid, draws,
-                        scheduler is not None)
+                        scheduler is not None, **sweep)
                 if scheduler is not None and scheduler.spend_signal == "wire":
                     wcost = rung_select(rung, [_full(c, w)
                                                for c in wire_costs],
@@ -492,7 +577,7 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
                 row.append((params, a, rbar, executed, valid, w, sent, rung,
                             src if scheduler is not None else _full(j, w),
                             cand))
-            if budget is not None and budget.session_bits is not None:
+            if capped_s:
                 # the eager engine sees the exhaustion at the next round's
                 # entry: this round finishes, later ones never start
                 stopped = stopped | carry["exhausted"]
@@ -523,27 +608,31 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
                                                   device=dev)))
 
     def _channel_hop(carry, t, j, src, dst, w, w_upd, valid, draws,
-                     permuted):
+                     permuted, qmax=None, cuts=None, beta=None,
+                     session_cap=None, link_cap=None):
         """The wire of one hop: the controller's and the budget's rung, DP
         noise, the codec (every rung evaluated, one selected), the
-        residual, the spend.  Returns (w after the hop, sent, rung)."""
+        residual, the spend.  ``qmax``, ``cuts`` and ``beta`` are a sweep's
+        operands (None where the plan's static values hold); the caps are
+        the plan's or a control sweep's.  Returns (w after the hop, sent,
+        rung)."""
         if controller is not None:
             # the EMA advances on every hop the eager loop interchanges
-            c_rung, ctrl_new = controller.step_tensor(w, w_upd, carry["ctrl"])
+            c_rung, ctrl_new = controller.step_tensor(
+                w, w_upd, carry["ctrl"], cuts=cuts, beta=beta)
             carry["ctrl"] = torch.where(valid, ctrl_new, carry["ctrl"])
         if budget is not None:
             n = w.shape[0]
             costs = budget.hop_costs(n)
             rem = _full(_INT32_MAX, w)
-            if budget.session_bits is not None:
-                rem_s = _full(budget.session_bits, w) - carry["spent"]
+            if capped_s:
+                rem_s = _cap(session_cap, w) - carry["spent"]
                 rem = torch.minimum(rem, rem_s)
-            if budget.link_bits is not None:
+            if capped_l:
                 link_spent = (_pick(carry["link"].reshape(-1),
                                     src * num + dst) if permuted
                               else carry["link"][j])
-                rem = torch.minimum(rem, _full(budget.link_bits, w)
-                                    - link_spent)
+                rem = torch.minimum(rem, _cap(link_cap, w) - link_spent)
             # the controller's rung is a floor on the walk: never finer
             rung = ladder_walk(costs, rem, floor=(
                 c_rung if controller is not None else None))
@@ -559,7 +648,8 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
         # apply it once, then each rung's codec, as the reference does;
         # the same bits as the eager hop's fused channel at its rung
         w_noised, _ = channel_apply(None, privacy, w_upd, hop, None)
-        pairs = [channel_apply(c, None, w_noised, hop, state) for c in ladder]
+        pairs = [channel_apply(c, None, w_noised, hop, state, qmax=qmax)
+                 for c in ladder]
         w_chan = rung_select(rung, [p[0] for p in pairs], w_upd)
         sent = valid & sendable
         w = torch.where(sent, w_chan, w)
@@ -580,7 +670,7 @@ def make_session_fn(plan: SessionPlan, feature_shapes: tuple,
                 carry["link"] = carry["link"] + torch.where(
                     torch.arange(num, device=w.device) == j, add,
                     _full(0, w))
-            if budget.session_bits is not None:
+            if capped_s:
                 carry["exhausted"] = carry["exhausted"] | (
                     valid & (rem_s < min(costs)))
         rung = torch.where(sent, rung, _full(-1, w))
@@ -610,10 +700,13 @@ def _draws_for(plan: SessionPlan, keys, n: int, feature_shapes: tuple,
                device, source, fleet: bool) -> dict:
     """Every draw the plan's sessions read (see ``session_draws``): slot
     j's fit draws for its core, or for every agent's under a permuting
-    scheduler (each slot fits every agent)."""
+    scheduler (each slot fits every agent); under an
+    :class:`AsyncStalePlan` agent j's fits and each round's barrier
+    release's channel draws, as the eager barrier takes them."""
     stochastic = any(getattr(c, "stochastic", False) for c in plan.ladder
                      if c is not None)
-    if plan.scheduler is not None:
+    barrier = isinstance(plan.scheduler, AsyncStalePlan)
+    if plan.scheduler is not None and not barrier:
         def fit(j, fd):
             return [core.draw(fd, shape, n)
                     for core, shape in zip(plan.cores, feature_shapes)]
@@ -623,7 +716,7 @@ def _draws_for(plan: SessionPlan, keys, n: int, feature_shapes: tuple,
     return session_draws(
         keys, plan.max_rounds, plan.num_agents, n, fit,
         uniform=stochastic, normal=plan.privacy is not None, device=device,
-        source=source, fleet=fleet)
+        source=source, fleet=fleet, barrier=barrier)
 
 
 def compiled_session(plan: SessionPlan, key, Xs: Sequence[torch.Tensor],
@@ -656,9 +749,11 @@ def fleet_run(plan: SessionPlan, keys, Xs: Sequence[torch.Tensor],
     :func:`compiled_session` with ``keys[f]`` within what batched matrix
     products change (see tests/test_torch_compiled.py).  ``live``: one
     round tap a session and round, a round's F taps staged as one copy
-    (the tap's vmap rule).  ``shard_axis`` is a later slice."""
+    (the tap's vmap rule).  ``shard_axis`` (a fleet across cards) is a
+    later slice: ROADMAP Queue 1, item 5, multi-device."""
     if shard_axis is not None:
-        raise _later_slice("sharded fleets (shard_axis=)")
+        raise _later_slice("sharded fleets (shard_axis=; ROADMAP Queue 1, "
+                           "item 5, multi-device)")
     Xs = tuple(Xs)
     shapes = tuple(tuple(x.shape[2:] if data_batched else x.shape[1:])
                    for x in Xs)
@@ -669,6 +764,226 @@ def fleet_run(plan: SessionPlan, keys, Xs: Sequence[torch.Tensor],
     data_ax = 0 if data_batched else None
     return torch.func.vmap(fn, in_dims=(0, data_ax, data_ax))(draws, Xs,
                                                               classes)
+
+
+# ================================================================ async barrier
+class AsyncSessionResult(NamedTuple):
+    """Fixed-shape output of one compiled async session, agent-major (the
+    barrier has no chain order).  ``alphas``/``accs``/``executed``/
+    ``valid`` [T, M] and ``params`` (a tree a agent, leading round axis)
+    as :class:`SessionResult`'s; ``executed`` rows are all True or all
+    False, ``valid`` the positive alphas of executed rounds.  ``w_trace``
+    [T, M, n] the running merge after agent m (what a channel-less
+    barrier's IgnoranceMsgs carry); ``w_bar`` [T, n] the release as
+    published (after DP noise and the codec, under a channel); ``sent``
+    [T] whether the barrier released (a budget skip False); ``codec_idx``
+    [T] its rung (-1: raw or skipped); ``exhausted`` whether the session
+    budget ran dry."""
+    alphas: torch.Tensor
+    accs: torch.Tensor
+    executed: torch.Tensor
+    valid: torch.Tensor
+    params: tuple
+    w_trace: torch.Tensor
+    w_bar: torch.Tensor
+    w: torch.Tensor
+    sent: torch.Tensor
+    codec_idx: torch.Tensor
+    exhausted: torch.Tensor
+
+
+def make_async_session_fn(plan: SessionPlan, feature_shapes: tuple,
+                          live: bool = False):
+    """Lower the stale-read async barrier (``AsyncStaleScheduler``) into
+
+        session_fn(draws, Xs, classes) -> AsyncSessionResult
+
+    a fixed-shape function of the session's draws (:func:`_draws_for`'s
+    async layout: agent j's fits, each round's barrier draws), the feature
+    blocks and the labels, rounds and agents unrolled, no read to the host.
+
+    A round is the eager ``Session._step_stale``: every agent fits against
+    the round's score, then each positive alpha's update merges in agent
+    order through the unnormalized ignorance kernel
+    (``ops.ignorance_update_unnormalized(w_next, r, a / M)``) and the
+    product is normalized at the barrier (``ops.ignorance_normalize``),
+    the sum from the last merge's tile sums.  Where the eager loop tests
+    ``alpha <= 0`` on the host and skips the merge, the program runs every
+    merge and selects it by ``executed & (a > 0)``, the partial sums
+    carried through the same masks; a round with no positive alpha
+    normalizes with the score's own tile sums, as the eager
+    ``partials=None`` does.  Under a channel the release is the channel
+    point: DP noise once, then each rung's codec (the quantize kernel on
+    the vector), and under a budget one session-level ladder walk over
+    the bare payload costs after the round's alpha messages are booked; a
+    skipped release leaves the score stale.  ``live``: one round tap a
+    round, priced as the async replay books it (each positive agent's
+    alpha, and its raw score without a channel, else the release at its
+    rung)."""
+    if len(feature_shapes) != plan.num_agents:
+        raise ValueError(f"{plan.num_agents} cores but "
+                         f"{len(feature_shapes)} feature shapes")
+    if plan.controller is not None:
+        raise ValueError("adaptive controllers do not apply to the async "
+                         "barrier (its EMA statistic is defined on per-hop "
+                         "interchange, which the barrier path has none of)")
+    k = plan.num_classes
+    cores = plan.cores
+    num = plan.num_agents
+    codec, privacy, budget = plan.codec, plan.privacy, plan.budget
+    ladder = plan.ladder
+    has_channel = plan.has_channel
+    stateful = codec is not None and codec.stateful
+    capped_s = budget is not None and budget.session_bits is not None
+    _check_caps(budget)
+
+    def session_fn(draws: dict, Xs: tuple, classes: torch.Tensor
+                   ) -> AsyncSessionResult:
+        classes = classes.to(torch.int64)
+        n = classes.shape[0]
+        dev = classes.device
+        onehot = (classes[:, None] == torch.arange(k, device=dev)).to(
+            torch.float32)
+        w = scores.init_ignorance(n, device=dev)
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        stopped = false
+        carry: dict = {}
+        if stateful:
+            carry["resid"] = torch.zeros(n, dtype=torch.float32, device=dev)
+        setup_bits = (num - 1) * (LabelsMsg("", "", n).bits
+                                  + SampleIdsMsg("", "", n).bits)
+        if budget is not None:
+            costs = budget.payload_costs(n)
+            carry["spent"] = _full(setup_bits, w)
+            carry["exhausted"] = false
+        if live:
+            # the release's price at each rung: what the async replay books
+            # for the barrier's IgnoranceMsg (encoded, or raw float32)
+            live_costs = (budget.payload_costs(n) if budget is not None
+                          else tuple(c.wire_bits(n) if c is not None
+                                     else n * 32 for c in ladder))
+            salt = next(tensor_leaves(draws))
+        rows, bars, sents, rungs = [], [], [], []
+        for t in range(plan.max_rounds):
+            executed = ~stopped
+            entry_exh = carry.get("exhausted", false)
+            fits = []
+            for j, core in enumerate(cores):
+                slot = tree_map(lambda x, _t=t: x[_t], draws["fit"][j])
+                params, r = _fit(core, slot, Xs[j], onehot, w, classes)
+                a, rbar = scores.model_weight(w, r, k,
+                                              alpha_cap=plan.alpha_cap)
+                fits.append((params, r, a, rbar))
+            # the damped merge in agent order, every merge run and the
+            # positive ones selected; the tile sums ride the same masks
+            w_next, partials = w, _ig.tile_sums(w)
+            any_pos, pos_count = false, _full(0, w)
+            row = []
+            for params, r, a, rbar in fits:
+                use = executed & (a > 0)
+                w_upd, p_upd = ops.ignorance_update_unnormalized(
+                    w_next, r, a / num)
+                w_next = torch.where(use, w_upd, w_next)
+                partials = torch.where(use, p_upd, partials)
+                any_pos = any_pos | use
+                pos_count = pos_count + use.to(torch.int64)
+                row.append((params, a, rbar, executed, use, w_next))
+            w_bar = ops.ignorance_normalize(w_next, partials)
+            if not has_channel:
+                released, sent, rung = w_bar, executed, _full(-1, w)
+                w = torch.where(executed, w_bar, w)
+            else:
+                if budget is not None:
+                    # the alpha messages book before the walk reads the
+                    # ledger, as the eager merge sends them first; no link
+                    # cap: the barrier is a broadcast
+                    carry["spent"] = carry["spent"] + 32 * pos_count
+                    rem_s = _full(_INT32_MAX, w)
+                    if capped_s:
+                        rem_s = _full(budget.session_bits, w) - carry["spent"]
+                        carry["exhausted"] = carry["exhausted"] | (
+                            executed & (rem_s < min(costs)))
+                    rung = ladder_walk(costs, rem_s)
+                    sendable = rung >= 0
+                else:
+                    rung, sendable = _full(0, w), torch.ones_like(executed)
+                state = carry["resid"] if stateful else None
+                hop = TensorHopDraws(draws["u"][t] if "u" in draws else None,
+                                     draws["z"][t] if "z" in draws else None)
+                # noise once (it does not depend on the rung), then each
+                # rung's codec: the eager release's fused channel's bits
+                noised, _ = channel_apply(None, privacy, w_bar, hop, None)
+                pairs = [channel_apply(c, None, noised, hop, state)
+                         for c in ladder]
+                released = rung_select(rung, [p[0] for p in pairs], w_bar)
+                sent = executed & sendable
+                w = torch.where(sent, released, w)
+                if stateful:
+                    carry["resid"] = torch.where(sent, pairs[0][1], state)
+                if budget is not None:
+                    cost = rung_select(rung, [_full(c, w) for c in costs],
+                                       _full(0, w))
+                    carry["spent"] = carry["spent"] + torch.where(
+                        sent, cost, _full(0, w))
+                rung = torch.where(sent, rung, _full(-1, w))
+            if plan.stop_on_negative_alpha:
+                stopped = stopped | (executed & ~any_pos)
+            if capped_s:
+                # seen at the next round's entry, as the eager engine does
+                stopped = stopped | carry["exhausted"]
+            if live:
+                if not has_channel:
+                    # each positive agent's raw score and its alpha
+                    bits = pos_count * (n * 32 + MODEL_WEIGHT_BITS)
+                    ign, skip = pos_count, _full(0, w)
+                else:
+                    bits = MODEL_WEIGHT_BITS * pos_count + rung_select(
+                        rung, [_full(c, w) for c in live_costs],
+                        _full(0, w))
+                    ign = sent.to(torch.int64)
+                    skip = ((executed & ~sent).to(torch.int64)
+                            if budget is not None else _full(0, w))
+                live_plane.emit_round(
+                    salt, t, executed, bits + (setup_bits if t == 0 else 0),
+                    ign, skip, carry.get("exhausted", false) & ~entry_exh)
+            rows.append(row)
+            bars.append(released)
+            sents.append(sent)
+            rungs.append(rung)
+
+        def stack(i):
+            return torch.stack([torch.stack([row[m][i] for m in range(num)])
+                                for row in rows])
+
+        return AsyncSessionResult(
+            alphas=stack(1), accs=stack(2), executed=stack(3),
+            valid=stack(4),
+            params=tuple(stack_trees([row[m][0] for row in rows])
+                         for m in range(num)),
+            w_trace=stack(5), w_bar=torch.stack(bars), w=w,
+            sent=torch.stack(sents), codec_idx=torch.stack(rungs),
+            exhausted=carry.get("exhausted", false))
+
+    return session_fn
+
+
+def async_session(plan: SessionPlan, key, Xs: Sequence[torch.Tensor],
+                  classes: torch.Tensor, *, live: bool = False,
+                  source=None) -> AsyncSessionResult:
+    """One stale-read async session as one fixed-shape program (``plan``'s
+    scheduler an :class:`AsyncStalePlan`): its draws taken first (``key``:
+    an int seed or uint32 key data; ``source``: the draw source, default
+    :class:`~repro_torch.comm.draws.ChannelDraws`), then the program,
+    which reads nothing back to the host.  ``live``: its round taps."""
+    if not isinstance(plan.scheduler, AsyncStalePlan):
+        raise ValueError("async_session lowers a plan whose scheduler is an "
+                         "AsyncStalePlan")
+    Xs = tuple(Xs)
+    shapes = tuple(tuple(x.shape[1:]) for x in Xs)
+    fn = make_async_session_fn(plan, shapes, live=live)
+    draws = _draws_for(plan, key_data(key), int(classes.shape[0]), shapes,
+                       classes.device, source, fleet=False)
+    return fn(draws, Xs, classes)
 
 
 # =================================================================== serve step
@@ -713,10 +1028,15 @@ def make_serve_fn(plan: SessionPlan, feature_shapes: tuple,
     live.emit_serve`): whether it is a request (``deliver[0]``; False for
     a bucket's pad slots), its bits priced as the serve replay books them,
     the blocks sent and, under a budget, those it skipped.
-    ``qmax_arg`` (the serve axis of the quantization sweep) is a later
-    slice."""
-    if qmax_arg:
-        raise _later_slice("the compiled sweeps (qmax_arg, control_arg)")
+    ``qmax_arg`` makes a plain :class:`~repro_torch.comm.codecs.
+    QuantCodec` serve channel's range a trailing operand (``serve_fn(...,
+    deliver, qmax)``, a 0-d float32 tensor): the serve axis of
+    :func:`quant_sweep_run`, whose blocks quantize in one launch a agent
+    for all sessions, each at its range."""
+    if qmax_arg and (plan.budget is not None
+                     or plan.serve_controller is not None
+                     or not isinstance(plan.serve_ladder[0], QuantCodec)):
+        raise ValueError("qmax_arg sweeps need a plain QuantCodec plan")
     if len(feature_shapes) != plan.num_agents:
         raise ValueError(f"{plan.num_agents} cores but "
                          f"{len(feature_shapes)} feature shapes")
@@ -729,7 +1049,7 @@ def make_serve_fn(plan: SessionPlan, feature_shapes: tuple,
     def serve_fn(draws: dict, Xs: tuple, params: tuple,
                  alphas: torch.Tensor, valid: torch.Tensor,
                  rem_session: torch.Tensor, rem_link: torch.Tensor,
-                 deliver: torch.Tensor) -> ServeResult:
+                 deliver: torch.Tensor, qmax=None) -> ServeResult:
         n = Xs[0].shape[0]
         dev = Xs[0].device
         if budget is not None:
@@ -771,7 +1091,8 @@ def make_serve_fn(plan: SessionPlan, feature_shapes: tuple,
                 # the policy reads the raw block, before any noise
                 c_rung = serve_controller.rung_tensor(block)
             if budget is None and serve_controller is None:
-                blk, _ = channel_apply(ladder[0], privacy, block, hop, None)
+                blk, _ = channel_apply(ladder[0], privacy, block, hop, None,
+                                       qmax=qmax)
                 rung = _full(0 if ladder[0] is not None else -1, block)
                 sendable = d_j
             else:
@@ -923,6 +1244,128 @@ def _stack_field(values: list, shape: tuple, device,
     return torch.as_tensor(host, device=device)
 
 
+# ================================================================= codec sweep
+def _host_qmaxes(qmaxes) -> np.ndarray:
+    """The sweep's ranges as host float32, range-checked while they are
+    host values (the kernels never read a range back): each in [1, 127],
+    the int8 carrier's."""
+    if isinstance(qmaxes, torch.Tensor) and qmaxes.device.type != "cpu":
+        raise TypeError("quant_sweep_run takes its ranges as host values "
+                        "(a list or a CPU array), not a device tensor")
+    qm = np.asarray(qmaxes, dtype=np.float32).reshape(-1)
+    bad = [float(q) for q in qm if not 1.0 <= q <= 127.0]
+    if bad:
+        raise ValueError(f"qmax must lie in [1, 127] (an int8 carrier), "
+                         f"got {bad}")
+    return qm
+
+
+def quant_sweep_run(plan: SessionPlan, keys, Xs: Sequence[torch.Tensor],
+                    classes: torch.Tensor, qmaxes, serve_Xs=None, *,
+                    source=None):
+    """A codec sweep as one program: session s runs with key ``keys[s]``
+    and the plan's :class:`~repro_torch.comm.codecs.QuantCodec` at range
+    ``[-qmaxes[s], qmaxes[s]]`` (e.g. ``[127, 31, 7]``, an int8/int6/int4
+    frontier; equal keys isolate the codec axis).  ``torch.func.vmap``
+    over the session function with the range an operand, so each hop's
+    quantize is one launch for all S sessions
+    (``quantize.quantize_dequant_rows`` with the ranges a tensor).  ``qmaxes`` are host values,
+    range-checked here; wire bits a session follow from
+    :func:`repro_torch.comm.codecs.quant_bits_per_element`.  With
+    ``serve_Xs`` (each agent's serve-time block) each session also runs
+    the serve step at its range, with its key's untagged serve draws (as
+    :func:`serve_session` draws them), and the call returns
+    ``(SessionResult, ServeResult)``, both with a leading sweep axis.
+    ``source``: the draw source, or one a key.  Row s equals
+    :func:`compiled_session` (and :func:`serve_session`) of a static plan
+    whose codec has range ``qmaxes[s]``, bit for bit: the kernel forms the
+    reciprocal the static path passes."""
+    qm = _host_qmaxes(qmaxes)
+    keys = [key_data(k) for k in keys]
+    if len(keys) != qm.shape[0]:
+        raise ValueError(f"{len(keys)} keys for {qm.shape[0]} ranges")
+    Xs = tuple(Xs)
+    shapes = tuple(tuple(x.shape[1:]) for x in Xs)
+    n, dev = int(classes.shape[0]), classes.device
+    fn = make_session_fn(plan, shapes, qmax_arg=True)
+    draws = _draws_for(plan, keys, n, shapes, dev, source, fleet=True)
+    qmax = torch.as_tensor(qm, device=dev)
+    if serve_Xs is None:
+        return torch.func.vmap(fn, in_dims=(0, None, None, 0))(
+            draws, Xs, classes, qmax)
+    serve_Xs = tuple(serve_Xs)
+    num = plan.num_agents
+    srv = make_serve_fn(plan, tuple(tuple(x.shape[1:]) for x in serve_Xs),
+                        qmax_arg=True)
+    sources = (source if isinstance(source, (list, tuple))
+               else [source] * len(keys))
+    sdraws = _serve_draws_for(plan, keys, [None] * len(keys),
+                              int(serve_Xs[0].shape[0]), dev, sources)
+    rem_s = _stack_field([None], (), dev)[0]
+    rem_l = _stack_field([None], (num,), dev)[0]
+    deliver = _stack_field([None], (num,), dev, torch.bool)[0]
+
+    def run_one(d, sd, Xs, classes, qmax, sXs):
+        res = fn(d, Xs, classes, qmax)
+        return res, srv(sd, sXs, res.params, res.alphas, res.valid, rem_s,
+                        rem_l, deliver, qmax)
+
+    return torch.func.vmap(run_one, in_dims=(0, 0, None, None, 0, None))(
+        draws, sdraws, Xs, classes, qmax, serve_Xs)
+
+
+# =============================================================== control sweep
+def control_sweep_run(plan: SessionPlan, keys, Xs: Sequence[torch.Tensor],
+                      classes: torch.Tensor, *, cuts=None, betas=None,
+                      session_bits=None, link_bits=None, live: bool = False,
+                      source=None) -> SessionResult:
+    """A control-plane sweep as one program: config s runs with key
+    ``keys[s]`` under its controller cuts (``cuts`` [S, R-1]) and EMA
+    ``betas`` [S] and its budget caps (``session_bits`` / ``link_bits``,
+    S entries each, None for uncapped, lowered as the int32 sentinel).
+    An axis left None takes the plan's static values.  One session
+    function is built (``TRACE_COUNTS['control_sweep']`` counts it, in
+    :func:`make_session_fn`) and
+    vmapped over the configs with ``torch.func.vmap``, as
+    :func:`fleet_run` does.  Returns a :class:`SessionResult` with a
+    leading config axis; row s equals :func:`compiled_session` of the
+    static plan with config s's values bit for bit.  ``live``: one round
+    tap a config and round (the tap's vmap rule stages a round's S taps
+    as one copy).  ``source``: the draw source, or one a key."""
+    if plan.budget is None and plan.controller is None:
+        raise ValueError("control_sweep_run sweeps controller thresholds "
+                         "and budget caps; the plan has neither")
+    keys = [key_data(k) for k in keys]
+    S = len(keys)
+    Xs = tuple(Xs)
+    shapes = tuple(tuple(x.shape[1:]) for x in Xs)
+    n, dev = int(classes.shape[0]), classes.device
+    ctrl = plan.controller
+    if cuts is None:
+        base = ctrl.thresholds if ctrl is not None else ()
+        cuts = np.tile(np.asarray(base, np.float32).reshape(1, -1), (S, 1))
+    if betas is None:
+        betas = [ctrl.beta if ctrl is not None else 0.0] * S
+    budget = plan.budget
+
+    def cap_axis(vals, static):
+        vals = [static] * S if vals is None else list(vals)
+        return torch.as_tensor(np.asarray(
+            [_INT32_MAX if v is None else min(int(v), _INT32_MAX)
+             for v in vals], dtype=np.int64), device=dev)
+
+    sb = cap_axis(session_bits, budget.session_bits if budget else None)
+    lb = cap_axis(link_bits, budget.link_bits if budget else None)
+    cuts_t = torch.as_tensor(np.asarray(cuts, np.float32).reshape(S, -1),
+                             device=dev)
+    betas_t = torch.as_tensor(np.asarray(betas, np.float32).reshape(S),
+                              device=dev)
+    fn = make_session_fn(plan, shapes, control_arg=True, live=live)
+    draws = _draws_for(plan, keys, n, shapes, dev, source, fleet=True)
+    return torch.func.vmap(fn, in_dims=(0, None, None, 0, 0, 0, 0))(
+        draws, Xs, classes, cuts_t, betas_t, sb, lb)
+
+
 # ============================================================= host extraction
 def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
@@ -980,4 +1423,28 @@ def fitted_from_result(plan: SessionPlan, result: SessionResult,
                 components.append(Component(agent, t, float(alphas[t, j]),
                                             params))
         history.append(rec)
+    return FittedASCII(components, list(learners), plan.num_classes, history)
+
+
+def fitted_from_async_result(plan: SessionPlan, result: AsyncSessionResult,
+                             learners: Sequence):
+    """The eager engine's result from a compiled async run, as the eager
+    ``_step_stale`` session's ``fitted()`` gives it: every executed round
+    records all M alphas and accs, and its components are the positive
+    alphas in agent order."""
+    from repro_torch.core.engine import Component, FittedASCII
+    alphas, accs = _host(result.alphas), _host(result.accs)
+    executed, valid = _host(result.executed), _host(result.valid)
+    components, history = [], []
+    for t in range(plan.max_rounds):
+        if not executed[t].any():
+            break                        # the eager loop stopped before t
+        history.append({"round": t,
+                        "alphas": [float(a) for a in alphas[t]],
+                        "accs": [float(a) for a in accs[t]]})
+        for m in range(plan.num_agents):
+            if valid[t, m]:
+                components.append(Component(
+                    m, t, float(alphas[t, m]),
+                    tree_map(lambda x, _t=t: x[_t], result.params[m])))
     return FittedASCII(components, list(learners), plan.num_classes, history)

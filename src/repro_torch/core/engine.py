@@ -18,8 +18,9 @@ fixed-shape program with no read to the host (:mod:`repro_torch.core.
 compiled`) and books the ledger afterwards by replaying the result
 (:meth:`Protocol._replay_traffic`), bit for bit the eager run's; it serves
 through the compiled serve step and replays the serve ledger
-(:meth:`Protocol._replay_serve`).  Its async-stale lowering is a later
-slice.
+(:meth:`Protocol._replay_serve`).  An async-stale run lowers through the
+barrier's own program (``compiled.async_session``) and books the async
+ledger (:meth:`Protocol._replay_traffic_async`).
 
 The round rule is a :class:`ProtocolVariant`: :class:`ASCIIVariant`, or
 FedAvg and Assisted Learning (:mod:`repro_torch.scenarios.protocols`),
@@ -1437,16 +1438,16 @@ class Protocol:
                 "(churn/subsampling/partitions change the chain per round); "
                 "use backend='eager', or protocol='fedavg' whose lowering "
                 "takes a participation mask")
-        if self.scheduler.stale:
-            raise _later_slice("the compiled async-stale lowering "
-                               "(--variant async with --backend compiled)")
         sched_plan = None
-        if not isinstance(self.scheduler, SequentialScheduler):
+        if self.scheduler.stale:
+            # the stale-read barrier lowers through its own program
+            sched_plan = compiled.AsyncStalePlan()
+        elif not isinstance(self.scheduler, SequentialScheduler):
             plan_fn = getattr(self.scheduler, "plan", None)
             if plan_fn is None:
                 raise ValueError(
-                    f"backend='compiled' supports sequential and "
-                    f"budget-aware scheduling, got "
+                    f"backend='compiled' supports sequential, "
+                    f"budget-aware and async-stale scheduling, got "
                     f"{type(self.scheduler).__name__}")
             # the spend signal depends on the transport it will order by
             self.scheduler.bind_transport(self.transport)
@@ -1478,18 +1479,25 @@ class Protocol:
             ep.X = torch.as_tensor(ep.X, device=self.device)
         classes = torch.as_tensor(classes, device=self.device)
         live_sink = self._live_sink()
+        stale = isinstance(sched_plan, compiled.AsyncStalePlan)
+        run = compiled.async_session if stale else compiled.compiled_session
         # the fence closes the span when the program is done, not when its
         # launches are queued
         with span_of(self.telemetry, "session", backend="compiled",
                      agents=len(endpoints)), live_installed(live_sink):
-            result = fence_of(self.telemetry, compiled.compiled_session(
+            result = fence_of(self.telemetry, run(
                 plan, key_data(key), [ep.X for ep in endpoints], classes,
                 live=live_sink is not None, source=self.draws))
-        fitted = compiled.fitted_from_result(plan, result,
-                                             [ep.learner for ep in endpoints])
+        learners = [ep.learner for ep in endpoints]
+        fitted = (compiled.fitted_from_async_result(plan, result, learners)
+                  if stale else
+                  compiled.fitted_from_result(plan, result, learners))
         self.scheduler.reset()
         with span_of(self.telemetry, "replay", backend="compiled"):
-            self._replay_traffic(endpoints, classes, result, plan)
+            if stale:
+                self._replay_traffic_async(endpoints, classes, result, plan)
+            else:
+                self._replay_traffic(endpoints, classes, result, plan)
         state = SessionState(w=result.w, key=key_data(key),
                              round=len(fitted.history),
                              components=fitted.components,
@@ -1499,9 +1507,21 @@ class Protocol:
                                 draws=self.draws, _send_setup=False)
         self._compiled_result = result
         # the serve step indexes agents positionally: the agent-major view
-        self._compiled_ctx = (tuple(endpoints), plan,
-                              compiled.agent_major_result(result))
+        # (an async result is agent-major already)
+        self._compiled_ctx = (tuple(endpoints), plan, result if stale
+                              else compiled.agent_major_result(result))
         return fitted
+
+    def _replay_setup(self, endpoints: Sequence[AgentEndpoint],
+                      n: int) -> None:
+        """Bind the transport to ``endpoints`` and book the collation
+        setup a session sends first (:meth:`Session._send_setup`)."""
+        t = self.transport
+        t.bind(endpoints)
+        head = endpoints[0].name
+        for ep in endpoints[1:]:
+            t.send(LabelsMsg(head, ep.name, n))
+            t.send(SampleIdsMsg(head, ep.name, n))
 
     def _replay_traffic(self, endpoints: Sequence[AgentEndpoint],
                         classes: torch.Tensor, result, plan) -> None:
@@ -1512,12 +1532,8 @@ class Protocol:
         and observations again; the controller's EMA and codec are left
         where the eager hops leave them."""
         t = self.transport
-        t.bind(endpoints)
         n = int(classes.shape[0])
-        head = endpoints[0].name
-        for ep in endpoints[1:]:
-            t.send(LabelsMsg(head, ep.name, n))
-            t.send(SampleIdsMsg(head, ep.name, n))
+        self._replay_setup(endpoints, n)
         host = {f: result._asdict()[f].detach().cpu().numpy() for f in
                 ("valid", "alphas", "accs", "executed", "sent",
                  "codec_idx", "order")}
@@ -1562,6 +1578,60 @@ class Protocol:
             t.exhausted = bool(result.exhausted)
         if plan.controller is not None:
             t.ctrl_state = np.float32(float(result.ctrl_ema))
+
+    def _replay_traffic_async(self, endpoints: Sequence[AgentEndpoint],
+                              classes: torch.Tensor, result, plan) -> None:
+        """Book the ledger an eager async run books: the collation setup,
+        then each executed round's traffic.  Without a channel every
+        positive agent's running merge (IgnoranceMsg) and alpha
+        (ModelWeightMsg) to the next agent; with one, the positive agents'
+        alphas to the synthetic ``"barrier"`` sender, then the round's one
+        release from it to the head, at the encoded size of its rung
+        (budget spend first), or its budget skip; DP releases, exhaustion."""
+        t = self.transport
+        n = int(classes.shape[0])
+        head = endpoints[0].name
+        self._replay_setup(endpoints, n)
+        host = {f: result._asdict()[f].detach().cpu().numpy() for f in
+                ("executed", "valid", "alphas", "sent", "codec_idx")}
+        num = len(endpoints)
+        budget = plan.budget
+        budgeted = budget is not None and hasattr(t, "link_spent")
+        for ti in range(host["valid"].shape[0]):
+            if not host["executed"][ti].any():
+                break
+            if not plan.has_channel:
+                for m in range(num):
+                    if not host["valid"][ti, m]:
+                        continue
+                    dst = endpoints[(m + 1) % num].name
+                    t.send(IgnoranceMsg(endpoints[m].name, dst,
+                                        result.w_trace[ti, m]))
+                    t.send(ModelWeightMsg(endpoints[m].name, dst,
+                                          float(host["alphas"][ti, m])))
+                continue
+            for m in range(num):
+                if host["valid"][ti, m]:
+                    t.send(ModelWeightMsg(endpoints[m].name, "barrier",
+                                          float(host["alphas"][ti, m])))
+            link = ("barrier", head)
+            if not host["sent"][ti]:
+                if budgeted:
+                    t.record_skip(link)
+                continue
+            rung = int(host["codec_idx"][ti])
+            codec = plan.ladder[rung] if rung >= 0 else None
+            if budgeted:
+                # spend first, as the eager walk: it arms the rung the
+                # wire-priced booking stamps
+                t.record_spend(link, budget.payload_costs(n)[rung], rung)
+            t.send(IgnoranceMsg("barrier", head, result.w_bar[ti],
+                                wire_bits=(None if codec is None
+                                           else codec.wire_bits(n))))
+            if t.privacy is not None:
+                t.accountant.record("barrier")
+        if budgeted:
+            t.exhausted = bool(result.exhausted)
 
     def predict_distributed(self, Xs: Sequence[torch.Tensor] | None = None,
                             max_round: int | None = None, *,

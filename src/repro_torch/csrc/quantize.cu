@@ -53,6 +53,18 @@
 // spread the bytes over the whole card.  The wrapper decides the route on
 // the tile alone (kernels/quantize.py, LARGE_TILE).
 //
+// The ranges as a device operand (quantize_dequant_qmax and its large-n
+// twin): a sweep of sessions at different ranges (core/compiled.py,
+// quant_sweep_run) quantizes every session's payload in one launch, each
+// row of the flat batch at its own qmax, which no host value can carry
+// under vmap.  The kernels above take their range as a Range<kRows>: by
+// value (kRows false: qmax and its reciprocal, the plain codec path and
+// the int4 encode), or a pointer to one float a row of tiles_per_row tiles
+// (kRows true), where tile t reads its row's qmax and forms 1.0f / qmax
+// itself, the correctly rounded quotient, which is the float32(1/qmax) the
+// host passes by value.  The flag is a template parameter, so the by-value
+// instantiations hold no device-range code and launch as before.
+//
 // The int4 wire.  Byte j holds element 2j in the low nibble and 2j + 1 in
 // the high one; an odd count pads the last high nibble with 0; unpacking
 // sign-extends each nibble.  pack_pair and unpack_word below are that
@@ -184,6 +196,41 @@ __device__ __forceinline__ int64_t tile_of(int64_t i, int64_t tile) {
   return i / tile;
 }
 
+// A launch's range: qmax and its reciprocal by value, one for every tile.
+template <bool kRows>
+struct Range {
+  float qmax, inv_qmax;
+  __device__ __forceinline__ void of_tile(int64_t, float& qm,
+                                          float& inv) const {
+    qm = qmax;
+    inv = inv_qmax;
+  }
+  bool fits(int64_t) const { return true; }
+};
+
+// The ranges as a device operand: rows[r] is the qmax of the r-th run of
+// `tiles_per_row` tiles (a sweep's sessions, one a row).
+template <>
+struct Range<true> {
+  const float* rows;
+  int64_t tiles_per_row;
+  // A 32-bit division: the launch holds at most 2^31 - 1 CTAs, so t and
+  // tiles_per_row fit, and a 64-bit one is a subroutine call.
+  __device__ __forceinline__ void of_tile(int64_t t, float& qm,
+                                          float& inv) const {
+    qm = rows[static_cast<uint32_t>(t) / static_cast<uint32_t>(tiles_per_row)];
+    // nvcc's default -prec-div=true makes this the correctly rounded
+    // quotient (kernels/_build.py passes no --use_fast_math, which would
+    // make it an approximation): the host's float32(1) / float32(qmax) bit
+    // for bit (kernels/quantize.py::inv_qmax)
+    inv = 1.0f / qm;
+  }
+  bool fits(int64_t tiles) const {
+    return rows != nullptr && tiles_per_row >= 1 &&
+           tiles % tiles_per_row == 0;
+  }
+};
+
 // The two halves of a cluster barrier.  A CTA arrives as it starts and
 // waits before it first writes to another CTA's shared memory, which the
 // other CTA must then have started; the wait costs nothing by that time.
@@ -205,12 +252,13 @@ __device__ __forceinline__ void cluster_wait() {
 // warp shuffle of the odd lane's nibble to the even lane instead, with
 // t + 512 k kept, spilled at kK = 32; pairs read by two scalar loads each
 // ran slower at [18000, 10] on an H100.)
-template <int kK, bool kCluster, bool kPack>
+template <int kK, bool kCluster, bool kPack, bool kRows>
 __global__ void __launch_bounds__(kThreads)
 quantize_fused(const float* __restrict__ x, const float* __restrict__ u,
                float* __restrict__ xhat, int8_t* __restrict__ q,
                float* __restrict__ scales, int64_t tile, int64_t per_cta,
-               float qmax, float inv_qmax) {
+               Range<kRows> range) {
+  static_assert(!(kPack && kRows), "the int4 encode takes its range by value");
   __shared__ float warp_maxima[kWarpsQ];
   __shared__ float cta_maxima[kCluster ? kMaxCluster : 1];  // by rank
   const int lane = threadIdx.x % kLanes;
@@ -226,6 +274,8 @@ quantize_fused(const float* __restrict__ x, const float* __restrict__ u,
   const int64_t lo = rank * per_cta;
   const int64_t count = min(per_cta, tile - lo);
   const int64_t base = t * tile + lo;
+  float qmax, inv_qmax;
+  range.of_tile(t, qmax, inv_qmax);
 
   // x and the draws u, both loaded before the max; above 32 elements a
   // thread the draws wait for the quantize, within the register budget
@@ -307,11 +357,11 @@ quantize_fused(const float* __restrict__ x, const float* __restrict__ u,
   if (rank == 0 && threadIdx.x == 0) scales[t] = scale;
 }
 
-template <int kK, bool kCluster, bool kPack>
+template <int kK, bool kCluster, bool kPack, bool kRows>
 cudaError_t launch_fused(int64_t ctas, int cluster, const float* x,
                          const float* u, float* xhat, int8_t* q,
                          float* scales, int64_t tile, int64_t per_cta,
-                         float qmax, float inv_qmax, cudaStream_t stream) {
+                         Range<kRows> range, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(ctas));
   cfg.blockDim = dim3(kThreads);
@@ -323,21 +373,20 @@ cudaError_t launch_fused(int64_t ctas, int cluster, const float* x,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = kCluster ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, quantize_fused<kK, kCluster, kPack>, x, u,
-                            xhat, q, scales, tile, per_cta, qmax, inv_qmax);
+  return cudaLaunchKernelEx(&cfg, quantize_fused<kK, kCluster, kPack, kRows>,
+                            x, u, xhat, q, scales, tile, per_cta, range);
 }
 
-template <bool kCluster, bool kPack>
+template <bool kCluster, bool kPack, bool kRows>
 cudaError_t dispatch(int64_t ctas, int cluster, const float* x,
                      const float* u, float* xhat, int8_t* q, float* scales,
-                     int64_t tile, int64_t per_cta, float qmax,
-                     float inv_qmax, cudaStream_t stream) {
+                     int64_t tile, int64_t per_cta, Range<kRows> range,
+                     cudaStream_t stream) {
   const int64_t k = (per_cta + kThreads - 1) / kThreads;
 #define QUANTIZE_CASE(K)                                                    \
   if (k <= K)                                                               \
-    return launch_fused<K, kCluster, kPack>(ctas, cluster, x, u, xhat, q,   \
-                                            scales, tile, per_cta, qmax,    \
-                                            inv_qmax, stream);
+    return launch_fused<K, kCluster, kPack, kRows>(                         \
+        ctas, cluster, x, u, xhat, q, scales, tile, per_cta, range, stream);
   QUANTIZE_CASE(1)
   QUANTIZE_CASE(2)
   QUANTIZE_CASE(4)
@@ -349,16 +398,16 @@ cudaError_t dispatch(int64_t ctas, int cluster, const float* x,
   return cudaErrorInvalidValue;
 }
 
-template <bool kPack>
+template <bool kPack, bool kRows>
 cudaError_t set_nonportable_for() {
   const void* kernels[] = {
-      reinterpret_cast<const void*>(quantize_fused<1, true, kPack>),
-      reinterpret_cast<const void*>(quantize_fused<2, true, kPack>),
-      reinterpret_cast<const void*>(quantize_fused<4, true, kPack>),
-      reinterpret_cast<const void*>(quantize_fused<8, true, kPack>),
-      reinterpret_cast<const void*>(quantize_fused<16, true, kPack>),
-      reinterpret_cast<const void*>(quantize_fused<32, true, kPack>),
-      reinterpret_cast<const void*>(quantize_fused<64, true, kPack>)};
+      reinterpret_cast<const void*>(quantize_fused<1, true, kPack, kRows>),
+      reinterpret_cast<const void*>(quantize_fused<2, true, kPack, kRows>),
+      reinterpret_cast<const void*>(quantize_fused<4, true, kPack, kRows>),
+      reinterpret_cast<const void*>(quantize_fused<8, true, kPack, kRows>),
+      reinterpret_cast<const void*>(quantize_fused<16, true, kPack, kRows>),
+      reinterpret_cast<const void*>(quantize_fused<32, true, kPack, kRows>),
+      reinterpret_cast<const void*>(quantize_fused<64, true, kPack, kRows>)};
   for (const void* k : kernels) {
     cudaError_t err = cudaFuncSetAttribute(
         k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -368,18 +417,19 @@ cudaError_t set_nonportable_for() {
 }
 
 cudaError_t set_nonportable() {
-  cudaError_t err = set_nonportable_for<false>();
-  return err != cudaSuccess ? err : set_nonportable_for<true>();
+  cudaError_t err = set_nonportable_for<false, false>();
+  if (err == cudaSuccess) err = set_nonportable_for<true, false>();
+  return err != cudaSuccess ? err : set_nonportable_for<false, true>();
 }
 
 // quantize_fused over n / tile tiles, after the checks of the plan.
-template <bool kPack>
+template <bool kPack, bool kRows>
 int quantize_launch(const float* x, const float* u, float* xhat, int8_t* q,
                     float* scales, int64_t n, int64_t tile, int cluster,
-                    int64_t per_cta, float qmax, float inv_qmax,
+                    int64_t per_cta, Range<kRows> range,
                     cudaStream_t stream) {
   if (n <= 0 || tile <= 0 || n % tile != 0 || cluster < 1 ||
-      cluster > kMaxCluster || per_cta < 1 ||
+      !range.fits(n / tile) || cluster > kMaxCluster || per_cta < 1 ||
       per_cta > static_cast<int64_t>(kThreads) * kMaxPerThread ||
       cluster * per_cta < tile || (cluster - 1) * per_cta >= tile ||
       (kPack && ((cluster > 1 && per_cta % 2 != 0) ||
@@ -392,10 +442,10 @@ int quantize_launch(const float* x, const float* u, float* xhat, int8_t* q,
   if (ctas > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err =
       cluster > 1
-          ? dispatch<true, kPack>(ctas, cluster, x, u, xhat, q, scales, tile,
-                                  per_cta, qmax, inv_qmax, stream)
-          : dispatch<false, kPack>(ctas, 1, x, u, xhat, q, scales, tile,
-                                   per_cta, qmax, inv_qmax, stream);
+          ? dispatch<true, kPack, kRows>(ctas, cluster, x, u, xhat, q, scales,
+                                         tile, per_cta, range, stream)
+          : dispatch<false, kPack, kRows>(ctas, 1, x, u, xhat, q, scales,
+                                          tile, per_cta, range, stream);
   return static_cast<int>(err);
 }
 
@@ -428,16 +478,18 @@ quantize_pass1(const float* __restrict__ x, float* __restrict__ chunk_max,
 // the chunk sits in lane i % 32 (the tile starts on an even element), so
 // one shuffle hands the odd lane's nibble to the even lane, which stores
 // the byte.
-template <bool kPack>
+template <bool kPack, bool kRows>
 __global__ void __launch_bounds__(kChunk)
 quantize_pass2(const float* __restrict__ x, const float* __restrict__ u,
                const float* __restrict__ chunk_max, float* __restrict__ xhat,
                int8_t* __restrict__ q, float* __restrict__ scales,
-               int64_t tile, int64_t chunks_per_tile, float qmax,
-               float inv_qmax) {
+               int64_t tile, int64_t chunks_per_tile, Range<kRows> range) {
+  static_assert(!(kPack && kRows), "the int4 encode takes its range by value");
   __shared__ float sm[kChunk];
   const int64_t t = blockIdx.x / chunks_per_tile;
   const int64_t c = blockIdx.x % chunks_per_tile;
+  float qmax, inv_qmax;
+  range.of_tile(t, qmax, inv_qmax);
   float m = 0.0f;
   for (int64_t j = threadIdx.x; j < chunks_per_tile; j += kChunk)
     m = fmaxf(m, chunk_max[t * chunks_per_tile + j]);
@@ -460,12 +512,12 @@ quantize_pass2(const float* __restrict__ x, const float* __restrict__ u,
   if (c == 0 && threadIdx.x == 0) scales[t] = scale;
 }
 
-template <bool kPack>
+template <bool kPack, bool kRows>
 int quantize_large_launch(const float* x, const float* u, float* xhat,
                           int8_t* q, float* scales, float* chunk_max,
-                          int64_t n, int64_t tile, float qmax,
-                          float inv_qmax, cudaStream_t stream) {
-  if (n <= 0 || tile <= 0 || n % tile != 0 ||
+                          int64_t n, int64_t tile, Range<kRows> range,
+                          cudaStream_t stream) {
+  if (n <= 0 || tile <= 0 || n % tile != 0 || !range.fits(n / tile) ||
       (kPack && tile % 2 != 0 && n != tile))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t chunks_per_tile = (tile + kChunk - 1) / kChunk;
@@ -475,9 +527,9 @@ int quantize_large_launch(const float* x, const float* u, float* xhat,
       x, chunk_max, tile, chunks_per_tile);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  quantize_pass2<kPack><<<static_cast<unsigned>(blocks), kChunk, 0,
-                          stream>>>(x, u, chunk_max, xhat, q, scales, tile,
-                                    chunks_per_tile, qmax, inv_qmax);
+  quantize_pass2<kPack, kRows><<<static_cast<unsigned>(blocks), kChunk, 0,
+                                 stream>>>(x, u, chunk_max, xhat, q, scales,
+                                           tile, chunks_per_tile, range);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -635,8 +687,22 @@ int quantize_dequant(const float* x, const float* u, float* xhat, int8_t* q,
                      float* scales, int64_t n, int64_t tile, int cluster,
                      int64_t per_cta, float qmax, float inv_qmax,
                      cudaStream_t stream) {
-  return quantize_launch<false>(x, u, xhat, q, scales, n, tile, cluster,
-                                per_cta, qmax, inv_qmax, stream);
+  return quantize_launch<false, false>(x, u, xhat, q, scales, n, tile,
+                                       cluster, per_cta, {qmax, inv_qmax},
+                                       stream);
+}
+
+// quantize_dequant with the ranges on the device: qmax_rows[n / tile /
+// tiles_per_row] floats, the range of each row of tiles_per_row tiles (a
+// sweep's sessions, one a row), each reciprocal formed in the kernel.
+int quantize_dequant_qmax(const float* x, const float* u, float* xhat,
+                          int8_t* q, float* scales, int64_t n, int64_t tile,
+                          int cluster, int64_t per_cta,
+                          const float* qmax_rows, int64_t tiles_per_row,
+                          cudaStream_t stream) {
+  return quantize_launch<false, true>(x, u, xhat, q, scales, n, tile,
+                                      cluster, per_cta,
+                                      {qmax_rows, tiles_per_row}, stream);
 }
 
 // The int4 encode in one launch: packed[ceil(n / 2)] and scales[n / tile],
@@ -646,8 +712,9 @@ int quantize_pack_int4(const float* x, const float* u, int8_t* packed,
                        float* scales, int64_t n, int64_t tile, int cluster,
                        int64_t per_cta, float qmax, float inv_qmax,
                        cudaStream_t stream) {
-  return quantize_launch<true>(x, u, nullptr, packed, scales, n, tile,
-                               cluster, per_cta, qmax, inv_qmax, stream);
+  return quantize_launch<true, false>(x, u, nullptr, packed, scales, n, tile,
+                                      cluster, per_cta, {qmax, inv_qmax},
+                                      stream);
 }
 
 // The large-n route, two launches: xhat[n], q[n], scales[n / tile];
@@ -656,8 +723,22 @@ int quantize_dequant_large(const float* x, const float* u, float* xhat,
                            int8_t* q, float* scales, float* chunk_max,
                            int64_t n, int64_t tile, float qmax,
                            float inv_qmax, cudaStream_t stream) {
-  return quantize_large_launch<false>(x, u, xhat, q, scales, chunk_max, n,
-                                      tile, qmax, inv_qmax, stream);
+  return quantize_large_launch<false, false>(x, u, xhat, q, scales,
+                                             chunk_max, n, tile,
+                                             {qmax, inv_qmax}, stream);
+}
+
+// quantize_dequant_large with the ranges on the device, as
+// quantize_dequant_qmax takes them.
+int quantize_dequant_qmax_large(const float* x, const float* u, float* xhat,
+                                int8_t* q, float* scales, float* chunk_max,
+                                int64_t n, int64_t tile,
+                                const float* qmax_rows, int64_t tiles_per_row,
+                                cudaStream_t stream) {
+  return quantize_large_launch<false, true>(x, u, xhat, q, scales,
+                                            chunk_max, n, tile,
+                                            {qmax_rows, tiles_per_row},
+                                            stream);
 }
 
 // The int4 encode on the large-n route: packed[ceil(n / 2)], scales[n /
@@ -666,9 +747,9 @@ int quantize_pack_int4_large(const float* x, const float* u, int8_t* packed,
                              float* scales, float* chunk_max, int64_t n,
                              int64_t tile, float qmax, float inv_qmax,
                              cudaStream_t stream) {
-  return quantize_large_launch<true>(x, u, nullptr, packed, scales,
-                                     chunk_max, n, tile, qmax, inv_qmax,
-                                     stream);
+  return quantize_large_launch<true, false>(x, u, nullptr, packed, scales,
+                                            chunk_max, n, tile,
+                                            {qmax, inv_qmax}, stream);
 }
 
 // The largest cluster quantize_dequant may take on the current card: 16
@@ -692,7 +773,8 @@ int quantize_max_cluster(int* out) {
   cfg.numAttrs = 1;
   int clusters = 0;
   if (cudaOccupancyMaxActiveClusters(
-          &clusters, quantize_fused<kMaxPerThread, true, false>, &cfg) !=
+          &clusters, quantize_fused<kMaxPerThread, true, false, false>,
+          &cfg) !=
       cudaSuccess) {
     cudaGetLastError();
     return 0;

@@ -11,10 +11,13 @@ version for CPU tensors.
 The hop's kernels (the ignorance update, the vector quantize-dequant and
 the int4 encode and decode) and the serve codec's block quantize-dequant
 are also ``torch.library`` custom ops with fake implementations and vmap
-rules, so that ``torch.func.vmap`` (a fleet of sessions,
+rules (the two quantize-dequants twice: ``qmax`` a float, or a tensor,
+the quantization sweep's range, which the rule batches with the
+payloads), so that ``torch.func.vmap`` (a fleet of sessions,
 ``core.compiled.fleet_run``; a serve bucket's slots,
-``core.compiled.serve_batch``) reaches the CUDA launches: a ctypes launch
-reads ``data_ptr()``, which a batched tensor does not have.  Each rule
+``core.compiled.serve_batch``; a sweep's sessions,
+``core.compiled.quant_sweep_run``) reaches the CUDA launches: a ctypes
+launch reads ``data_ptr()``, which a batched tensor does not have.  Each rule
 takes the batch's payloads as rows and makes the launch of the whole
 batch (``ignorance.ignorance_update_batched``, ``quantize.*_rows``), whose
 row f is bit for bit the call of session f alone; a batched launch counts
@@ -77,12 +80,14 @@ def _quantize_dequant_op(x: torch.Tensor, u: torch.Tensor, qmax: float,
     return _q.quantize_dequant_tiles(x, u, qmax, bn=bn)
 
 
-@_quantize_dequant_op.register_fake
-def _(x, u, qmax, bn):
+def _quantize_dequant_fake(x, u, qmax, bn):
     n = x.shape[0]
     return (torch.empty_like(x), torch.empty(n, dtype=torch.int8,
                                              device=x.device),
             x.new_empty(n // _q.tile_for(n, bn)))
+
+
+_quantize_dequant_op.register_fake(_quantize_dequant_fake)
 
 
 @_quantize_dequant_op.register_vmap
@@ -101,12 +106,14 @@ def _quantize_dequant_block_op(x: torch.Tensor, u: torch.Tensor, qmax: float,
     return _q.quantize_dequant_block(x, u, qmax, bn=bn)
 
 
-@_quantize_dequant_block_op.register_fake
-def _(x, u, qmax, bn):
+def _quantize_dequant_block_fake(x, u, qmax, bn):
     n, k = x.shape
     return (torch.empty_like(x), torch.empty((n, k), dtype=torch.int8,
                                              device=x.device),
             x.new_empty(n // _q.rows_for(n, k, bn)))
+
+
+_quantize_dequant_block_op.register_fake(_quantize_dequant_block_fake)
 
 
 @_quantize_dequant_block_op.register_vmap
@@ -115,6 +122,55 @@ def _(info, in_dims, x, u, qmax, bn):
     return _q.quantize_dequant_block_rows(_rows(x, in_dims[0], size),
                                           _rows(u, in_dims[1], size), qmax,
                                           bn=bn), (0, 0, 0)
+
+
+@torch.library.custom_op("repro_torch::quantize_dequant_qmax",
+                         mutates_args=())
+def _quantize_dequant_qmax_op(x: torch.Tensor, u: torch.Tensor,
+                              qmax: torch.Tensor, bn: int
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    xhat, q, scales = _q.quantize_dequant_rows(
+        x[None], u[None], qmax.reshape(1), bn=bn)
+    return xhat[0], q[0], scales[0]
+
+
+@_quantize_dequant_qmax_op.register_fake
+def _(x, u, qmax, bn):
+    return _quantize_dequant_fake(x, u, qmax, bn)
+
+
+@_quantize_dequant_qmax_op.register_vmap
+def _(info, in_dims, x, u, qmax, bn):
+    size = info.batch_size
+    return _q.quantize_dequant_rows(_rows(x, in_dims[0], size),
+                                    _rows(u, in_dims[1], size),
+                                    _rows(qmax, in_dims[2], size),
+                                    bn=bn), (0, 0, 0)
+
+
+@torch.library.custom_op("repro_torch::quantize_dequant_block_qmax",
+                         mutates_args=())
+def _quantize_dequant_block_qmax_op(x: torch.Tensor, u: torch.Tensor,
+                                    qmax: torch.Tensor, bn: int
+                                    ) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    xhat, q, scales = _q.quantize_dequant_block_rows(
+        x[None], u[None], qmax.reshape(1), bn=bn)
+    return xhat[0], q[0], scales[0]
+
+
+@_quantize_dequant_block_qmax_op.register_fake
+def _(x, u, qmax, bn):
+    return _quantize_dequant_block_fake(x, u, qmax, bn)
+
+
+@_quantize_dequant_block_qmax_op.register_vmap
+def _(info, in_dims, x, u, qmax, bn):
+    size = info.batch_size
+    return _q.quantize_dequant_block_rows(
+        _rows(x, in_dims[0], size), _rows(u, in_dims[1], size),
+        _rows(qmax, in_dims[2], size), bn=bn), (0, 0, 0)
 
 
 @torch.library.custom_op("repro_torch::quantize_pack_int4", mutates_args=())
@@ -216,7 +272,11 @@ def quantize_dequant(x: torch.Tensor, u: torch.Tensor, qmax, *,
                      bn: int = 1024):
     """Fused per-tile quantize-dequant for the wire codecs: returns
     (dequantized [n], int8 wire values [n], per-tile scales); under vmap
-    one launch for all sessions."""
+    one launch for all sessions.  ``qmax`` is a number, or a 0-d float32
+    tensor on the payload's device (a sweep's range, batched under vmap:
+    one launch for all sessions, each at its own range)."""
+    if isinstance(qmax, torch.Tensor):
+        return _quantize_dequant_qmax_op(x, u, qmax, int(bn))
     if not _transformed():
         return _q.quantize_dequant_tiles(x, u, qmax, bn=bn)
     return _quantize_dequant_op(x, u, float(qmax), int(bn))
@@ -226,7 +286,10 @@ def quantize_dequant_block(x: torch.Tensor, u: torch.Tensor, qmax, *,
                            bn: int = 1024):
     """Row-tiled quantize-dequant for [n, k] score blocks: returns
     (dequantized [n, k], int8 wire values [n, k], per-row-tile scales);
-    under vmap (a serve bucket's slots) one launch for all blocks."""
+    under vmap (a serve bucket's slots) one launch for all blocks.
+    ``qmax`` as :func:`quantize_dequant` takes it."""
+    if isinstance(qmax, torch.Tensor):
+        return _quantize_dequant_block_qmax_op(x, u, qmax, int(bn))
     if not _transformed():
         return _q.quantize_dequant_block(x, u, qmax, bn=bn)
     return _quantize_dequant_block_op(x, u, float(qmax), int(bn))

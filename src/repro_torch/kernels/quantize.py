@@ -42,6 +42,15 @@ alone would use, so no tile spans two rows and each row gets the bits of
 its own call.  They count under the single calls' counters, except
 :func:`quantize_dequant_block_rows` (the serve step's blocks over a
 bucket's slots), which counts its own.
+
+The two quantize-dequant batches also take the range as a device operand,
+a float32 tensor of one ``qmax`` a row: the quantization sweep
+(``core.compiled.quant_sweep_run``) runs S sessions at S ranges as one
+vmapped program, so a hop's S payloads are one launch in which each row
+reads its own range and the kernel forms ``1.0f / qmax`` (the correctly
+rounded quotient, which is :func:`inv_qmax`).  Row f gives the bits of
+the lone call at the float ``qmax[f]``; the launch counts under the same
+counter as the batch's float route.
 """
 from __future__ import annotations
 
@@ -119,11 +128,20 @@ def inv_qmax(qmax) -> float:
 # ----------------------------------------------------------- plain versions
 def _quantize_flat(x: torch.Tensor, u: torch.Tensor, qmax, tile: int):
     """The kernel's arithmetic on a flat payload in tiles of ``tile``
-    contiguous elements: (xhat, q int8, scales), all flat."""
+    contiguous elements: (xhat, q int8, scales), all flat.  ``qmax`` is a
+    number, or a float32 tensor of one range a row of the flat payload
+    (its tiles split evenly into rows): the device-operand route, whose
+    reciprocal is the float32 quotient the kernel forms."""
     xt = x.reshape(-1, tile).to(torch.float32)
     ut = u.reshape(-1, tile).to(torch.float32)
-    qm = float(np.float32(qmax))
-    scale = torch.clamp(xt.abs().amax(dim=1), min=_EPS) * inv_qmax(qmax)
+    if isinstance(qmax, torch.Tensor):
+        rows = qmax.reshape(-1).to(torch.float32)
+        qm = rows.repeat_interleave(xt.shape[0] // rows.shape[0])[:, None]
+        inv = 1.0 / qm[:, 0]
+    else:
+        qm = float(np.float32(qmax))
+        inv = inv_qmax(qmax)
+    scale = torch.clamp(xt.abs().amax(dim=1), min=_EPS) * inv
     q = torch.clamp(torch.floor(xt / scale[:, None] + ut), -qm, qm)
     return ((q * scale[:, None]).reshape(-1), q.to(torch.int8).reshape(-1),
             scale)
@@ -204,6 +222,10 @@ def _lib() -> ctypes.CDLL:
                                          f32, f32, p]
         lib.quantize_dequant_large.argtypes = [p, p, p, p, p, p, i64, i64,
                                                f32, f32, p]
+        lib.quantize_dequant_qmax.argtypes = [p, p, p, p, p, i64, i64, i32,
+                                              i64, p, i64, p]
+        lib.quantize_dequant_qmax_large.argtypes = [p, p, p, p, p, p, i64,
+                                                    i64, p, i64, p]
         lib.quantize_pack_int4.argtypes = [p, p, p, p, i64, i64, i32, i64,
                                            f32, f32, p]
         lib.quantize_pack_int4_large.argtypes = [p, p, p, p, p, i64, i64,
@@ -214,6 +236,7 @@ def _lib() -> ctypes.CDLL:
         lib.unpack_dequant_int4.argtypes = [p, p, p, i64, i64, p]
         lib.unpack_dequant_int4_rows.argtypes = [p, p, p, i64, i64, i64, p]
         for fn in (lib.quantize_dequant, lib.quantize_dequant_large,
+                   lib.quantize_dequant_qmax, lib.quantize_dequant_qmax_large,
                    lib.quantize_pack_int4, lib.quantize_pack_int4_large,
                    lib.quantize_max_cluster, lib.pack_int4, lib.unpack_int4,
                    lib.unpack_dequant_int4, lib.unpack_dequant_int4_rows):
@@ -262,11 +285,12 @@ def _check_tile(n: int, tile: int) -> int:
     return tile
 
 
-def _launch_quantize(x: torch.Tensor, u: torch.Tensor, qmax: float,
-                     tile: int):
+def _launch_quantize(x: torch.Tensor, u: torch.Tensor, qmax, tile: int):
     """The CUDA quantize-dequant on a flat payload in tiles of ``tile``
     elements, one launch (two on the large-n route); returns flat (xhat, q,
-    scales)."""
+    scales).  ``qmax`` is a float passed by value, or a contiguous float32
+    tensor on the payload's card of one range a row (the payload's tiles
+    split evenly into its rows), which the kernel reads."""
     n, dev = x.numel(), x.device
     xhat = torch.empty(n, dtype=torch.float32, device=dev)
     q = torch.empty(n, dtype=torch.int8, device=dev)
@@ -274,7 +298,10 @@ def _launch_quantize(x: torch.Tensor, u: torch.Tensor, qmax: float,
     with current(dev):
         p = plan(tile, cluster_limit(dev.index))
         stream = raw_stream(dev)
-        if p.route != "large":
+        if isinstance(qmax, torch.Tensor):
+            status = _launch_qmax_rows(x, u, xhat, q, scales, qmax, n, tile,
+                                       p, stream)
+        elif p.route != "large":
             status = _lib().quantize_dequant(
                 x.data_ptr(), u.data_ptr(), xhat.data_ptr(), q.data_ptr(),
                 scales.data_ptr(), n, tile, p.cluster, p.per_cta, qmax,
@@ -288,6 +315,24 @@ def _launch_quantize(x: torch.Tensor, u: torch.Tensor, qmax: float,
                 inv_qmax(qmax), stream)
     check_status("quantize_dequant", status)
     return xhat, q, scales
+
+
+def _launch_qmax_rows(x, u, xhat, q, scales, qmax: torch.Tensor, n: int,
+                      tile: int, p: Plan, stream: int) -> int:
+    """The device-qmax launch of :func:`_launch_quantize`: one range a
+    row of ``n // tile // qmax.numel()`` tiles, read by the kernel."""
+    per_row = n // tile // qmax.numel()
+    if p.route != "large":
+        return _lib().quantize_dequant_qmax(
+            x.data_ptr(), u.data_ptr(), xhat.data_ptr(), q.data_ptr(),
+            scales.data_ptr(), n, tile, p.cluster, p.per_cta,
+            qmax.data_ptr(), per_row, stream)
+    chunks = torch.empty((n // tile) * -(-tile // CTA_TILE),
+                         dtype=torch.float32, device=x.device)
+    return _lib().quantize_dequant_qmax_large(
+        x.data_ptr(), u.data_ptr(), xhat.data_ptr(), q.data_ptr(),
+        scales.data_ptr(), chunks.data_ptr(), n, tile, qmax.data_ptr(),
+        per_row, stream)
 
 
 def quantize_dequant_tiles(x: torch.Tensor, u: torch.Tensor, qmax, *,
@@ -471,7 +516,7 @@ def _flat_rows(name: str, x: torch.Tensor, rows: int) -> torch.Tensor:
     return x.reshape(-1)
 
 
-def _quantize_any(x: torch.Tensor, u: torch.Tensor, qmax: float, tile: int):
+def _quantize_any(x: torch.Tensor, u: torch.Tensor, qmax, tile: int):
     """The quantize-dequant of a flat payload: the kernel for CUDA tensors
     (uncounted: the caller counts), the plain version for CPU ones."""
     if not on_card(x, "quantize"):
@@ -479,17 +524,51 @@ def _quantize_any(x: torch.Tensor, u: torch.Tensor, qmax: float, tile: int):
     return _launch_quantize(x, u, qmax, tile)
 
 
+def _check_qmax_rows(qmax, rows: int, device):
+    """A batch's range: a number (:func:`_check_qmax`), or a device operand
+    of one float32 qmax a row, [rows] or 0-d for every row, on ``device``.
+    The operand's values are not read here (that would be a host read
+    inside a program): a sweep range-checks them on the host before they
+    become a tensor (``core.compiled.quant_sweep_run``)."""
+    if not isinstance(qmax, torch.Tensor):
+        return _check_qmax(qmax)
+    if qmax.dtype != torch.float32:
+        raise TypeError(f"qmax must be float32, got {qmax.dtype}")
+    if qmax.device != device:
+        raise ValueError(f"qmax lies on {qmax.device}, expected {device}")
+    if qmax.dim() == 0:
+        qmax = qmax.expand(rows)
+    if tuple(qmax.shape) != (rows,):
+        raise ValueError(f"qmax must hold one range for each of {rows} "
+                         f"rows, got shape {tuple(qmax.shape)}")
+    return qmax.contiguous()
+
+
+def quantize_dequant_rows_plain(x: torch.Tensor, u: torch.Tensor, qmax,
+                                bn: int = DEFAULT_BN):
+    """:func:`quantize_dequant_plain` of each row of ``x`` [F, n] with
+    draws ``u``, at ``qmax`` (a number, or a float32 tensor of one range a
+    row): (xhat [F, n], q [F, n] int8, scales [F, n / tile_for(n)])."""
+    rows, n = x.shape
+    tile = tile_for(n, bn)
+    xhat, q, scales = _quantize_flat(x, u, qmax, tile)
+    return (xhat.view(rows, n), q.view(rows, n),
+            scales.view(rows, n // tile))
+
+
 def quantize_dequant_rows(x: torch.Tensor, u: torch.Tensor, qmax, *,
                           bn: int = DEFAULT_BN):
     """F vectors' quantize-dequant in one launch: rows of ``x`` [F, n] with
     draws ``u`` [F, n], each in tiles of ``tile_for(n, bn)``.  Returns
     ``(xhat [F, n], q [F, n] int8, scales [F, n / tile])``, row f equal to
-    :func:`quantize_dequant_tiles` of row f."""
+    :func:`quantize_dequant_tiles` of row f.  ``qmax`` is a number, or a
+    float32 tensor [F] (0-d for every row) that the kernel reads, row f at
+    ``qmax[f]`` (the quantization sweep's hop)."""
     if x.dim() != 2 or x.numel() < 1:
         raise ValueError(f"x must be a non-empty [F, n] batch, got "
                          f"{tuple(x.shape)}")
-    qmax = _check_qmax(qmax)
     rows, n = x.shape
+    qmax = _check_qmax_rows(qmax, rows, x.device)
     _check("u", u, torch.float32, (rows, n), x.device)
     if x.dtype != torch.float32:
         raise TypeError(f"x must be float32, got {x.dtype}")
@@ -524,14 +603,15 @@ def quantize_dequant_block_rows(x: torch.Tensor, u: torch.Tensor, qmax, *,
     block is a whole number of tiles, so block b gets the bits of
     :func:`quantize_dequant_block` on block b alone.  Returns ``(xhat [B,
     n, k], q [B, n, k] int8, scales [B, n / rows])``; counts its own
-    launches."""
+    launches.  ``qmax`` as :func:`quantize_dequant_rows` takes it, one
+    range a block (the quantization sweep's serve axis)."""
     if x.dim() != 3 or x.numel() < 1:
         raise ValueError(f"x must be a non-empty [B, n, k] batch of "
                          f"blocks, got {tuple(x.shape)}")
-    qmax = _check_qmax(qmax)
     rows, n, k = x.shape
     _check("x", x, torch.float32, (rows, n, k), x.device)
     _check("u", u, torch.float32, (rows, n, k), x.device)
+    qmax = _check_qmax_rows(qmax, rows, x.device)
     if not on_card(x, "quantize"):
         return quantize_dequant_block_rows_plain(x, u, qmax, bn)
     tile = rows_for(n, k, bn) * k

@@ -7,7 +7,13 @@ live plane adds taps inside the program: each round of a session (and
 each served request) stages a small int32 vector of what the round body
 already computed, and a host-side :class:`LiveSink` folds it into the
 registry's ``live_*`` series, the streaming JSONL trace and the
-dashboard while the program runs.
+dashboard while the program runs.  The taps are in every compiled
+program the port has: a session's rounds (``compiled_session``, the async
+barrier's ``async_session``, priced as the async replay books a round:
+its alphas and its release or raw scores), a fleet's and a control
+sweep's (one tap a session or config and round, ``fleet_run`` and
+``control_sweep_run``: the vmap rule below stages a round's taps as one
+copy) and a served request's (``serve_session``, ``serve_batch``).
 
 Delivery reads nothing back inside the program.  A tap on the card copies
 its vector (``non_blocking``) into pinned host memory and records a CUDA

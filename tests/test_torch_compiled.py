@@ -591,10 +591,8 @@ def test_compiled_rejects_what_it_does_not_lower(blob):
     eps = T.endpoints_for([TLogistic(steps=5, device=CPU) for _ in Xtr],
                           _t(Xtr))
     c = torch.from_numpy(ctr)
-    with pytest.raises(NotImplementedError):
-        T.Protocol(cfg, scheduler=T.AsyncStaleScheduler(), backend="compiled",
-                   device=CPU).fit(0, eps, c)
-    with pytest.raises(ValueError, match="sequential and budget-aware"):
+    with pytest.raises(ValueError, match="sequential, budget-aware and "
+                                         "async-stale"):
         T.Protocol(cfg, scheduler=T.RandomScheduler(), backend="compiled",
                    device=CPU).fit(0, eps, c)
     with pytest.raises(ValueError, match="validation"):
@@ -607,13 +605,13 @@ def test_compiled_rejects_what_it_does_not_lower(blob):
     plan = TC.plan_for([TLogistic(steps=5, device=CPU) for _ in Xtr], k,
                        codec=tcodecs.QuantCodec(8))
     shapes = tuple(tuple(x.shape[1:]) for x in Xtr)
-    for kw in ({"qmax_arg": True}, {"control_arg": True}):
-        with pytest.raises(NotImplementedError):
-            TC.make_session_fn(plan, shapes, **kw)
+    TC.make_session_fn(plan, shapes, qmax_arg=True)   # the codec sweep
+    with pytest.raises(ValueError, match="neither"):    # no control plane
+        TC.make_session_fn(plan, shapes, control_arg=True)
     TC.make_session_fn(plan, shapes, live=True)   # the live taps lower
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 5, multi-device"):
         TC.fleet_run(plan, [0, 1], _t(Xtr), c, shard_axis="data")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="async_session"):
         TC.compiled_session(replace(plan, scheduler=TC.AsyncStalePlan()), 0,
                             _t(Xtr), c)
 

@@ -410,13 +410,13 @@ def test_entry_points_raise_without_card(blob):
 
 def test_later_slice_arguments_raise(blob):
     """What later slices of the port bring raises NotImplementedError: the
-    compiled backend's async-stale lowering and the mesh ring.  Telemetry
-    (tests/test_torch_telemetry.py), the wire channel (tests/test_torch_comm_session.py), the control plane
-    with the async variant (tests/test_torch_control.py), the compiled
-    backend's sequential lowering (tests/test_torch_compiled.py) and the
-    scenarios with the protocol variants and their hops
-    (tests/test_torch_scenarios.py) are ported: their arguments
-    construct."""
+    mesh ring.  Telemetry (tests/test_torch_telemetry.py), the wire
+    channel (tests/test_torch_comm_session.py), the control plane with the
+    async variant (tests/test_torch_control.py), the compiled backend's
+    sequential and async-stale lowerings (tests/test_torch_compiled.py,
+    tests/test_torch_compiled_async.py) and the scenarios with the
+    protocol variants and their hops (tests/test_torch_scenarios.py) are
+    ported: their arguments construct, and the compiled async run fits."""
     from repro_torch.comm import BudgetedTransport, BudgetSpec
     from repro_torch.control import AdaptiveController, ServeController
     from repro_torch.learners.logistic import LogisticRegression
@@ -428,13 +428,13 @@ def test_later_slice_arguments_raise(blob):
     T.Protocol(cfg, device=CPU, scenario=PRESETS["churn"],
                variant=FedAvgVariant())
     T.Protocol(cfg, device=CPU, backend="compiled")
-    with pytest.raises(NotImplementedError):
-        T.Protocol(cfg, scheduler=T.AsyncStaleScheduler(), device=CPU,
-                   backend="compiled").fit(
-            0, T.endpoints_for([LogisticRegression(steps=2, device=CPU)
-                                for _ in Xtr],
-                               [torch.from_numpy(x) for x in Xtr]),
-            torch.from_numpy(ctr))
+    fitted = T.Protocol(cfg, scheduler=T.AsyncStaleScheduler(), device=CPU,
+                        backend="compiled").fit(
+        0, T.endpoints_for([LogisticRegression(steps=2, device=CPU)
+                            for _ in Xtr],
+                           [torch.from_numpy(x) for x in Xtr]),
+        torch.from_numpy(ctr))
+    assert fitted.history
     for kwargs in ({"controller": AdaptiveController()},
                    {"serve_controller": ServeController()}):
         T.MeteredTransport(**kwargs)
