@@ -70,9 +70,9 @@
    yardstick; a boolean mask for a window or a cache position).
 9. Full-width serve, qwen3-0.6b (28 layers, bf16, random weights) through
    ``repro_torch.launch.serve --no-reduced --use_flash``: batch 4, prompt
-   512, 64 tokens, once plain and once with --kv_quant; one flash_attention
-   launch per layer per prefill and one flash_decode launch per layer per
-   decode step.  Then, on the same weights and tokens, teacher-forced
+   512, SERVE_GEN tokens (32), once plain and once with --kv_quant; one
+   flash_attention launch per layer per prefill and one flash_decode
+   launch per layer per decode step.  Then, on the same weights and tokens, teacher-forced
    against use_flash=False (the einsum attention) with the weights in
    float32: the float32 flash path within 1e-4 max|logits| (1e-3 with the
    int8 cache) at every step, and the bf16 flash path no further from it
@@ -85,9 +85,9 @@
    (B * S rows, weight 0 at each last position), and the ragged (2040,
    1000) and (7, 3) in both dtypes: loss and lse within rtol 1e-5,
    dlogits within 2^-7 max|dlogits| (bf16) and 1e-5 max|dlogits|
-   (float32), two runs the same bits.  Prints ``ce_table``: kernel, plain
-   version, F.cross_entropy (forward; backward through autograd) and bound
-   ms at the two training shapes.
+   (float32), two runs the same bits.  Prints ``ce_table``: kernel (call
+   and device ms), plain version, F.cross_entropy (forward; backward
+   through autograd) and bound ms at the two training shapes.
 11. Full-width training, qwen3-0.6b (28 layers, bf16, 596049920 params,
    random weights) through ``repro_torch.launch.train``: batch 8, seq 256,
    20 steps; every loss finite, one launch of each weighted-CE kernel per
@@ -139,8 +139,8 @@
    steps, 5 rounds, compiled against eager on the card: components, stop
    round, predictions equal, w bit-equal; the session's seconds, ms a fit
    and peak memory for both.  (b) MIMIC size, LogisticRegression agents
-   (``--steps 50``), built through the CLI's parse_args and check_args
-   with --backend compiled: fp32, phase 6's five channels,
+   (``--steps`` MIMIC_STEPS), built through the CLI's parse_args and
+   check_args with --backend compiled: fp32, phase 6's five channels,
    --controller resid, --controller entropy, --scheduler budget-aware
    under the budget; compiled = eager on the card: ledgers, rungs, round
    orders, stop rounds, predictions exact, w bit-equal (the async
@@ -164,7 +164,7 @@
 15. The prediction service: the compiled serve step
    (``core.compiled.serve_session`` / ``serve_batch``) and the serve
    engine (``repro_torch.serve``).  (a) MIMIC size, LogisticRegression
-   agents (``--steps 50``), five serve channels (--serve-codec int8; int4
+   agents (SERVE_STEPS steps), five serve channels (--serve-codec int8; int4
    with DP epsilon 1 and RDP; a byte budget whose serve walk ships fp32,
    fp16, int8 and then exhausts; --serve-controller margin; entropy),
    ``Protocol.predict_distributed`` compiled against eager on the 4500
@@ -202,8 +202,8 @@
    with DP epsilon 1, a byte budget that walks fp32 -> int4 and exhausts;
    card = CPU ledgers, the ledger = wire_bits, residuals within 1e-5 of
    max|R|; one block quantize an int-coded shipped hop.  (c) Fashion
-   FedAvg at full width (42000 rows, 2 x 392 pixels, 3 rounds of the
-   paper's 5) with
+   FedAvg at full width (42000 rows, 2 x 392 pixels, FEDAVG_ROUNDS
+   rounds of the paper's 5) with
    LogisticRegression(steps=300) (d = 3930) and MLP(128, 64) with 200
    steps (d = 59210), under fp32, int8, int4, DP epsilon 1 with
    subsampled-rdp under the subsample preset, and a byte budget: the
@@ -216,8 +216,8 @@
    Prints session seconds eager and compiled, ms a round, peak memory.
 17. Telemetry (``repro_torch.telemetry``).  (a) MIMIC at full size
    (n = 15000, agents of 3 and 13 features, depth-4 trees, 10 rounds)
-   eager, and MIMIC LogisticRegression(steps=50) agents compiled with
-   --controller resid, --serve-codec int8 and DP epsilon 1, each fitted
+   eager, and MIMIC LogisticRegression(steps=SERVE_STEPS) agents compiled
+   with --controller resid, --serve-codec int8 and DP epsilon 1, each fitted
    and served once untimed without ``Telemetry()``, then three times with
    it and three times without, the order alternating (off, on, on, off,
    off, on), and with it on the CPU: w, ledger, alphas, DP releases, predictions and kernel
@@ -247,7 +247,7 @@
    copies of a session, a fleet and the engine beside the device
    operations a live program adds, and each part's seconds.
 18. The rest of the compiled backend, MIMIC at full size (n = 15000,
-   agents of 3 and 13 features, LogisticRegression(steps=50), 10
+   agents of 3 and 13 features, LogisticRegression(steps=MIMIC_STEPS), 10
    rounds).  (a) The async-stale lowering (``core.compiled.
    async_session`` through ``Protocol(backend="compiled")``) against the
    eager async run on the card under the reference's five async channels
@@ -283,6 +283,44 @@
    runs identical, one device kernel a call;
    ``qmax_rows_table`` (call and device ms, plain, bytes bound at 3.35
    TB/s, launch floor) beside the card's name and power limit.
+19. The rest of the model zoo at full width, random bf16 weights from
+   CUDA generators (``ZOO_SERVE``).  (a) Serve through
+   ``repro_torch.launch.serve``'s ``run``: granite-moe-1b-a400m,
+   mamba2-130m, minicpm3-4b, internvl2-2b (its 256 patch embeddings
+   prepended) and whisper-tiny (1500 frames) at their published depth,
+   batch 4, prompt 512, 32 tokens; qwen3-moe-235b-a22b cut to 2 layers of
+   94 and jamba-v0.1-52b to one pattern unit of 8 layers of 32, batch 1,
+   prompt 256, 16 tokens.  The GQA families with use_flash and without,
+   each with the bf16 and the int8 cache: flash_attention launches =
+   attention layers a prefill (whisper: its encoder's, self and cross),
+   flash_decode launches = attention layers x decode steps; minicpm3 (MLA)
+   and mamba2 on the einsum path.  Then, for the GQA families, flash
+   against einsum teacher-forced on the run's tokens at 2 layers (jamba:
+   its unit; whisper: all of it), in bf16 and with the weights in float32
+   (cast up in place), each with both caches (int8: both from the einsum
+   path's quantized prefill cache): float32 within 1e-4 max|logits| (1e-3
+   int8), greedy choices equal but at near-ties, bf16
+   flash no further from float32 than 1.25 x bf16 einsum on the mean over
+   the prefill and the steps (``zoo_bf16`` prints each step's).  (b) One
+   full-width MoE layer of granite and qwen3-moe in float32 at 512
+   tokens: grouped = dense within 1e-5 max|y|, two grouped runs the same
+   bits, the router's indices on the card = the CPU's but at near-ties.
+   (c) mamba2 in float32, chunk 128: a prefill of 384 then 128 decode
+   steps = a prefill of 512 at every step within 1e-4 max|logits| (the
+   state handoff).  (d) Card = CPU, float32 einsum path, prefill and 4
+   steps within 1e-4 max|logits| (``ZOO_CPU``: mamba2 and whisper at full
+   width, granite, internvl2 and minicpm3 cut to 2 layers, jamba and
+   qwen3-moe at ``reduced()``).  (e) Training through
+   ``repro_torch.launch.train``, granite and mamba2 at full width, 3
+   steps, batch 4, seq 256: losses and aux finite, one launch of each
+   weighted-CE kernel a step, the kernel loss = the plain loss on the same
+   logits (rtol 1e-5); and an ASCII session with a NeuralBackbone agent at
+   each one's width cut to 2 layers beside three trees (as 12(d)):
+   ignorance launches = hops, one fit on the card = the CPU's within 5e-4
+   max|logit|.  Prints ``zoo_table`` (per arch: params, each path's
+   prefill ms, decode ms a step, tokens/s, peak GiB and flash launches;
+   the float32 comparisons; training step ms, tokens/s, peak and CE
+   launches) beside the card's name and power limit.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -313,11 +351,16 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor-core rate
 SMOKE_DIR = os.path.join(ROOT, "build", "chip_smoke")
-# phase 14's MIMIC logistic agents' steps (the CLI's default is 150): a
-# step took ~2 ms of host time on an H100 80GB HBM3 at 700 W (PERF.md),
-# so at 50 the phase's MIMIC sessions and fleets take about a
-# minute there
+# phase 14's and 18's MIMIC logistic agents' steps (the CLI's default is
+# 150): a step took ~2 ms of host time on an H100 80GB HBM3 at 700 W
+# (PERF.md), so at 50 the phase's MIMIC sessions and fleets take about a
+# minute there; at 25 a fleet session and a sweep row part from their
+# single runs at near-ties
 MIMIC_STEPS = 50
+# phases 15's and 17's (the serve path's and telemetry's sessions): 50
+# until phase 19 came, when the whole script took 1244 s on a slower host
+# of that card; at 25 both phases hold every check
+SERVE_STEPS = 25
 # phase 14(c)'s Fashion-MLP fleet's rounds (the session's 5 cut to 2: its
 # 8 sessions three ways took ~100 s at 3 rounds, and phases 16 and 17
 # took the script past 800 s)
@@ -327,11 +370,36 @@ FASHION_FLEET_ROUNDS = 2
 # 99 s on an H100 80GB HBM3 at 700 W; cut for phase 18)
 FASHION_FLEET, MIMIC_FLEET, MIMIC_HELD = 4, 32, (0, 1, 2, 31)
 # phase 12(d)'s backbone steps (its CPU fit took 57 s at 20; cut to 10
-# for phase 18)
-BACKBONE_STEPS = 10
+# for phase 18, to 6 for phase 19: 28 s at 10 on a slower host)
+BACKBONE_STEPS = 6
+# phase 9's generated tokens (64 until phase 19: its four teacher-forced
+# paths decode every one twice)
+SERVE_GEN = 32
 # phase 16(c)'s FedAvg rounds (the paper's 5 cut to 3: its twenty
 # sessions took ~150 s, and phase 17 would take the script past 800 s)
 FEDAVG_ROUNDS = 3
+# phase 19(a)'s serve cells: arch -> (layers kept, batch, prompt, tokens
+# generated); None keeps the published depth.  qwen3-moe (94 layers) and
+# jamba (32) fit one 80 GB card only cut in depth: 2 layers (~6.2 B
+# params, ~12.4 GB in bf16) and one pattern unit of 8 (~13 B, ~26 GB)
+ZOO_SERVE = {"granite-moe-1b-a400m": (None, 4, 512, 32),
+             "mamba2-130m": (None, 4, 512, 32),
+             "minicpm3-4b": (None, 4, 512, 32),
+             "internvl2-2b": (None, 4, 512, 32),
+             "whisper-tiny": (None, 4, 512, 32),
+             "qwen3-moe-235b-a22b": (2, 1, 256, 16),
+             "jamba-v0.1-52b": (8, 1, 256, 16)}
+# phase 19(d)'s card = CPU cells: arch -> layers kept ("reduced":
+# reduced(); the CPU runs them too)
+ZOO_CPU = {"mamba2-130m": None, "whisper-tiny": None,
+           "granite-moe-1b-a400m": 2, "internvl2-2b": 2, "minicpm3-4b": 2,
+           "jamba-v0.1-52b": "reduced", "qwen3-moe-235b-a22b": "reduced"}
+# phase 19(e): the archs trained and fitted as ASCII backbones, the train
+# steps, and the backbone fits' steps (a CPU fit of granite's 32 dense
+# experts at full width costs ~1 s a step)
+ZOO_TRAIN = ("granite-moe-1b-a400m", "mamba2-130m")
+ZOO_TRAIN_STEPS = 3
+ZOO_BACKBONE_STEPS = 3
 
 
 def _cuda_time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
@@ -1758,7 +1826,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.launch import serve as cli
         from repro_torch.models import api
-        batch, prompt_len, gen = 4, 512, 64
+        batch, prompt_len, gen = 4, 512, SERVE_GEN
         common = ["--arch", "qwen3-0.6b", "--no-reduced", "--use_flash",
                   "--batch", str(batch), "--prompt_len", str(prompt_len),
                   "--device", "cuda", "--seed", "0"]
@@ -2000,8 +2068,13 @@ class Smoke:
         esize = x.element_size()
         b_fwd, by_fwd = _bound_ms(t * v * esize + 16 * t, 4 * t * v)
         b_bwd, by_bwd = _bound_ms(2 * t * v * esize + 16 * t, 4 * t * v)
+        fwd_dev = _kernel_device_ms(lambda: wce.weighted_ce_fwd(x, lab, w),
+                                    "wce_fwd", 50)
+        bwd_dev = _kernel_device_ms(
+            lambda: wce.weighted_ce_bwd(x, lab, w, lse, g), "wce_bwd", 50)
         row = {"shape": name, "T": t, "V": v, "dtype": str(x.dtype)[6:],
-               "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "plain_fwd_ms": pfwd_ms,
+               "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_device_ms": fwd_dev,
+               "bwd_device_ms": bwd_dev, "plain_fwd_ms": pfwd_ms,
                "plain_bwd_ms": pbwd_ms, "cross_entropy_fwd_ms": lib_fwd,
                "cross_entropy_bwd_ms": lib_bwd,
                "cross_entropy_fwd_bwd_ms": lib_both, "fwd_bound_ms": b_fwd,
@@ -2011,17 +2084,14 @@ class Smoke:
                 "source": "src/repro_torch/csrc/weighted_ce.cu",
                 "replaces": "src/repro/kernels/weighted_ce.py:68",
                 "max_abs_err": float((loss - ploss).abs().max()),
-                "ms": fwd_ms, "device_ms": _kernel_device_ms(
-                    lambda: wce.weighted_ce_fwd(x, lab, w), "wce_fwd", 50),
+                "ms": fwd_ms, "device_ms": fwd_dev,
                 "plain_ms": pfwd_ms, "bound_ms": b_fwd,
                 "bound_by": by_fwd, "library_ms": lib_fwd}
             self.kernels["weighted_ce_bwd"] = {
                 "source": "src/repro_torch/csrc/weighted_ce.cu",
                 "replaces": "src/repro/kernels/weighted_ce.py:113",
                 "max_abs_err": float((d.float() - pd.float()).abs().max()),
-                "ms": bwd_ms, "device_ms": _kernel_device_ms(
-                    lambda: wce.weighted_ce_bwd(x, lab, w, lse, g), "wce_bwd",
-                    50),
+                "ms": bwd_ms, "device_ms": bwd_dev,
                 "plain_ms": pbwd_ms, "bound_ms": b_bwd,
                 "bound_by": by_bwd, "library_ms": lib_bwd}
         return row
@@ -3398,7 +3468,7 @@ class Smoke:
                            transport=transport, backend=backend,
                            device="cuda")
         proto.fit(key, E.endpoints_for(
-            [LogisticRegression(steps=MIMIC_STEPS, device="cuda")
+            [LogisticRegression(steps=SERVE_STEPS, device="cuda")
              for _ in Xtr], Xtr), ctr)
         return proto
 
@@ -4175,8 +4245,8 @@ class Smoke:
                      f"{name}: the trace does not reload the registry")
 
     def _tele_sessions(self, table: dict) -> str:
-        """(a) MIMIC trees eager and MIMIC logistic(50) compiled (the
-        resid controller, an int8 serve codec, DP epsilon 1), each three
+        """(a) MIMIC trees eager and MIMIC logistic(SERVE_STEPS) compiled
+        (the resid controller, an int8 serve codec, DP epsilon 1), each three
         times with and three times without Telemetry on the card, in
         ``TELE_ORDER``, and with it on the CPU."""
         torch = self.torch
@@ -4189,7 +4259,7 @@ class Smoke:
                 "--controller", "resid", "--serve-codec", "int8",
                 "--dp-epsilon", "1"]
 
-        def build(kind, device, steps=MIMIC_STEPS):
+        def build(kind, device, steps=SERVE_STEPS):
             if kind == "eager":
                 cfg = E.SessionConfig(num_classes=2, max_rounds=10)
                 transport = E.MeteredTransport()
@@ -4239,7 +4309,7 @@ class Smoke:
             cpu = run(kind, "cpu", Telemetry())
             lit = runs[self.TELE_ORDER.index(True)]
             self.tele_dark[kind] = dict(
-                dark, build=lambda steps=MIMIC_STEPS, _kind=kind: build(
+                dark, build=lambda steps=SERVE_STEPS, _kind=kind: build(
                     _kind, "cuda", steps))
             for other in runs:
                 t_d, t_o = dark["proto"].transport, other["proto"].transport
@@ -4382,7 +4452,7 @@ class Smoke:
                     lambda: fn1(draws1, tuple(Xtr), ctr))
         ops["tap_copies"] = sink.copies
         # a fleet of 8 MIMIC int8 sessions, dark and live
-        fplan = C.plan_for([LogisticRegression(steps=MIMIC_STEPS,
+        fplan = C.plan_for([LogisticRegression(steps=SERVE_STEPS,
                                                device="cuda")] * 2, 2,
                            max_rounds=10, codec=QuantCodec(8))
         keys = list(range(8))
@@ -4742,8 +4812,9 @@ class Smoke:
                 session_bits=tight, ladder=ladder))}
 
     def _async_compiled(self) -> str:
-        """(a) MIMIC async, logistic(50), the five channels: compiled =
-        eager on the card; the program under sync debug mode."""
+        """(a) MIMIC async, logistic(MIMIC_STEPS), the five channels:
+        compiled = eager on the card; the program under sync debug
+        mode."""
         torch = self.torch
         from repro_torch.comm.codecs import QuantCodec
         from repro_torch.core import compiled as C
@@ -5118,6 +5189,480 @@ class Smoke:
                 f"dark, taps {taps} = the replayed ledgers, "
                 f"{sink.copies} tap copies")
 
+    # ------------------------------------------------------- the model zoo
+    def zoo(self) -> str:
+        """19. The rest of the model zoo at full width (ZOO_SERVE)."""
+        table = {}
+        out = [self._zoo_serve(arch, table) for arch in ZOO_SERVE]
+        out.append(self._zoo_train(table))
+        print("zoo_table " + json.dumps({"card": self.card, "rows": table}),
+              flush=True)
+        out += [self._zoo_moe(), self._zoo_ssm(), self._zoo_card_vs_cpu(),
+                self._zoo_ascii()]
+        return "; ".join(out)
+
+    def _zoo_serve(self, arch: str, table: dict) -> str:
+        """(a) One arch through the serve CLI's ``run``: einsum and flash
+        paths, bf16 and int8 caches; then flash against einsum on the
+        float32 copies (:meth:`_zoo_flash_vs_einsum`)."""
+        torch = self.torch
+        from repro_torch.launch import serve as cli
+        from repro_torch.models import api
+        layers, batch, prompt, gen = ZOO_SERVE[arch]
+        cfg = _zoo_cfg(arch, layers)
+        flashable = cfg.attention == "gqa"
+
+        def args(g, extra):
+            return cli.parser().parse_args(
+                ["--arch", arch, "--no-reduced", "--batch", str(batch),
+                 "--prompt_len", str(prompt), "--gen", str(g), "--device",
+                 "cuda", "--seed", "0", *extra])
+
+        paths = [("einsum", [])]
+        if flashable:
+            paths += [("einsum_int8", ["--kv_quant"]),
+                      ("flash", ["--use_flash"]),
+                      ("flash_int8", ["--use_flash", "--kv_quant"])]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        params = api.init_params(
+            cfg, torch.Generator(device=self.dev).manual_seed(0))
+        n_params = api.count_params(params)
+        cli.run(args(2, []), params, cfg)    # warm-up (libraries), uncounted
+        n_pre, n_dec = _zoo_attention(cfg)
+        rows, kept = {}, None
+        for name, extra in paths:
+            flash = "--use_flash" in extra
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.reset_counts()
+            run = cli.run(args(gen, extra), params, cfg)
+            launches = {"flash_attention": n_pre if flash else 0,
+                        "flash_decode": n_dec * (gen - 1) if flash else 0}
+            self.read_counts(0, f"zoo serve {arch} {name}", **launches)
+            toks = run.tokens
+            self.require(tuple(toks.shape) == (batch, gen)
+                         and int(toks.min()) >= 0
+                         and int(toks.max()) < cfg.vocab_size,
+                         f"zoo serve {arch} {name}: tokens "
+                         f"{tuple(toks.shape)} out of range")
+            rows[name] = {
+                "prefill_ms": run.prefill_s * 1e3,
+                "decode_ms_a_step": run.decode_s * 1e3 / (gen - 1),
+                "tokens_s": (gen - 1) * batch / run.decode_s,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                **launches}
+            if name == ("flash" if flashable else "einsum"):
+                kept = (run.prompt, run.frontend, run.tokens)
+            del run
+        del params
+        table[arch] = {"layers": cfg.num_layers, "params": n_params,
+                       "batch": batch, "prompt": prompt, "gen": gen,
+                       "paths": rows}
+        print(f"zoo_serve {arch} " + json.dumps(rows), flush=True)
+        line = (f"(a) {arch} ({cfg.num_layers} layers, {n_params} params, "
+                f"bf16) batch {batch} prompt {prompt} gen {gen}: "
+                + ", ".join(f"[{k}] {v['prefill_ms']:.1f} ms prefill, "
+                            f"{v['decode_ms_a_step']:.2f} ms/step"
+                            for k, v in rows.items()))
+        if flashable:
+            worst = self._zoo_flash_vs_einsum(cfg, *kept)
+            table[arch]["flash_vs_einsum"] = worst
+            line += "; float32 copies, worst " + ", ".join(
+                f"{k} {v:.3g}" for k, v in worst.items())
+        return line
+
+    def _zoo_flash_vs_einsum(self, cfg, prompt, frontend, tokens) -> dict:
+        """The flash and the einsum paths, teacher-forced on a run's prompt,
+        frontend inputs and continuation, with the bf16 weights and their
+        float32 copies, each with the bf16 and the int8 cache: the float32
+        flash path within 1e-4 max|logits| of the float32 einsum path (1e-3
+        with the int8 cache, both paths decoding from the einsum path's
+        quantized prefill cache: an int8 value at a rounding boundary
+        follows ulps of K) at the prefill and every step, its greedy
+        choice the same at every row but a near-tie (top-2 gap within
+        twice the row's difference), and the bf16 flash path no further
+        from it than 1.25 x the bf16 einsum path, on the mean over the
+        prefill and the steps.  Cut to 2 layers (jamba:
+        its one unit; whisper: all of its 4 + 4).  The bf16 weights are
+        cast up in place, leaf by leaf: jamba's unit holds 26 GB in bf16
+        and 52 GB in float32."""
+        torch = self.torch
+        from repro_torch.models import api
+        cut = (cfg if cfg.layer_pattern or cfg.cross_attention
+               else cfg.with_overrides(num_layers=min(cfg.num_layers, 2)))
+        cut = cut.with_overrides(dtype="bfloat16")
+        params = api.init_params(
+            cut, torch.Generator(device=self.dev).manual_seed(0))
+        b, s = prompt.shape
+        off = cut.num_frontend_tokens if "patch_emb" in frontend else 0
+        s_cache = off + s + tokens.shape[1]
+
+        def path(c, quant, start=None):
+            """Prefill and every teacher-forced step's logits, and the
+            int8 prefill cache the steps started from (``start``: that of
+            another path, copied)."""
+            with torch.no_grad():
+                lg, cache, _ = api.forward(params, {"tokens": prompt,
+                                                    **frontend}, c)
+                out = [lg.float()]
+                cache = api.pad_prefill_cache(cache, c, s_cache)
+                if quant:
+                    cache = api.quantize_cache(cache, c) if start is None \
+                        else start
+                    start = _clone_cache(cache)
+                for i in range(tokens.shape[1] - 1):
+                    lg, cache = api.decode_step(params, cache,
+                                                tokens[:, i:i + 1],
+                                                off + s + i, c)
+                    out.append(lg[:, -1].float())
+            return out, start
+
+        out = {}
+        for dtype in ("bfloat16", "float32"):
+            if dtype == "float32":
+                _upcast_in_place(params)
+            for quant in (False, True):
+                start = None     # both paths decode from einsum's int8 cache
+                for flash in (False, True):
+                    c = cut.with_overrides(dtype=dtype, use_flash=flash)
+                    out[(flash, dtype, quant)], start = path(c, quant, start)
+        del params, start
+        torch.cuda.empty_cache()
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        worst = {"flash_f32": 0.0, "flash_f32_int8": 0.0, "near_ties": 0}
+        for quant in (False, True):
+            ref = out[(False, "float32", quant)]
+            bound, tag = (1e-3, "_int8") if quant else (1e-4, "")
+            bf16 = {"flash": [], "einsum": []}
+            for j, want in enumerate(ref):
+                where = f"{cfg.name} quant={quant} step {j}"
+                e32 = rel(out[(True, "float32", quant)][j], want)
+                for flash, name in ((True, "flash"), (False, "einsum")):
+                    bf16[name].append(rel(out[(flash, "bfloat16", quant)][j],
+                                          want))
+                self.require(math.isfinite(e32) and all(
+                    math.isfinite(v[-1]) for v in bf16.values()),
+                    f"{where}: non-finite logits")
+                self.require(e32 <= bound, f"{where}: float32 flash path "
+                             f"{e32} > {bound} max|logits| from einsum")
+                got = out[(True, "float32", quant)][j]
+                last = (want[:, -1], got[:, -1]) if j == 0 else (want, got)
+                top2 = last[0].topk(2, dim=-1).values
+                diff = (last[1] - last[0]).abs().amax(-1)
+                parted = last[1].argmax(-1) != last[0].argmax(-1)
+                near = (top2[:, 0] - top2[:, 1]) <= 2 * diff
+                self.require(not bool((parted & ~near).any()),
+                             f"{where}: float32 greedy tokens part off a "
+                             f"near-tie")
+                worst["near_ties"] += int(parted.sum())
+                worst["flash_f32" + tag] = max(worst["flash_f32" + tag], e32)
+            # the bf16 paths' distance from float32, the mean over the
+            # prefill and the steps: an MoE's bf16 roundings flip experts
+            # of near-tied tokens, a jump in one step's distance either way
+            mean = {k: statistics.fmean(v) for k, v in bf16.items()}
+            print(f"zoo_bf16 {cfg.name} quant={quant} " + json.dumps(bf16),
+                  flush=True)
+            self.require(mean["flash"] <= 1.25 * mean["einsum"],
+                         f"{cfg.name} quant={quant}: the bf16 flash path's "
+                         f"mean distance {mean['flash']} from float32 > "
+                         f"1.25 x the bf16 einsum path's {mean['einsum']}")
+            for k, v in mean.items():
+                worst[f"{k}_bf16{tag}_mean"] = v
+        return worst
+
+    def _zoo_train(self, table: dict) -> str:
+        """(e) Training through the train CLI at full width, and the kernel
+        loss against the plain loss on the same logits."""
+        torch = self.torch
+        from repro_torch.kernels import weighted_ce as wce
+        from repro_torch.launch import train as cli
+        from repro_torch.models import api
+        out = []
+        for arch in ZOO_TRAIN:
+            self.reset_counts()
+            run = cli.run(cli.parser().parse_args(
+                ["--arch", arch, "--steps", str(ZOO_TRAIN_STEPS), "--batch",
+                 "4", "--seq", "256", "--device", "cuda", "--seed", "0"]))
+            self.read_counts(0, f"zoo train {arch}",
+                             weighted_ce_fwd=ZOO_TRAIN_STEPS,
+                             weighted_ce_bwd=ZOO_TRAIN_STEPS)
+            cfg = run.cfg
+            losses = [h["loss"] for h in run.history]
+            aux = [h["aux_loss"] for h in run.history]
+            self.require(len(losses) == ZOO_TRAIN_STEPS
+                         and all(math.isfinite(x) for x in losses + aux),
+                         f"zoo train {arch}: losses {losses}, aux {aux}")
+            self.require((aux[0] > 0) == cfg.is_moe,
+                         f"zoo train {arch}: aux {aux}")
+            batch = self._train_batch(cfg, 11)
+            with torch.no_grad():
+                logits, _ = api.forward_train(run.params, batch, cfg)
+                lk = float(api.weighted_next_token_loss(logits, batch, cfg))
+                rows, lab, w = api.next_token_rows(logits, batch, cfg)
+                lp = float(wce.weighted_ce_fwd_plain(rows, lab, w)[0].sum()
+                           / w.sum().clamp(min=1e-9))
+            self.require(abs(lk - lp) <= 1e-5 * abs(lp),
+                         f"zoo train {arch}: kernel loss {lk} != plain {lp}")
+            step_ms = statistics.median(run.step_s[1:]) * 1e3
+            table.setdefault(arch, {})["train"] = {
+                "steps": ZOO_TRAIN_STEPS, "batch": 4, "seq": 256,
+                "step_ms": step_ms, "tokens_s": 4 * 256 / step_ms * 1e3,
+                "peak_gib": run.peak_bytes / 2 ** 30,
+                "weighted_ce_fwd": ZOO_TRAIN_STEPS,
+                "weighted_ce_bwd": ZOO_TRAIN_STEPS}
+            out.append(f"{arch} ({api.count_params(run.params)} params) "
+                       f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, aux "
+                       f"{aux[-1]:.4f}, step {step_ms:.1f} ms, kernel loss "
+                       f"{lk:.6f} = plain {lp:.6f}")
+            del run, logits, rows
+            torch.cuda.empty_cache()
+        return (f"(e) train, batch 4 seq 256, {ZOO_TRAIN_STEPS} steps: "
+                + "; ".join(out))
+
+    def _zoo_moe(self) -> str:
+        """(b) One full-width MoE layer of each MoE arch in float32 at 512
+        tokens: grouped = dense within 1e-5 max|y|, two grouped runs the
+        same bits, the router's indices on the card = the CPU's (a row may
+        part only where two of its first k + 1 probabilities lie within
+        1e-6)."""
+        torch = self.torch
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.models import moe
+        out = []
+        for arch in ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b"):
+            cfg = ARCHS[arch]
+            gen = torch.Generator(device=self.dev).manual_seed(5)
+            p = moe.moe_init(gen, cfg, torch.float32, device=self.dev)
+            x = torch.randn(1, 512, cfg.d_model, generator=gen,
+                            device=self.dev)
+            with torch.no_grad():
+                dense, aux_d = moe.moe_apply(p, x, cfg, "dense")
+                gmm, aux_g = moe.moe_apply(p, x, cfg, "gmm")
+                again, _ = moe.moe_apply(p, x, cfg, "gmm")
+                dense_ms = _cuda_time_ms(
+                    lambda: moe.moe_apply(p, x, cfg, "dense"), 5, 1)
+                gmm_ms = _cuda_time_ms(
+                    lambda: moe.moe_apply(p, x, cfg, "gmm"), 5, 1)
+                _, idx, _ = moe.router_topk(p, x[0], cfg)
+                router = {"router": p["router"].cpu()}
+                _, cidx, _ = moe.router_topk(router, x[0].cpu(), cfg)
+                full = torch.softmax(x[0].cpu() @ router["router"], -1)
+            err = float((gmm - dense).abs().max() / dense.abs().max())
+            self.require(err <= 1e-5, f"{arch}: gmm {err} from dense")
+            self.require(torch.equal(gmm, again) and torch.equal(aux_d, aux_g),
+                         f"{arch}: two grouped runs differ")
+            top = full.sort(-1, descending=True).values[:, :cfg.top_k + 1]
+            near = (top[:, :-1] - top[:, 1:]).min(-1).values <= 1e-6
+            parted = (idx.cpu() != cidx).any(-1)
+            self.require(not bool((parted & ~near).any()),
+                         f"{arch}: router indices part off near-ties")
+            out.append(f"{arch} (E {cfg.num_experts}, k {cfg.top_k}, d "
+                       f"{cfg.d_model}, f {cfg.moe_d_ff}): gmm - dense "
+                       f"{err:.3g} max|y|, dense {dense_ms:.2f} ms, gmm "
+                       f"{gmm_ms:.2f} ms, router rows parted card/CPU "
+                       f"{int(parted.sum())} (near-ties)")
+            del p, dense, gmm, again
+            torch.cuda.empty_cache()
+        return "(b) one MoE layer, float32, 512 tokens: " + "; ".join(out)
+
+    def _zoo_ssm(self) -> str:
+        """(c) mamba2-130m in float32, full width, chunk 128: a prefill of
+        384 then 128 decode steps give every step the logits of one
+        prefill of 512 at that position, within 1e-4 max|logits|."""
+        torch = self.torch
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.models import api
+        cfg = ARCHS["mamba2-130m"].with_overrides(dtype="float32")
+        gen = torch.Generator(device=self.dev).manual_seed(6)
+        params = api.init_params(cfg, gen)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+                               device=self.dev)
+        worst = 0.0
+        with torch.no_grad():
+            full, _, _ = api.forward(params, {"tokens": tokens}, cfg)
+            _, caches, _ = api.forward(params, {"tokens": tokens[:, :384]},
+                                       cfg)
+            caches = api.pad_prefill_cache(caches, cfg, 512)
+            for i in range(384, 512):
+                lg, caches = api.decode_step(params, caches,
+                                             tokens[:, i:i + 1], i, cfg)
+                worst = max(worst, float((lg[:, 0] - full[:, i]).abs().max()
+                                         / full[:, i].abs().max()))
+        self.require(worst <= 1e-4, f"mamba2 state handoff: {worst} of "
+                     f"max|logits| > 1e-4")
+        return (f"(c) mamba2-130m float32, chunk {cfg.ssm_chunk}: prefill "
+                f"384 + 128 steps = prefill 512 within {worst:.3g} "
+                f"max|logits| (<= 1e-4)")
+
+    def _zoo_card_vs_cpu(self) -> str:
+        """(d) The card's float32 einsum path against the CPU's on the same
+        weights and inputs: the prefill's logits and 4 steps fed the CPU's
+        greedy tokens within 1e-4 max|logits|, the greedy choices equal
+        but at near-ties."""
+        torch = self.torch
+        from repro_torch.data.pipeline import frontend_inputs
+        from repro_torch.models import api
+        out = []
+        for arch, cut in ZOO_CPU.items():
+            cfg = _zoo_cfg(arch, cut).with_overrides(dtype="float32")
+            gen = torch.Generator().manual_seed(7)
+            params = api.init_params(cfg, gen)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 64),
+                                             generator=gen),
+                     **frontend_inputs(cfg, 2, gen)}
+            off = cfg.num_frontend_tokens if "patch_emb" in batch else 0
+            runs = {}
+            for name, dev in (("cpu", "cpu"), ("card", self.dev)):
+                p = _tree_to(params, dev)
+                b = {k: v.to(dev) for k, v in batch.items()}
+                fed = runs["cpu"][1] if runs else None   # the CPU's tokens
+                toks, t0 = [], time.perf_counter()
+                with torch.no_grad():
+                    lg, cache, _ = api.forward(p, b, cfg)
+                    logits = [lg.float().cpu()]
+                    cache = api.pad_prefill_cache(cache, cfg, off + 64 + 4)
+                    for i in range(4):
+                        tok = (fed[i] if fed else torch.argmax(
+                            logits[-1][:, -1], -1).to(torch.int32)[:, None])
+                        toks.append(tok)
+                        lg, cache = api.decode_step(p, cache, tok.to(dev),
+                                                    off + 64 + i, cfg)
+                        logits.append(lg.float().cpu())
+                runs[name] = (logits, toks, time.perf_counter() - t0)
+            worst, parted = 0.0, 0
+            for g, w in zip(runs["card"][0], runs["cpu"][0]):
+                diff = (g - w).abs()
+                worst = max(worst, float(diff.max() / w.abs().max()))
+                gap = self._logits_gap(g[:, -1], w[:, -1],
+                                       2 * float(diff[:, -1].max()))
+                self.require(not gap["parted_off_near_ties"],
+                             f"{arch}: card greedy tokens part off a "
+                             f"near-tie: {gap}")
+                parted += gap["parted"]
+            self.require(worst <= 1e-4, f"{arch}: card vs CPU {worst} of "
+                         f"max|logits| > 1e-4")
+            out.append(f"{arch} ({cfg.num_layers} layers, d {cfg.d_model}) "
+                       f"{worst:.3g}, parted {parted}, cpu "
+                       f"{runs['cpu'][2]:.1f} s")
+            del params, runs
+        return ("(d) card = CPU, float32 einsum, prefill + 4 steps, worst "
+                "max|dlogits| / max|logits| (<= 1e-4): " + "; ".join(out))
+
+    def _zoo_ascii(self) -> str:
+        """(e) ASCII: a NeuralBackbone agent over each ZOO_TRAIN arch's
+        width cut to 2 layers (ZOO_BACKBONE_STEPS steps) beside three
+        trees on the blob, as 12(d): ignorance launches = hops; one fit
+        on the card and on the CPU from the same draws within 5e-4
+        max|logit|."""
+        torch = self.torch
+        from repro_torch.comm.draws import ChannelDraws
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.core import engine as E
+        from repro_torch.data.synthetic import blob_fig3
+        from repro_torch.learners.neural import NeuralBackbone
+        from repro_torch.learners.tree import DecisionTree
+        ds = blob_fig3(torch.Generator().manual_seed(0), n=1000,
+                       device="cuda")
+        Xtr, ctr, Xte, cte = self._split(ds)
+        out = []
+        for arch in ZOO_TRAIN:
+            cfg = ARCHS[arch].with_overrides(num_layers=2)
+            learners = [NeuralBackbone(cfg=cfg, steps=ZOO_BACKBONE_STEPS,
+                                       device="cuda")] + [
+                DecisionTree(depth=4, device="cuda") for _ in range(3)]
+            proto = E.Protocol(E.SessionConfig(num_classes=10,
+                                               max_rounds=2),
+                               transport=E.MeteredTransport(), device="cuda")
+            self.reset_counts()
+            t0 = time.perf_counter()
+            session = proto.start(0, E.endpoints_for(learners, Xtr), ctr)
+            session.run()
+            preds = session.fitted().predict(Xte)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            st = session.state
+            self.read_counts(len(st.components), f"zoo ascii {arch}")
+            self.require(all(math.isfinite(c.alpha) for c in st.components),
+                         f"zoo ascii {arch}: non-finite alpha")
+            acc = float((preds == cte).float().mean())
+            draws = ChannelDraws().fit(E.key_data(0), 0, 0)
+            n = ctr.shape[0]
+            logits, fit_s = {}, {}
+            for name, dev in (("card", str(self.dev)), ("cpu", "cpu")):
+                nb = NeuralBackbone(cfg=cfg, steps=ZOO_BACKBONE_STEPS,
+                                    device=dev)
+                X = Xtr[0].to(dev)
+                t1 = time.perf_counter()
+                params = nb.fit(draws, X, ctr.to(dev),
+                                torch.full((n,), 1.0 / n, device=dev), 10)
+                logits[name] = nb.core(10).logits(params, X).detach().cpu()
+                fit_s[name] = time.perf_counter() - t1
+            scale = float(logits["cpu"].abs().max())
+            tol = 5e-4 * scale
+            gap = self._logits_gap(logits["card"], logits["cpu"], tol)
+            self.require(gap["max_err"] <= tol
+                         and not gap["parted_off_near_ties"],
+                         f"zoo ascii {arch}: card vs CPU {gap} beyond "
+                         f"{tol:.3g}")
+            out.append(f"{arch} width, 2 layers: components "
+                       f"{len(st.components)}, acc {acc:.4f}, session "
+                       f"{secs:.2f} s; fit card {fit_s['card']:.2f} s, cpu "
+                       f"{fit_s['cpu']:.2f} s, max|logit err| "
+                       f"{gap['max_err'] / scale:.3g} of max|logit| "
+                       f"(<= 5e-4)")
+        return (f"(e) ASCII, a NeuralBackbone ({ZOO_BACKBONE_STEPS} steps) "
+                f"beside 3 trees, blob n_train=700, 2 rounds: "
+                + "; ".join(out))
+
+
+def _zoo_cfg(arch: str, layers):
+    """An arch's full config, ``layers`` deep (None: its own depth;
+    "reduced": ``reduced()``)."""
+    from repro_torch.configs.registry import ARCHS
+    if layers == "reduced":
+        return ARCHS[arch].reduced()
+    return ARCHS[arch] if layers is None else ARCHS[arch].with_overrides(
+        num_layers=layers)
+
+
+def _zoo_attention(cfg) -> tuple[int, int]:
+    """The attention layers a prefill and a decode step run under
+    use_flash: flash_attention and flash_decode launches."""
+    from repro_torch.models import transformer
+    if cfg.cross_attention:          # the encoder, self and cross
+        return cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    n = (transformer._block_kinds(cfg).count("attn")
+         * transformer._num_units(cfg))
+    return n, n
+
+
+def _upcast_in_place(tree: dict) -> None:
+    """Every leaf of ``tree`` cast to float32, one at a time, the old
+    leaf's memory given back to the card before the next."""
+    import torch
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            _upcast_in_place(tree[k])
+        else:
+            tree[k] = tree[k].float()
+            torch.cuda.empty_cache()
+
+
+def _clone_cache(tree):
+    """A decode cache tree with every tensor copied (decode writes in
+    place)."""
+    if isinstance(tree, dict):
+        return {k: _clone_cache(v) for k, v in tree.items()}
+    return type(tree)(*(a.clone() for a in tree))
+
+
+def _tree_to(tree: dict, device) -> dict:
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
 
 
 def _leaves(tree) -> list:
@@ -5176,7 +5721,7 @@ def main(argv: list[str]) -> int:
               8: s.flash_vs_plain, 9: s.serve, 10: s.ce_vs_plain,
               11: s.train, 12: s.learners, 13: s.control,
               14: s.compiled, 15: s.serve_path, 16: s.scenarios,
-              17: s.telemetry, 18: s.compiled_rest}
+              17: s.telemetry, 18: s.compiled_rest, 19: s.zoo}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])

@@ -5,8 +5,8 @@ names and ``reduced()`` match the JAX package's.  Every assigned
 architecture is a frozen ArchConfig in its own module under
 ``repro_torch/configs``; ``registry.py`` maps ``--arch <id>`` to it.
 ``reduced()`` derives the CPU smoke-test variant (<=2 layers,
-d_model<=512, <=4 experts).  The port's models run only the dense GQA
-architectures so far (``repro_torch.models.transformer``); the rest raise.
+d_model<=512, <=4 experts).  The port's models run all ten
+(``repro_torch.models.api``).
 """
 from __future__ import annotations
 

@@ -71,13 +71,14 @@ def _tensor(a) -> torch.Tensor:
 def model_params_from_numpy(cfg: ArchConfig, params: Mapping, *,
                             device: str | torch.device = "cuda") -> dict:
     """The JAX package's model parameter tree (``repro.models.api
-    .init_params``; leaves as numpy arrays, per-layer leaves stacked on
-    axis 0 as its ``scan`` lays them out) as the port's parameters on
-    ``device``, in ``cfg.dtype``.  The tree must match the port's for
-    ``cfg`` leaf for leaf, with the same shapes."""
-    from repro_torch.models import transformer
-    want = transformer.init_params(cfg)          # shapes only (meta)
-    dtype = transformer.DTYPES[cfg.dtype]
+    .init_params``, the encoder-decoder's too; leaves as numpy arrays,
+    per-layer leaves stacked on axis 0 as its ``scan`` lays them out) as
+    the port's parameters on ``device``, each leaf in the dtype the port's
+    ``init_params`` gives it: ``cfg.dtype``, but float32 for the SSM's
+    ``A_log``, ``D`` and ``dt_bias``, as in the reference.  The tree must
+    match the port's for ``cfg`` leaf for leaf, with the same shapes."""
+    from repro_torch.models import api
+    want = api.init_params(cfg)                  # shapes and dtypes (meta)
     dev = resolve_device(device)
 
     def walk(w: Mapping, got: Mapping, path: str) -> dict:
@@ -95,7 +96,7 @@ def model_params_from_numpy(cfg: ArchConfig, params: Mapping, *,
             if tuple(t.shape) != tuple(v.shape):
                 raise ValueError(f"{where}: expected shape {tuple(v.shape)}, "
                                  f"got {tuple(t.shape)}")
-            out[k] = t.to(device=dev, dtype=dtype)
+            out[k] = t.to(device=dev, dtype=v.dtype)
         return out
 
     return walk(want, params, "")
@@ -127,6 +128,7 @@ def opt_state_from_numpy(cfg: ArchConfig, opt_state: Mapping, *,
     """The reference optimizer's state over a model parameter tree
     (``adamw``: ``{"m", "v"}``; ``sgd``: ``{"mu"}`` or ``{}``) as the
     port's: every entry a tree converted by :func:`model_params_from_numpy`
-    (moments are ``zeros_like`` the params: the same tree and dtype)."""
+    (moments are ``zeros_like`` the params: the same tree and leaf
+    dtypes)."""
     return {k: model_params_from_numpy(cfg, v, device=device)
             for k, v in opt_state.items()}

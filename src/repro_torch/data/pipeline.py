@@ -42,3 +42,27 @@ def lm_batches(gen: torch.Generator, *, vocab_size: int, batch: int,
         yield {"tokens": tokens,
                "sample_weight": torch.ones((batch,), dtype=torch.float32,
                                            device=dev)}
+
+
+def frontend_inputs(cfg, batch: int, gen: torch.Generator) -> dict:
+    """The modality frontends' stub inputs, standard normal in
+    ``cfg.dtype`` on ``gen``'s device: ``patch_emb`` [B,
+    num_frontend_tokens, d] (vision) or ``frames`` [B, encoder_seq, d]
+    (audio); nothing for a text-only arch.  The reference's serve CLI
+    draws them from a key of their own."""
+    shape = {"vision": ("patch_emb", cfg.num_frontend_tokens),
+             "audio": ("frames", cfg.encoder_seq)}.get(cfg.frontend)
+    if shape is None:
+        return {}
+    name, n = shape
+    x = torch.randn((batch, n, cfg.d_model), generator=gen,
+                    device=gen.device)
+    return {name: x.to(getattr(torch, cfg.dtype))}
+
+
+def with_frontend(data: Iterator[dict], cfg, gen: torch.Generator
+                  ) -> Iterator[dict]:
+    """``data``'s batches, each with fresh frontend inputs from ``gen``
+    (:func:`frontend_inputs`; a text-only arch's batches unchanged)."""
+    for b in data:
+        yield {**b, **frontend_inputs(cfg, b["tokens"].shape[0], gen)}

@@ -14,16 +14,21 @@ raises without a card) and ``--seed``:
   # qwen3-0.6b at full width on the card (the reference CLI's default arch):
   PYTHONPATH=src python -m repro_torch.launch.train --steps 20
 
-  # any dense architecture at reduced (smoke) size on the CPU:
+  # any architecture at reduced (smoke) size on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
-      --arch qwen3-0.6b --reduced --steps 20 --batch 4 --seq 128
+      --arch jamba-v0.1-52b --reduced --steps 20 --batch 4 --seq 128
 
 Weights are drawn from a ``torch.Generator`` seeded with ``--seed`` on the
 run's device, batches from one seeded with ``--seed + 1`` on the host, so
-the numbers differ from the reference CLI's.  Besides the reference's lines
-it prints the step time (median after the first step; each step timed up
-to a device synchronize), tokens/s at that time, and the peak device
-memory (on the card).
+the numbers differ from the reference CLI's.  A frontend's stub inputs
+(internvl2's ``patch_emb``, prepended to the ``--seq`` text tokens, and
+whisper's ``frames``) come with every batch from a generator seeded with
+``--seed + 2`` on the run's device: the reference CLI feeds tokens alone,
+which its encoder-decoder cannot train on.  An MoE's logged loss includes
+``router_aux_coef * aux``, as the reference's step.  Besides the
+reference's lines it prints the step time (median after the first step;
+each step timed up to a device synchronize), tokens/s at that time, and
+the peak device memory (on the card).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import ARCHS
-from repro_torch.data.pipeline import lm_batches
+from repro_torch.data.pipeline import lm_batches, with_frontend
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.optim.optimizers import adamw
@@ -121,9 +126,11 @@ def run(args: argparse.Namespace) -> TrainRun:
         steps=args.steps, log_every=max(args.steps // 20, 1),
         ckpt_every=(args.steps // 2 if args.ckpt_dir else 0),
         ckpt_dir=args.ckpt_dir))
-    data = lm_batches(torch.Generator().manual_seed(args.seed + 1),
-                      vocab_size=cfg.vocab_size, batch=args.batch,
-                      seq_len=args.seq, device=device)
+    data = with_frontend(
+        lm_batches(torch.Generator().manual_seed(args.seed + 1),
+                   vocab_size=cfg.vocab_size, batch=args.batch,
+                   seq_len=args.seq, device=device),
+        cfg, torch.Generator(device=device).manual_seed(args.seed + 2))
     lines = []
 
     def say(line: str) -> None:

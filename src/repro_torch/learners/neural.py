@@ -11,13 +11,19 @@ fit is ``steps`` full-batch AdamW steps, with gradients from
 reads, an untied ``lm_head``, gets zeros), so that ``torch.func.vmap``
 batches it over a fleet of sessions.
 
-The backbone runs the einsum attention: the fit needs a backward, and the
-flash kernels (``cfg.use_flash``) have none (``models/api.py`` raises for
-training with them too), so a config with ``use_flash`` is refused.  The
-forward is float32 throughout: the params are cast up at use, which is
-what the reference's promotion of its float32 features against
-``cfg.dtype`` weights computes; the gradients flow back into the params'
-own dtype.
+The backbone is any decoder-only architecture's units (dense, MoE, SSM,
+hybrid, MLA), their MoE aux loss carried and not added, as in the
+reference; the encoder-decoder is refused (``classifier.check_backbone``).
+It runs the einsum attention: the fit needs a backward, and the flash
+kernels (``cfg.use_flash``) have none (``models/api.py`` raises for
+training with them too), so a config with ``use_flash`` is refused.  Its
+MoE blocks run ``moe_impl="dense"`` (the reference's default is the
+grouped ``gmm``): the grouped path reads its segment lengths back to the
+host, which ``torch.func.vmap`` over a fleet cannot do; the two differ in
+summation order only (ROADMAP Queue 3).  The forward is float32
+throughout: the params are cast up at use, which is what the reference's
+promotion of its float32 features against ``cfg.dtype`` weights computes;
+the gradients flow back into the params' own dtype.
 
 The init draws its whole tree from one generator of the fit's draws
 (``FitDraws.generator()``, on the CPU, then moved to the learner's
@@ -41,11 +47,15 @@ from repro_torch.optim.optimizers import adamw, tree_map
 
 
 def _float32(cfg: ArchConfig) -> ArchConfig:
+    """The backbone's config: float32, and the dense MoE (no host read)."""
     if cfg.use_flash:
         raise ValueError(
             f"{cfg.name}: the neural backbone's fit needs a backward, and "
             f"the flash kernels have none; set use_flash=False")
-    return replace(cfg, dtype="float32")
+    classifier.check_backbone(cfg)
+    transformer.check_supported(cfg)
+    return replace(cfg, dtype="float32",
+                   moe_impl="dense" if cfg.is_moe else cfg.moe_impl)
 
 
 def logits(params: dict, X: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

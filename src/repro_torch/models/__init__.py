@@ -1,1 +1,2 @@
-"""Model zoo of the port: the dense GQA serve path of ``repro/models``."""
+"""Model zoo of the port: ``repro/models``' ten architectures, their serve
+and training paths and the classifier head."""

@@ -1,9 +1,11 @@
-"""Model API of the port: the serve half and the training half.
+"""Model API of the port over all ten architectures: the serve half and the
+training half.
 
 Counterpart of ``repro/models/api.py``: init, forward, one decode step,
 the decode cache, the prefill/serve step functions the serving CLI runs,
 the ignorance-weighted next-token loss and the train step the trainer
-runs.  The encoder-decoder comes with a later slice.
+runs, each dispatched to ``models/encdec.py`` for the encoder-decoder
+(``cfg.cross_attention``) and to ``models/transformer.py`` for the rest.
 
 The loss runs through ``ops.weighted_ce`` (the CUDA forward and backward
 kernels on the card, their plain versions on the CPU), where the
@@ -24,29 +26,42 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.kernels import ops
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.attention import KVCache, QuantKVCache, quantize_kv
+from repro_torch.models.ssm import SSMState
 from repro_torch.optim.optimizers import Optimizer, tree_leaves, tree_map
 
 
+def is_encdec(cfg: ArchConfig) -> bool:
+    return cfg.cross_attention
+
+
+def _model(cfg: ArchConfig):
+    return encdec if is_encdec(cfg) else transformer
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator | None = None) -> dict:
-    return transformer.init_params(cfg, gen)
+    return _model(cfg).init_params(cfg, gen)
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig):
-    return transformer.forward(params, batch, cfg)
+    return _model(cfg).forward(params, batch, cfg)
+
+
+def forward_train(params: dict, batch: dict, cfg: ArchConfig):
+    return _model(cfg).forward_train(params, batch, cfg)
 
 
 def decode_step(params: dict, caches: dict, tokens: torch.Tensor, pos: int,
                 cfg: ArchConfig, cache_mode: str = "full"):
-    return transformer.decode_step(params, caches, tokens, pos, cfg,
+    return _model(cfg).decode_step(params, caches, tokens, pos, cfg,
                                    cache_mode)
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
                dtype: torch.dtype | None = None,
                device: torch.device | str = DEFAULT_DEVICE) -> dict:
-    return transformer.init_cache(cfg, batch, s_cache, dtype, device)
+    return _model(cfg).init_cache(cfg, batch, s_cache, dtype, device)
 
 
 def cache_length(cfg: ArchConfig, seq_len: int) -> int:
@@ -57,30 +72,52 @@ def count_params(params: dict) -> int:
     return transformer.count_params(params)
 
 
+def _walk(caches: dict, kv, quant, key=None):
+    """The cache tree with each KVCache leaf under ``key`` mapped by
+    ``kv(leaf, key)`` and each QuantKVCache by ``quant``; SSM states pass
+    through."""
+    if isinstance(caches, QuantKVCache):
+        return quant(caches)
+    if isinstance(caches, KVCache):
+        return kv(caches, key)
+    if isinstance(caches, SSMState):
+        return caches
+    if isinstance(caches, dict):
+        return {k: _walk(v, kv, quant, k) for k, v in caches.items()}
+    raise TypeError(type(caches))
+
+
 def pad_prefill_cache(caches: dict, cfg: ArchConfig, s_cache: int) -> dict:
-    """Grow the prefill caches (length = prompt) to decode capacity: every
-    leaf is zero-padded along the sequence axis (axis 2 of the stacked
-    [L, B, S, ...] layout)."""
+    """Grow the prefill caches (length = prompt) to decode capacity: K/V
+    leaves (and MLA's latents) are zero-padded along the sequence axis
+    (axis 2 of the stacked [U, B, S, ...] layout); SSM states are O(1) and
+    the encoder-decoder's cross K/V is encoder-length, so both pass
+    through."""
     def pad_axis2(a: torch.Tensor) -> torch.Tensor:
         if a.shape[2] >= s_cache:
             return a
         widths = [0, 0] * (a.dim() - 3) + [0, s_cache - a.shape[2]]
         return F.pad(a, widths)
 
-    return {name: type(leaf)(*(pad_axis2(a) for a in leaf))
-            for name, leaf in caches.items()}
+    def kv(leaf, key):
+        return leaf if key == "cross" else KVCache(*map(pad_axis2, leaf))
+
+    return _walk(caches, kv,
+                 lambda leaf: QuantKVCache(*map(pad_axis2, leaf)))
 
 
 def quantize_cache(caches: dict, cfg: ArchConfig) -> dict:
-    """Convert a prefill KVCache tree to int8 (the kv_quant serving path)."""
-    out = {}
-    for name, leaf in caches.items():
-        if not isinstance(leaf, KVCache):
-            raise TypeError(f"{name}: expected a KVCache, got {type(leaf)}")
+    """Convert a prefill cache tree's K/V to int8 (the kv_quant serving
+    path).  MLA's latents (already rank-compressed), the cross K/V and
+    SSM states are kept as they are, as in the reference."""
+    def kv(leaf, key):
+        if key == "cross" or cfg.attention == "mla":
+            return leaf
         kq, ks = quantize_kv(leaf.k)
         vq, vs = quantize_kv(leaf.v)
-        out[name] = QuantKVCache(kq, vq, ks, vs)
-    return out
+        return QuantKVCache(kq, vq, ks, vs)
+
+    return _walk(caches, kv, lambda leaf: leaf)
 
 
 # -------------------------------------------------------------------- loss
@@ -132,20 +169,25 @@ def weighted_next_token_loss(logits: torch.Tensor, batch: dict,
 # ---------------------------------------------------------- step functions
 def loss_and_grads(params: dict, batch: dict, cfg: ArchConfig,
                    retain_graph: bool = False):
-    """One forward and backward of the loss: ``(loss, grads, aux, logits,
-    leaves)``.  ``grads`` is a tree like ``params``; ``leaves`` are the
-    detached parameter leaves the graph was built on, in
-    ``tree_leaves`` order, and ``logits`` the graph's output, so a caller
-    that keeps the graph (``retain_graph=True``) can take other
-    gradients of the same forward."""
+    """One forward and backward of the loss (the weighted next-token loss,
+    plus ``router_aux_coef * aux`` for an MoE config, as the reference's
+    train step): ``(loss, grads, aux, logits, leaves)``.  ``grads`` is a
+    tree like ``params``; ``leaves`` are the detached parameter leaves the
+    graph was built on, in ``tree_leaves`` order, and ``logits`` the
+    graph's output, so a caller that keeps the graph
+    (``retain_graph=True``) can take other gradients of the same
+    forward."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(leaves)
     tracked = tree_map(lambda _: next(it), params)
-    logits, aux = transformer.forward_train(tracked, batch, cfg)
+    logits, aux = forward_train(tracked, batch, cfg)
     loss = weighted_next_token_loss(logits, batch, cfg)
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_coef * aux
     grads = torch.autograd.grad(loss, leaves, retain_graph=retain_graph)
     it = iter(grads)
-    return loss, tree_map(lambda _: next(it), params), aux, logits, leaves
+    return (loss, tree_map(lambda _: next(it), params), aux.detach(), logits,
+            leaves)
 
 
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer) -> Callable:

@@ -1,19 +1,30 @@
-"""Grouped-query attention (qk-norm, sliding window) with its full-sequence
-(prefill) and single-token decode paths.
+"""Attention: grouped-query (qk-norm, sliding window), multi-head latent
+(MLA, a compressed-latent cache) and the encoder-decoder's
+cross-attention, each with its full-sequence (prefill) and single-token
+decode paths.
 
-Counterpart of the GQA half of ``repro/models/attention.py``; MLA and
-cross-attention wait for a later slice.  KV cache layout as in the
-reference: k/v [B, S_cache, KV, D] (``cache_mode='full'``) or a [B, W, KV, D]
-ring buffer (``'ring'``, sliding-window archs).  RoPE is applied at write
-time with absolute positions.
+Counterpart of ``repro/models/attention.py``.  Cache layouts as in the
+reference:
+  * GQA: k/v [B, S_cache, KV, D] (``cache_mode='full'``) or a
+    [B, W, KV, D] ring buffer (``'ring'``, sliding-window archs);
+  * MLA: ``KVCache(k=c_kv [B, S_cache, kv_lora_rank], v=k_rope [B,
+    S_cache, qk_rope_head_dim])``, the latents and not per-head K/V;
+    decode scores through the absorbed projections;
+  * cross: the encoder's K/V [B, T, KV, D], projected once at prefill.
+RoPE is applied at write time with absolute positions.
+``cfg.attn_impl == "chunked"`` runs the einsum attention a block of
+``cfg.attn_chunk`` queries at a time (``_sdpa_q_chunked``), as the
+reference does.
 
-``cfg.use_flash`` (the switch ``ArchConfig`` declares) routes attention
-through the port's hand-written kernels: prefill to
-``ops.flash_attention``, full-cache decode to ``ops.flash_decode`` (with
-the int8 cache and its scales for a :class:`QuantKVCache`).  With it off,
-both paths compute the reference's einsum ``_sdpa``.  The kernels have no
-ring validity and no logit softcap, so ``use_flash`` with either raises
-rather than drop to ``_sdpa``.
+``cfg.use_flash`` (the switch ``ArchConfig`` declares) routes GQA and
+cross-attention through the port's hand-written kernels: prefill to
+``ops.flash_attention`` (``causal=False`` for the encoder and the cross
+attention), full-cache decode to ``ops.flash_decode`` (with the int8 cache
+and its scales for a :class:`QuantKVCache`; the cross cache at
+``pos = T - 1``).  With it off, every path computes the reference's einsum
+``_sdpa``.  The kernels have no ring validity, no logit softcap and one
+head dim for q, k and v (MLA's differ), so ``use_flash`` with any of
+these raises rather than drop to ``_sdpa``.
 
 Decode writes the new token's K/V into the cache tensors in place (the
 reference returns an updated copy) and returns the same cache object:
@@ -81,9 +92,16 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 
 
 def check_flash(cfg: ArchConfig, cache_mode: str = "full") -> None:
-    """The kernels' limits: no logit softcap, no ring-buffer validity."""
+    """The kernels' limits: no logit softcap, no ring-buffer validity, one
+    head dim for q, k and v."""
     if not cfg.use_flash:
         return
+    if cfg.attention == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: use_flash with MLA: the flash kernels take one "
+            f"head dim for q, k and v, and MLA's differ (qk "
+            f"{cfg.qk_nope_head_dim + cfg.qk_rope_head_dim}, v "
+            f"{cfg.v_head_dim}); set use_flash=False")
     if cfg.logit_softcap:
         raise NotImplementedError(
             "use_flash with logit_softcap: the flash kernels have no softcap")
@@ -154,6 +172,31 @@ def causal_mask(s: int, t: int, q_offset: int, window: int | None,
     return m[None, None, None]
 
 
+def _sdpa_q_chunked(q, k, v, cfg: ArchConfig, chunk: int, softcap=None):
+    """Query-chunked attention (``attn_impl='chunked'``): Q in blocks of
+    ``chunk`` rows, so the scores held at once are [chunk, S], not
+    [S, S]."""
+    b, s, h, d = q.shape
+    chunk = min(chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    outs = [_sdpa(q[:, i:i + chunk], k, v,
+                  causal_mask(chunk, s, i, cfg.window, q.device), softcap)
+            for i in range(0, s, chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def _flash(q, k, v, causal: bool, window=None):
+    """The flash kernel on [B, S, H, D] activations: the [B, H, S, D] views
+    in, the output back as the [B, S, H, D] tensor it is in memory."""
+    return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window).transpose(1, 2)
+
+
+def _chunked(cfg: ArchConfig, s: int) -> bool:
+    return cfg.attn_impl == "chunked" and s > cfg.attn_chunk
+
+
 def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig,
                 positions: torch.Tensor,
                 rope=None) -> tuple[torch.Tensor, KVCache]:
@@ -164,16 +207,32 @@ def gqa_forward(params: dict, x: torch.Tensor, cfg: ArchConfig,
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions, rope)
     if cfg.use_flash:
-        # [B,S,H,D] views as [B,H,S,D]; the output comes back as the
-        # [B,H,S,D] view of a [B,S,H,D] tensor
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True,
-                                  window=cfg.window).transpose(1, 2)
+        out = _flash(q, k, v, True, cfg.window)
+    elif _chunked(cfg, s):
+        out = _sdpa_q_chunked(q, k, v, cfg, cfg.attn_chunk,
+                              cfg.logit_softcap)
     else:
         mask = causal_mask(s, s, 0, cfg.window, x.device)
         out = _sdpa(q, k, v, mask, cfg.logit_softcap)
     out = out.reshape(b, s, -1) @ params["wo"]
     return out, KVCache(k=k, v=v)
+
+
+def self_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                   positions: torch.Tensor, rope=None) -> torch.Tensor:
+    """The encoder's bidirectional attention over x [B, T, d] (RoPE'd q
+    and k, no mask): the kernel with ``causal=False`` under
+    ``use_flash``."""
+    check_flash(cfg)
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions, rope)
+    if cfg.use_flash:
+        out = _flash(q, k, v, False)
+    else:
+        mask = torch.ones((1, 1, 1, t, t), dtype=torch.bool,
+                          device=x.device)
+        out = _sdpa(q, k, v, mask)
+    return out.reshape(b, t, -1) @ params["wo"]
 
 
 def gqa_decode(params: dict, x: torch.Tensor, cache, pos: int,
@@ -217,6 +276,14 @@ def gqa_decode(params: dict, x: torch.Tensor, cache, pos: int,
     else:
         k, v = cache.k, cache.v
     idx = torch.arange(s_cache, device=x.device)
+    valid = _valid(idx, slot, pos, s_cache, cfg, cache_mode)
+    out = _sdpa(q, k, v, valid[None, None, None, None, :], cfg.logit_softcap)
+    return out.reshape(b, 1, -1) @ params["wo"], cache
+
+
+def _valid(idx, slot: int, pos: int, s_cache: int, cfg: ArchConfig,
+           cache_mode: str) -> torch.Tensor:
+    """The cache entries a decode step at ``pos`` attends to."""
     if cache_mode == "ring":
         # validity only: entries written so far and within the window
         age = (slot - idx) % s_cache          # 0 = just written
@@ -227,5 +294,153 @@ def gqa_decode(params: dict, x: torch.Tensor, cache, pos: int,
         valid = idx <= pos
         if cfg.window is not None:
             valid &= idx > pos - cfg.window
-    out = _sdpa(q, k, v, valid[None, None, None, None, :], cfg.logit_softcap)
-    return out.reshape(b, 1, -1) @ params["wo"], cache
+    return valid
+
+
+# =================================================================== MLA
+def mla_init(gen: torch.Generator | None, cfg: ArchConfig,
+             dtype: torch.dtype, *, lead: tuple = (),
+             device: torch.device | str = "meta") -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    d_nope, d_rope, d_v = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                           cfg.v_head_dim)
+    kw = dict(lead=lead, device=device)
+    return {
+        "wq_a": he_init(gen, (d, r_q), dtype, **kw),
+        "q_a_norm": rmsnorm_init(r_q, dtype, **kw),
+        "wq_b": he_init(gen, (r_q, h * (d_nope + d_rope)), dtype, **kw),
+        "wkv_a": he_init(gen, (d, r_kv + d_rope), dtype, **kw),
+        "kv_a_norm": rmsnorm_init(r_kv, dtype, **kw),
+        "wk_b": he_init(gen, (r_kv, h * d_nope), dtype, **kw),
+        "wv_b": he_init(gen, (r_kv, h * d_v), dtype, **kw),
+        "wo": he_init(gen, (h * d_v, d), dtype, fan_in=h * d_v, **kw),
+    }
+
+
+def _mla_q(params: dict, x: torch.Tensor, cfg: ArchConfig, rope):
+    b, s, _ = x.shape
+    d_nope, d_rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = rmsnorm(params["q_a_norm"], x @ params["wq_a"], cfg.norm_eps)
+    q = (q @ params["wq_b"]).reshape(b, s, cfg.num_heads, d_nope + d_rope)
+    return q[..., :d_nope], rotate(q[..., d_nope:], *rope)
+
+
+def _mla_latents(params: dict, x: torch.Tensor, cfg: ArchConfig, rope):
+    r_kv = cfg.kv_lora_rank
+    kv = x @ params["wkv_a"]
+    c_kv = rmsnorm(params["kv_a_norm"], kv[..., :r_kv], cfg.norm_eps)
+    k_rope = rotate(kv[..., r_kv:][..., None, :], *rope)[..., 0, :]
+    return c_kv, k_rope                        # k_rope: one shared head
+
+
+def mla_forward(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor,
+                rope=None) -> tuple[torch.Tensor, KVCache]:
+    """Full-sequence MLA (the expanded form); caches the latents only.
+    ``rope``: the tables of ``positions`` at ``qk_rope_head_dim``."""
+    check_flash(cfg)
+    b, s, _ = x.shape
+    h, d_nope, d_v = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    if rope is None:
+        rope = rope_tables(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    q_nope, q_rope = _mla_q(params, x, cfg, rope)
+    c_kv, k_rope = _mla_latents(params, x, cfg, rope)
+    k_nope = (c_kv @ params["wk_b"]).reshape(b, s, h, d_nope)
+    v = (c_kv @ params["wv_b"]).reshape(b, s, h, d_v)
+    scale = inv_sqrt(d_nope + cfg.qk_rope_head_dim)
+
+    def block(qn, qr, q_offset, c):
+        scores = (torch.einsum("bshd,bthd->bhst", qn, k_nope)
+                  + torch.einsum("bshd,btd->bhst", qr, k_rope)
+                  ).to(torch.float32) * scale
+        mask = causal_mask(c, s, q_offset, cfg.window, x.device)[:, :, 0]
+        probs = torch.softmax(torch.where(mask, scores, NEG_INF),
+                              dim=-1).to(v.dtype)
+        return torch.einsum("bhst,bthd->bshd", probs, v)
+
+    if _chunked(cfg, s):     # [chunk, S] scores instead of [S, S]
+        c = cfg.attn_chunk
+        out = torch.cat([block(q_nope[:, i:i + c], q_rope[:, i:i + c], i, c)
+                         for i in range(0, s, c)], dim=1)
+    else:
+        out = block(q_nope, q_rope, 0, s)
+    out = out.reshape(b, s, -1) @ params["wo"]
+    return out, KVCache(k=c_kv, v=k_rope)
+
+
+def mla_decode(params: dict, x: torch.Tensor, cache: KVCache, pos: int,
+               cfg: ArchConfig, cache_mode: str = "full", rope=None):
+    """Absorbed-projection decode: scores through the latents, never
+    per-head K/V for the whole cache.  The token's latents are written
+    into ``cache`` (this layer's [B, S, R] and [B, S, Dr]) in place."""
+    check_flash(cfg)
+    b = x.shape[0]
+    h, d_nope, d_v = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    r_kv = cfg.kv_lora_rank
+    if rope is None:
+        positions = torch.full((b, 1), pos, dtype=torch.int32,
+                               device=x.device)
+        rope = rope_tables(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
+    q_nope, q_rope = _mla_q(params, x, cfg, rope)              # [b,1,h,*]
+    c_new, kr_new = _mla_latents(params, x, cfg, rope)
+    s_cache = cache.k.shape[1]
+    slot = pos % s_cache if cache_mode == "ring" else pos
+    cache.k[:, slot] = c_new[:, 0]
+    cache.v[:, slot] = kr_new[:, 0]
+    c_kv, k_rope = cache.k, cache.v
+    # absorb W_uk into the query: q_abs [b, h, r_kv]
+    wk_b = params["wk_b"].reshape(r_kv, h, d_nope)
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wk_b)[:, 0]
+    scores = (torch.einsum("bhr,btr->bht", q_abs, c_kv)
+              + torch.einsum("bshd,btd->bht", q_rope, k_rope)
+              ).to(torch.float32) * inv_sqrt(d_nope + cfg.qk_rope_head_dim)
+    idx = torch.arange(s_cache, device=x.device)
+    valid = _valid(idx, slot, pos, s_cache, cfg, cache_mode)
+    probs = torch.softmax(torch.where(valid[None, None, :], scores, NEG_INF),
+                          dim=-1).to(c_kv.dtype)
+    out_latent = torch.einsum("bht,btr->bhr", probs, c_kv)     # [b, h, r]
+    wv_b = params["wv_b"].reshape(r_kv, h, d_v)
+    out = torch.einsum("bhr,rhd->bhd", out_latent, wv_b).reshape(b, 1, -1)
+    return out @ params["wo"], cache
+
+
+# ========================================================== Cross-attention
+def cross_attn_init(gen: torch.Generator | None, cfg: ArchConfig,
+                    dtype: torch.dtype, *, lead: tuple = (),
+                    device: torch.device | str = "meta") -> dict:
+    return gqa_init(gen, cfg, dtype, lead=lead, device=device)
+
+
+def cross_attn(params: dict, x: torch.Tensor, enc_kv: KVCache,
+               cfg: ArchConfig, decode: bool = False) -> torch.Tensor:
+    """Decoder-to-encoder attention of x [B, S, d] over the encoder's K/V
+    [B, T, KV, D] (projected once at prefill; no mask, no RoPE).  Under
+    ``use_flash``: ``flash_attention(causal=False)`` at prefill (S <= T),
+    ``flash_decode`` at ``pos = T - 1`` for a decode step."""
+    check_flash(cfg)
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    t = enc_kv.k.shape[1]
+    if cfg.use_flash and decode:
+        out = ops.flash_decode(q[:, 0], enc_kv.k.transpose(1, 2),
+                               enc_kv.v.transpose(1, 2), t - 1)[:, None]
+    elif cfg.use_flash:
+        if s > t:
+            raise NotImplementedError(
+                f"{cfg.name}: use_flash cross-attention of {s} queries over "
+                f"{t} encoder positions: the flash kernel takes S <= T")
+        out = _flash(q, enc_kv.k, enc_kv.v, False)
+    else:
+        mask = torch.ones((1, 1, 1, s, t), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, enc_kv.k, enc_kv.v, mask)
+    return out.reshape(b, s, -1) @ params["wo"]
+
+
+def encode_kv(params: dict, enc_out: torch.Tensor,
+              cfg: ArchConfig) -> KVCache:
+    b, t, _ = enc_out.shape
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return KVCache(k=(enc_out @ params["wk"]).reshape(b, t, kv, hd),
+                   v=(enc_out @ params["wv"]).reshape(b, t, kv, hd))

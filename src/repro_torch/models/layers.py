@@ -117,9 +117,13 @@ def mlp_init(gen: torch.Generator | None, d: int, d_ff: int,
             "wo": he_init(gen, (d_ff, d), dtype, fan_in=d_ff, **kw)}
 
 
+def activation(act: str, x: torch.Tensor) -> torch.Tensor:
+    """The gated FFNs' activation: silu, else gelu (jax.nn.gelu is the
+    tanh approximation by default)."""
+    return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
+
+
 def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     gate = x @ params["wi_gate"]
     up = x @ params["wi_up"]
-    # jax.nn.gelu is the tanh approximation by default
-    g = F.silu(gate) if act == "silu" else F.gelu(gate, approximate="tanh")
-    return (g * up) @ params["wo"]
+    return (activation(act, gate) * up) @ params["wo"]

@@ -1,0 +1,123 @@
+"""Mixture-of-Experts: top-k router and expert FFNs.
+
+Counterpart of ``repro/models/moe.py``, with its leaf names and layouts
+(``router`` [d, E], ``wi_gate``/``wi_up`` [E, d, f], ``wo`` [E, f, d]).
+
+Implementations (``cfg.moe_impl``):
+  * ``dense`` -- every expert computes every token, mask-combined: the
+    exact oracle, E/k times the activated FLOPs.  It reads nothing back to
+    the host, so the neural backbone (``learners/neural.py``, which
+    ``torch.func.vmap`` batches over fleets) runs it.
+  * ``gmm``   -- grouped matmul: the token copies are sorted by expert
+    (stably) and each expert's segment takes one matrix product.  The
+    segment lengths are read back to the host once a layer (the reference's
+    ``ragged_dot`` takes them on the device); see ROADMAP Queue 3.
+  * ``ep_a2a`` -- expert parallelism over a mesh: not ported (ROADMAP
+    Queue 1, item 5, multi-device); it raises.
+
+Router: softmax over experts in float32, top-k with ties to the lower
+index (as ``lax.top_k``), renormalized among the chosen k, and the Switch
+load-balance loss E * sum_e f_e P_e.
+
+The grouped combine writes each copy's weighted output back to its
+(token, slot) place by index (no two copies share one) and adds a token's
+k copies one after another in the order of their experts, in the output's
+dtype: the order in which the reference's scatter-add meets them.  No
+floating-point atomics, so two runs are the same bits.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import activation, he_init
+
+
+def moe_init(gen: torch.Generator | None, cfg: ArchConfig, dtype: torch.dtype,
+             *, lead: tuple = (),
+             device: torch.device | str = "meta") -> dict:
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    kw = dict(lead=lead, device=device)
+    return {"router": he_init(gen, (d, e), dtype, **kw),
+            "wi_gate": he_init(gen, (e, d, f), dtype, fan_in=d, **kw),
+            "wi_up": he_init(gen, (e, d, f), dtype, fan_in=d, **kw),
+            "wo": he_init(gen, (e, f, d), dtype, fan_in=f, **kw)}
+
+
+def router_topk(params: dict, x_flat: torch.Tensor, cfg: ArchConfig):
+    """x_flat [T, d] -> (probs [T, k] in x's dtype, idx [T, k] int64, aux
+    float32 scalar)."""
+    logits = x_flat.to(torch.float32) @ params["router"].to(torch.float32)
+    probs_full = torch.softmax(logits, dim=-1)
+    # a stable descending sort: equal probabilities keep the lower expert
+    # first, as lax.top_k does (torch.topk leaves ties unspecified)
+    probs, idx = torch.sort(probs_full, dim=-1, descending=True, stable=True)
+    probs, idx = probs[:, :cfg.top_k], idx[:, :cfg.top_k]
+    probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
+    e = cfg.num_experts
+    frac_tokens = F.one_hot(idx, e).to(torch.float32).sum(1).mean(0)  # f_e
+    frac_probs = probs_full.mean(0)                                   # P_e
+    aux = e * torch.sum(frac_tokens * frac_probs)
+    return probs.to(x_flat.dtype), idx, aux
+
+
+def _expert_ffn_dense(params: dict, x_flat: torch.Tensor, probs, idx,
+                      cfg: ArchConfig) -> torch.Tensor:
+    gate = torch.einsum("td,edf->tef", x_flat, params["wi_gate"])
+    up = torch.einsum("td,edf->tef", x_flat, params["wi_up"])
+    y_all = torch.einsum("tef,efd->ted", activation(cfg.act, gate) * up,
+                         params["wo"])
+    # the k experts of a token are distinct: a scatter, not an add
+    combine = torch.zeros((x_flat.shape[0], cfg.num_experts),
+                          dtype=x_flat.dtype, device=x_flat.device)
+    combine = combine.scatter(1, idx, probs)
+    return torch.einsum("te,ted->td", combine, y_all)
+
+
+def _expert_ffn_gmm(params: dict, x_flat: torch.Tensor, probs, idx,
+                    cfg: ArchConfig) -> torch.Tensor:
+    t, d = x_flat.shape
+    k, e = cfg.top_k, cfg.num_experts
+    flat_expert = idx.reshape(-1)                               # [T*k]
+    order = torch.argsort(flat_expert, stable=True)
+    x_sorted = x_flat[order // k]                               # [T*k, d]
+    # one host read a layer: the segments' lengths
+    sizes = torch.bincount(flat_expert, minlength=e).tolist()
+    ys = []
+    for ex, xs in enumerate(torch.split(x_sorted, sizes)):
+        if xs.shape[0]:
+            h = activation(cfg.act, xs @ params["wi_gate"][ex]) * (
+                xs @ params["wi_up"][ex])
+            ys.append(h @ params["wo"][ex])
+    y = torch.cat(ys) * probs.reshape(-1)[order][:, None].to(ys[0].dtype)
+    per_copy = torch.empty_like(y)
+    per_copy[order] = y                                         # [T*k, d]
+    per_copy = per_copy.reshape(t, k, d)
+    by_expert = torch.argsort(idx, dim=1)                       # [T, k]
+    per_copy = torch.gather(per_copy, 1,
+                            by_expert[:, :, None].expand(t, k, d))
+    out = torch.zeros((t, d), dtype=y.dtype, device=y.device)
+    for j in range(k):
+        out = out + per_copy[:, j]
+    return out.to(x_flat.dtype)
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
+              impl: str | None = None):
+    """x [B, S, d] -> (y [B, S, d], aux_loss float32 scalar)."""
+    impl = impl or cfg.moe_impl
+    if impl == "ep_a2a":
+        raise NotImplementedError(
+            "moe_impl='ep_a2a' (expert parallelism over a mesh) is not "
+            "ported: ROADMAP Queue 1, item 5, multi-device")
+    b, s, d = x.shape
+    x_flat = x.reshape(-1, d)
+    probs, idx, aux = router_topk(params, x_flat, cfg)
+    if impl == "dense":
+        y = _expert_ffn_dense(params, x_flat, probs, idx, cfg)
+    elif impl == "gmm":
+        y = _expert_ffn_gmm(params, x_flat, probs, idx, cfg)
+    else:
+        raise ValueError(f"unknown moe_impl {impl!r}")
+    return y.reshape(b, s, d), aux

@@ -1,20 +1,29 @@
-"""Decoder-only model assembly, the dense GQA path.
+"""Decoder-only model assembly: dense, MoE, SSM, hybrid and vision-language
+stacks.
 
 Counterpart of ``repro/models/transformer.py``.  Parameters keep the
-reference's tree and leaf names, with every per-layer leaf stacked on a
-leading layer axis as the reference's ``scan`` lays them out::
+reference's tree and leaf names.  The layers are ``U`` units of the
+sub-layer kinds ``_block_kinds(cfg)`` (one "attn" or "ssm" sub-layer, or
+Jamba's pattern of eight), every per-unit leaf stacked on a leading unit
+axis as the reference's ``scan`` lays them out::
 
   {"embed": {"embedding": [V, d]},
-   "layers": {"sub0": {"ln1": {"scale": [L, d]}, "attn": {"wq": [L, d, H*D],
-              ...}, "ln2": ..., "mlp": ...}},
+   "layers": {"sub0": {"ln1": {"scale": [U, d]}, "attn" | "ssm": {...},
+              ["ln2": ..., "mlp" | "moe": {...}]}, "sub1": ...},
    "final_norm": {"scale": [d]}, ["lm_head": {"unembedding": [d, V]}]}
 
-and the decode cache is ``{"sub0": KVCache(k=[L, B, S, KV, D], v=...)}``
-(or a ``QuantKVCache`` with [L, B, S, KV] scales).  A plain loop over the
-layers, each a view of the stacked tensors, replaces ``lax.scan``; there is
-no sequence sharding.  ``cfg.remat == "block"`` recomputes each layer in
-the backward pass (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint`` of its scan body.
+A sub-layer is its mixer (GQA or MLA attention, or the Mamba2 SSD block)
+followed by an MoE block, a gated MLP or nothing (``_ffn_kind``).  The
+decode cache is ``{"sub<i>": leaf}`` with each leaf stacked over the
+units: ``KVCache(k=[U, B, S, KV, D], v=...)`` (or a ``QuantKVCache``),
+MLA's latent ``KVCache(k=[U, B, S, R], v=[U, B, S, Dr])`` or an
+``SSMState`` ([U, B, conv-1, *] and a float32 [U, B, H, N, P]).  A plain
+loop over the units, each a view of the stacked tensors, replaces
+``lax.scan``; there is no sequence sharding (``cfg.seq_parallel`` is the
+reference's no-op without a mesh).  ``cfg.remat == "block"`` recomputes
+each unit in the backward pass (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` of its scan body.  The MoE blocks' aux
+losses are summed over the sub-layers of a unit, then over the units.
 
 Entry points, as in the reference:
   * ``forward(params, batch, cfg)``              -> logits, caches, aux
@@ -25,9 +34,11 @@ Entry points, as in the reference:
                                                  -> logits, caches
   * ``init_params(cfg, gen)`` / ``init_cache(cfg, batch, s_cache)``
 
-Only dense GQA architectures run (qwen3-0.6b, h2o-danube-3-4b, gemma-7b);
-MoE, SSM, hybrid, MLA, the encoder-decoder and the modality frontends
-raise ``NotImplementedError`` naming the slice they wait for.
+``batch["patch_emb"]`` [B, Timg, d] (the vision frontend's stub
+embeddings) is prepended to the token embeddings.  What raises:
+``moe_impl="ep_a2a"`` (expert parallelism over a mesh, ROADMAP Queue 1,
+item 5) and ``use_flash`` where the kernels cannot serve
+(``attention.check_flash``).
 """
 from __future__ import annotations
 
@@ -37,6 +48,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed, lm_head, mlp_apply, mlp_init,
                                        normal_init, rmsnorm, rmsnorm_init,
                                        rope_tables, unembed)
@@ -50,34 +63,110 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what this slice of the port does not run."""
-    missing = None
-    if cfg.cross_attention:
-        missing = "the encoder-decoder (whisper)"
-    elif cfg.frontend is not None:
-        missing = f"the {cfg.frontend} frontend"
-    elif cfg.layer_pattern:
-        missing = "hybrid SSM/attention stacks"
-    elif cfg.arch_type == "ssm" or cfg.attention == "none":
-        missing = "SSM (Mamba2) blocks"
-    elif cfg.is_moe:
-        missing = "MoE blocks"
-    elif cfg.attention == "mla":
-        missing = "multi-head latent attention (MLA)"
-    elif cfg.attn_impl != "einsum":
-        missing = f"attn_impl={cfg.attn_impl!r} (use_flash is the port's "
-        missing += "path that keeps no [S, S] scores)"
-    if missing:
+    """Raise for what the port does not run: expert parallelism over a
+    mesh, unknown implementation switches, and ``use_flash`` where the
+    kernels cannot serve."""
+    if cfg.is_moe and cfg.moe_impl == "ep_a2a":
         raise NotImplementedError(
-            f"{cfg.name}: {missing} is not ported yet; the port runs dense "
-            f"GQA models only (a later slice of the model zoo)")
+            f"{cfg.name}: moe_impl='ep_a2a' (expert parallelism over a "
+            f"mesh) is not ported: ROADMAP Queue 1, item 5, multi-device; "
+            f"use moe_impl='gmm' or 'dense'")
+    if cfg.is_moe and cfg.moe_impl not in ("gmm", "dense"):
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+    if cfg.attn_impl not in ("einsum", "chunked"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     attn.check_flash(cfg)
 
 
-# --------------------------------------------------------------- layers
+# ------------------------------------------------------------ block defs
+def _block_kinds(cfg: ArchConfig) -> tuple[str, ...]:
+    """Sub-layer kinds of one unit."""
+    if cfg.layer_pattern:
+        return tuple(cfg.layer_pattern)
+    if cfg.arch_type == "ssm":
+        return ("ssm",)
+    return ("attn",)
+
+
+def _num_units(cfg: ArchConfig) -> int:
+    return cfg.num_layers // len(_block_kinds(cfg))
+
+
+def _ffn_kind(cfg: ArchConfig, sub_idx: int) -> str:
+    """What follows the mixer in this sub-layer: moe | mlp | none."""
+    if cfg.arch_type == "ssm":
+        return "none"                       # pure mamba2: no FFN
+    if cfg.is_moe:
+        if cfg.moe_every <= 1 or sub_idx % cfg.moe_every == 1:
+            return "moe"
+        return "mlp"
+    return "mlp"
+
+
+def _init_sub_block(gen, cfg: ArchConfig, kind: str, sub_idx: int, dtype,
+                    **kw) -> dict:
+    p: dict = {"ln1": rmsnorm_init(cfg.d_model, dtype, **kw)}
+    if kind == "attn":
+        init = attn.mla_init if cfg.attention == "mla" else attn.gqa_init
+        p["attn"] = init(gen, cfg, dtype, **kw)
+    else:
+        p["ssm"] = ssm_lib.ssm_init(gen, cfg, dtype, **kw)
+    ffn = _ffn_kind(cfg, sub_idx)
+    if ffn != "none":
+        p["ln2"] = rmsnorm_init(cfg.d_model, dtype, **kw)
+        if ffn == "moe":
+            p["moe"] = moe_lib.moe_init(gen, cfg, dtype, **kw)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, **kw)
+    return p
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, sub_idx: int):
+    """The sub-layer's feed-forward half: (x, aux)."""
+    ffn = _ffn_kind(cfg, sub_idx)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "moe":
+        y, aux = moe_lib.moe_apply(p["moe"],
+                                   rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        x = x + y
+    elif ffn == "mlp":
+        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                          cfg.act)
+    return x, aux
+
+
+def _sub_block_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
+                       sub_idx: int, positions: torch.Tensor, rope):
+    """Full-sequence sub-layer: (x, cache leaf, aux)."""
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "attn":
+        fwd = attn.mla_forward if cfg.attention == "mla" else attn.gqa_forward
+        out, cache = fwd(p["attn"], h, cfg, positions, rope)
+    else:
+        out, cache = ssm_lib.ssm_forward(p["ssm"], h, cfg)
+    x, aux = _ffn(p, x + out, cfg, sub_idx)
+    return x, cache, aux
+
+
+def _sub_block_decode(p: dict, x: torch.Tensor, cache, pos: int,
+                      cfg: ArchConfig, kind: str, sub_idx: int,
+                      cache_mode: str, rope):
+    """One-token sub-layer: (x, cache leaf).  An attention leaf is written
+    in place; an SSM state comes back new."""
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "attn":
+        dec = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
+        out, cache = dec(p["attn"], h, cache, pos, cfg, cache_mode, rope)
+    else:
+        out, cache = ssm_lib.ssm_decode(p["ssm"], h, cache, cfg)
+    x, _ = _ffn(p, x + out, cfg, sub_idx)
+    return x, cache
+
+
+# ------------------------------------------------------------- unit defs
 def _layers(params: dict, n: int) -> list[dict]:
-    """All n layers' params, views of the stacked leaves, each leaf unbound
-    once: under autograd the n layers' gradients then go back into each
+    """All n units' params, views of the stacked leaves, each leaf unbound
+    once: under autograd the n units' gradients then go back into each
     stacked leaf in one stack, not through n full-size scatters of a
     select."""
     per_leaf = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
@@ -85,48 +174,49 @@ def _layers(params: dict, n: int) -> list[dict]:
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
-def _block_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                   positions: torch.Tensor, rope):
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    out, cache = attn.gqa_forward(p["attn"], h, cfg, positions, rope)
-    x = x + out
-    x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
-    return x, cache
+def _unit_forward(unit: dict, x: torch.Tensor, cfg: ArchConfig,
+                  positions: torch.Tensor, rope):
+    """One unit's sub-layers: (x, {"sub<i>": cache leaf}, aux)."""
+    caches = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(_block_kinds(cfg)):
+        x, caches[f"sub{i}"], aux = _sub_block_forward(
+            unit[f"sub{i}"], x, cfg, kind, i, positions, rope)
+        aux_total = aux_total + aux
+    return x, caches, aux_total
 
 
-def _block_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor, rope) -> torch.Tensor:
-    """One layer without its K/V (the training forward's unit)."""
-    return _block_forward(p, x, cfg, positions, rope)[0]
+def _unit_train(unit: dict, x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor, rope):
+    """One unit without its caches (the training forward's unit)."""
+    x, _, aux = _unit_forward(unit, x, cfg, positions, rope)
+    return x, aux
 
 
-def _block_decode(p: dict, x: torch.Tensor, cache, pos: int,
-                  cfg: ArchConfig, cache_mode: str, rope):
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    out, cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg, cache_mode,
-                                 rope)
-    x = x + out
-    x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
-    return x, cache
+def _rope(cfg: ArchConfig, positions: torch.Tensor):
+    """The (cos, sin) tables of ``positions`` at the attention's rotary
+    dim, computed once for all layers (None without attention)."""
+    if "attn" not in _block_kinds(cfg):
+        return None
+    dim = (cfg.qk_rope_head_dim if cfg.attention == "mla"
+           else cfg.head_dim)
+    return rope_tables(positions, dim, cfg.rope_theta)
 
 
 # --------------------------------------------------------------- model
 def init_params(cfg: ArchConfig, gen: torch.Generator | None = None) -> dict:
     """Random parameters drawn from ``gen`` on its device (he init, the
-    embeddings N(0, 0.02^2), norms 1), in ``cfg.dtype``.  ``gen`` None gives
-    the same tree on the meta device: shapes without memory."""
+    embeddings N(0, 0.02^2), norms 1; the SSM's float32 leaves as the
+    reference makes them), in ``cfg.dtype``.  ``gen`` None gives the same
+    tree on the meta device: shapes without memory."""
     check_supported(cfg)
     dtype, device = _dtype(cfg), ("meta" if gen is None else gen.device)
-    lead = (cfg.num_layers,)
-    kw = dict(lead=lead, device=device)
+    kw = dict(lead=(_num_units(cfg),), device=device)
     params = {
         "embed": {"embedding": normal_init(gen, (cfg.vocab_size, cfg.d_model),
                                            dtype, device=device)},
-        "layers": {"sub0": {
-            "ln1": rmsnorm_init(cfg.d_model, dtype, **kw),
-            "attn": attn.gqa_init(gen, cfg, dtype, **kw),
-            "ln2": rmsnorm_init(cfg.d_model, dtype, **kw),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, **kw)}},
+        "layers": {f"sub{i}": _init_sub_block(gen, cfg, kind, i, dtype, **kw)
+                   for i, kind in enumerate(_block_kinds(cfg))},
         "final_norm": rmsnorm_init(cfg.d_model, dtype, device=device),
     }
     if not cfg.tie_embeddings:
@@ -143,114 +233,137 @@ def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Token embeddings (the frontends' stub embeddings wait for a later
-    slice)."""
-    return embed(params["embed"], batch["tokens"], cfg.embed_scale)
+    """Token embeddings, with the vision frontend's stub embeddings
+    ``batch["patch_emb"]`` prepended."""
+    x = embed(params["embed"], batch["tokens"], cfg.embed_scale)
+    if cfg.frontend == "vision" and "patch_emb" in batch:
+        x = torch.cat([batch["patch_emb"].to(x.dtype), x], dim=1)
+    return x
 
 
 def _stack(params: dict, x: torch.Tensor, cfg: ArchConfig,
            keep_caches: bool):
-    """The layers over embeddings x [B, S, d]: (x, K/V of every layer or
-    None)."""
-    check_supported(cfg)
+    """The units over embeddings x [B, S, d]: (x, the caches stacked over
+    the units or None, aux)."""
     if cfg.remat not in ("none", "block"):
         raise ValueError(f"remat must be 'none' or 'block', got "
                          f"{cfg.remat!r}")
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    ks, vs = [], []
-    for layer in _layers(params["layers"]["sub0"], cfg.num_layers):
+    rope = _rope(cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_unit = []
+    for unit in _layers(params["layers"], _num_units(cfg)):
         if keep_caches:
-            x, cache = _block_forward(layer, x, cfg, positions, rope)
-            ks.append(cache.k)
-            vs.append(cache.v)
+            x, caches, aux_u = _unit_forward(unit, x, cfg, positions, rope)
+            per_unit.append(caches)
         elif cfg.remat == "block" and torch.is_grad_enabled():
-            x = checkpoint(_block_train, layer, x, cfg, positions, rope,
-                           use_reentrant=False)
+            x, aux_u = checkpoint(_unit_train, unit, x, cfg, positions, rope,
+                                  use_reentrant=False)
         else:
-            x = _block_train(layer, x, cfg, positions, rope)
-    caches = ({"sub0": attn.KVCache(k=torch.stack(ks), v=torch.stack(vs))}
-              if keep_caches else None)
-    return x, caches
-
-
-def _run(params: dict, batch: dict, cfg: ArchConfig, keep_caches: bool):
-    """Embed, the layers, the head: (logits, K/V of every layer or None)."""
-    check_supported(cfg)
-    x, caches = _stack(params, embed_inputs(params, batch, cfg), cfg,
-                       keep_caches)
-    return _logits(params, x, cfg), caches
+            x, aux_u = _unit_train(unit, x, cfg, positions, rope)
+        aux = aux + aux_u
+    if not keep_caches:
+        return x, None, aux
+    stacked = {name: type(leaf)(*(torch.stack([c[name][j] for c in per_unit])
+                                  for j in range(len(leaf))))
+               for name, leaf in per_unit[0].items()}
+    return x, stacked, aux
 
 
 def hidden_states(params: dict, x: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
-    """The final hidden states [B, S, d] of embeddings x: the layers and
-    the final norm, no head (the classifier's and the neural backbone's
-    forward; the reference's ``scan`` of ``_unit_forward``)."""
-    x, _ = _stack(params, x, cfg, keep_caches=False)
+    """The final hidden states [B, S, d] of embeddings x (the units and
+    the final norm, no head): the classifier's and the neural backbone's
+    forward, the reference's ``scan`` of ``_unit_forward``, whose aux loss
+    it carries and drops."""
+    check_supported(cfg)
+    x, _, _ = _stack(params, x, cfg, keep_caches=False)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig):
-    """Full-sequence forward (prefill).  batch: {"tokens": [B, S]}.
-    Returns (logits [B, S, V], caches, aux_loss = 0)."""
-    logits, caches = _run(params, batch, cfg, keep_caches=True)
-    return (logits, caches,
-            torch.zeros((), dtype=torch.float32, device=logits.device))
+    """Full-sequence forward (prefill).  batch: {"tokens": [B, S]} (+
+    "patch_emb" [B, Timg, d] for the vision frontend).  Returns (logits
+    [B, S_total, V], caches, aux_loss)."""
+    check_supported(cfg)
+    x, caches, aux = _stack(params, embed_inputs(params, batch, cfg), cfg,
+                            keep_caches=True)
+    return _logits(params, x, cfg), caches, aux
 
 
 def forward_train(params: dict, batch: dict, cfg: ArchConfig):
-    """The training forward: (logits [B, S, V], aux_loss = 0).  The same
-    computation as :func:`forward` without stacking every layer's K/V into
-    a cache (a training step has no use for it), and each layer under
+    """The training forward: (logits [B, S_total, V], aux_loss).  The same
+    computation as :func:`forward` without stacking every unit's cache (a
+    training step has no use for it), and each unit under
     ``torch.utils.checkpoint`` when ``cfg.remat == "block"``."""
-    logits, _ = _run(params, batch, cfg, keep_caches=False)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    check_supported(cfg)
+    x, _, aux = _stack(params, embed_inputs(params, batch, cfg), cfg,
+                       keep_caches=False)
+    return _logits(params, x, cfg), aux
 
 
 def decode_step(params: dict, caches: dict, tokens: torch.Tensor, pos: int,
                 cfg: ArchConfig, cache_mode: str = "full"):
     """One-token decode.  tokens [B, 1]; pos the absolute position (a host
-    int).  Writes each layer's new K/V into ``caches`` in place; returns
-    (logits [B, 1, V], caches)."""
+    int; frontend positions included).  Writes each unit's new cache
+    entries into ``caches`` in place; returns (logits [B, 1, V],
+    caches)."""
     check_supported(cfg)
     attn.check_flash(cfg, cache_mode)
     pos = int(pos)
     x = embed(params["embed"], tokens, cfg.embed_scale)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    stacked = caches["sub0"]
-    layers = _layers(params["layers"]["sub0"], cfg.num_layers)
-    for i, layer in enumerate(layers):
-        layer_cache = type(stacked)(*(a[i] for a in stacked))
-        x, _ = _block_decode(layer, x, layer_cache, pos, cfg, cache_mode,
-                             rope)
+    rope = _rope(cfg, positions)
+    kinds = _block_kinds(cfg)
+    for u, unit in enumerate(_layers(params["layers"], _num_units(cfg))):
+        for i, kind in enumerate(kinds):
+            stacked = caches[f"sub{i}"]
+            view = type(stacked)(*(a[u] for a in stacked))
+            x, new = _sub_block_decode(unit[f"sub{i}"], x, view, pos, cfg,
+                                       kind, i, cache_mode, rope)
+            if new is not view:              # an SSM state: copy it back
+                for dst, src in zip(view, new):
+                    dst.copy_(src)
     return _logits(params, x, cfg), caches
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
                dtype: torch.dtype | None = None,
                device: torch.device | str = DEFAULT_DEVICE) -> dict:
-    """Zero-initialized decode cache in the stacked layout [L, B, S, ...]
-    on ``device`` (the card unless the caller asks for the CPU); int8 with
-    float32 scales when ``cfg.kv_quant``."""
+    """Zero-initialized decode cache in the stacked layout [U, B, ...] on
+    ``device`` (the card unless the caller asks for the CPU): K/V (int8
+    with float32 scales when ``cfg.kv_quant``), MLA's latents (never
+    int8) or the SSM state (its ``ssm`` float32)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype or _dtype(cfg)
-    shape = (cfg.num_layers, batch, s_cache, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.kv_quant:
-        return {"sub0": attn.QuantKVCache(
-            k=torch.zeros(shape, dtype=torch.int8, device=device),
-            v=torch.zeros(shape, dtype=torch.int8, device=device),
-            k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
-                                device=device),
-            v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
-                                device=device))}
-    return {"sub0": attn.KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device))}
+    units = _num_units(cfg)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((units, batch) + shape, dtype=dt, device=device)
+
+    def leaf(kind):
+        if kind == "attn" and cfg.attention == "mla":
+            return attn.KVCache(k=zeros(s_cache, cfg.kv_lora_rank),
+                                v=zeros(s_cache, cfg.qk_rope_head_dim))
+        if kind == "attn":
+            kv = (s_cache, cfg.num_kv_heads, cfg.head_dim)
+            if cfg.kv_quant:
+                return attn.QuantKVCache(
+                    k=zeros(*kv, dt=torch.int8), v=zeros(*kv, dt=torch.int8),
+                    k_scale=zeros(*kv[:-1], dt=torch.float32),
+                    v_scale=zeros(*kv[:-1], dt=torch.float32))
+            return attn.KVCache(k=zeros(*kv), v=zeros(*kv))
+        conv = cfg.ssm_conv - 1
+        return ssm_lib.SSMState(
+            conv_x=zeros(conv, cfg.d_inner), conv_B=zeros(conv, cfg.ssm_state),
+            conv_C=zeros(conv, cfg.ssm_state),
+            ssm=zeros(cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim,
+                      dt=torch.float32))
+
+    return {f"sub{i}": leaf(kind) for i, kind in enumerate(_block_kinds(cfg))}
 
 
 def cache_length(cfg: ArchConfig, seq_len: int) -> int:

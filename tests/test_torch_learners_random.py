@@ -275,8 +275,8 @@ def test_neural_backbone_fits_from_its_draws_and_refuses_flash():
     with pytest.raises(ValueError):
         TNeural(cfg=tcfg.with_overrides(use_flash=True), steps=1,
                 device=CPU).fit(draws, *_t(X, c, w), k)
-    with pytest.raises(NotImplementedError):     # dense configs only
-        TNeural(cfg=TARCHS["granite-moe-1b-a400m"].reduced(), steps=1,
+    with pytest.raises(NotImplementedError):     # decoder-only configs
+        TNeural(cfg=TARCHS["whisper-tiny"].reduced(), steps=1,
                 device=CPU).fit(draws, *_t(X, c, w), k)
 
 

@@ -350,22 +350,6 @@ def test_ring_cache_matches_full_for_swa():
 
 
 # -------------------------------------------------------- what raises
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-tiny",
-                                  "qwen3-moe-235b-a22b", "mamba2-130m",
-                                  "jamba-v0.1-52b", "internvl2-2b",
-                                  "minicpm3-4b"])
-def test_archs_outside_dense_gqa_raise(arch):
-    """And the reference's chunked einsum (attn_impl), not ported."""
-    cfg = TARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="attn_impl"):
-        tapi.init_params(_tcfg(attn_impl="chunked"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tapi.init_params(cfg)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tapi.forward({}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                     cfg)
-
-
 def test_use_flash_never_drops_to_sdpa(ref):
     """The kernels have no ring validity and no softcap: use_flash with
     either raises instead of computing _sdpa."""
