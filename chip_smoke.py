@@ -321,6 +321,27 @@
    prefill ms, decode ms a step, tokens/s, peak GiB and flash launches;
    the float32 comparisons; training step ms, tokens/s, peak and CE
    launches) beside the card's name and power limit.
+20. The multi-device layer over NCCL at world size 1: a one-rank ``nccl``
+   group on the card (``init_process_group`` on a ``HashStore`` with the
+   card's ``device_id``), destroyed at the end, so no other phase sees
+   it.  (a) ``ops.ignorance_update(group=)`` and ``make_ring_interchange``
+   on a (1, 1) mesh at n = 15000 and 42000 give ``ops.ignorance_update``'s
+   bits, one unnormalized launch (one device kernel, counted as phase 2
+   counts) and one all-reduce a hop.  (b) Phase 4's MIMIC session through
+   ``MeshRingTransport(mesh=)`` = without a mesh: components, alphas, stop
+   round, history, w and predictions bit for bit.  (c)
+   ``fleet_run(shard_axis="data")`` of 8 MIMIC int8 logistic sessions, 2
+   rounds = ``fleet_run``, every leaf bit for bit.  (d) One MoE layer of
+   granite-moe-1b-a400m and of qwen3-moe-235b-a22b at batch 4 x 512
+   tokens: ``ep_a2a`` at D = 1 (no token dropped, asserted) against the
+   grouped path, float32 within 1e-5 of max|y| and aux equal; bf16 no
+   further from the float32 grouped y than 1.25 x the bf16 grouped path
+   (19(a)'s bf16 rule).  (e) ``Trainer(mesh=)`` on qwen3-0.6b at full
+   width, batch 8, seq 256, 2 AdamW steps = the mesh-less Trainer's
+   losses and parameters bit for bit, under
+   ``torch.use_deterministic_algorithms`` (the mesh-less run twice, to
+   show it repeats its bits).  Prints ``dist_table`` (the NCCL version,
+   each check's error, launches and seconds).
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -5618,6 +5639,270 @@ class Smoke:
                 f"beside 3 trees, blob n_train=700, 2 rounds: "
                 + "; ".join(out))
 
+    # ------------------------------------------------------- multi-device
+    def distributed(self) -> str:
+        """20. The multi-device layer over NCCL at world size 1: a
+        one-rank group on the card, destroyed at the end."""
+        torch = self.torch
+        import torch.distributed as dist
+        self.require(not dist.is_initialized(),
+                     "a process group is already initialised")
+        t0 = time.perf_counter()
+        torch.cuda.set_device(0)     # the rank's device, before the mesh
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            self.require(dist.get_backend() == "nccl",
+                         f"backend {dist.get_backend()}, not nccl")
+            table = {"card": self.card, "nccl": ".".join(
+                map(str, torch.cuda.nccl.version())),
+                "init_s": time.perf_counter() - t0}
+            out = []
+            for key, check in (("a", self._dist_normalizer),
+                               ("b", self._dist_mimic),
+                               ("c", self._dist_fleet), ("d", self._dist_ep),
+                               ("e", self._dist_trainer)):
+                before = dict(self.launches)
+                out.append(check(table))
+                table[key]["launches"] = {
+                    k: n - before[k] for k, n in self.launches.items()
+                    if n != before[k]}
+        finally:
+            dist.destroy_process_group()
+        print("dist_table " + json.dumps(table), flush=True)
+        return (f"nccl {table['nccl']}, world 1: " + "; ".join(out))
+
+    def _dist_normalizer(self, table: dict) -> str:
+        """(a) ``ops.ignorance_update(group=)`` and the ring on a (1, 1)
+        mesh = ``ops.ignorance_update``'s bits, one unnormalized launch
+        (one device kernel) and one all-reduce a hop."""
+        torch = self.torch
+        from repro_torch.core.collectives import make_ring_interchange
+        from repro_torch.kernels import ignorance as ig
+        from repro_torch.kernels import ops
+        from repro_torch.sharding.context import make_mesh
+        t0 = time.perf_counter()
+        mesh = make_mesh((1, 1), ("agent", "data"), "cuda")
+        group, ring = mesh.group("data"), make_ring_interchange(mesh)
+        rows = []
+        for n in (15000, 42000):
+            gen = torch.Generator(device=self.dev).manual_seed(n)
+            w = torch.rand(n, generator=gen, device=self.dev) + 0.1
+            w = w / w.sum()
+            r = (torch.rand(n, generator=gen, device=self.dev) > 0.4).float()
+            a = torch.tensor(0.75, device=self.dev)
+            self.reset_counts()
+            ig.ignorance_update_group.all_reduces = 0
+            grouped = ops.ignorance_update(w, r, a, group=group)
+            ringed = ring(w[None], r[None], a[None])
+            one = ops.ignorance_update(w, r, a)
+            torch.cuda.synchronize()
+            self.require(ig.ignorance_update_group.all_reduces == 2,
+                         f"n={n}: {ig.ignorance_update_group.all_reduces} "
+                         f"all-reduces for two hops")
+            self.read_counts(1, f"dist normalizer n={n}",
+                             ignorance_update_unnormalized=2)
+            err = float((grouped - one).abs().max())
+            self.require(torch.equal(grouped, one)
+                         and torch.equal(ringed[0], one),
+                         f"n={n}: the group normalizer parts from the "
+                         f"one-launch kernel by {err}")
+            kernels, kinds = _device_kernels_per_call(
+                lambda: ig.ignorance_update_unnormalized(w, r, a))
+            self.require(kernels == 1, f"n={n}: the unnormalized mode is "
+                                       f"{kinds} a call")
+            rows.append({"n": n, "max_abs_err": err, "device_kernels":
+                         kernels, "all_reduces": 2})
+        table["a"] = {"rows": rows, "s": time.perf_counter() - t0}
+        return ("(a) group normalizer and (1, 1) ring = the one-launch "
+                "kernel bit for bit at n = 15000, 42000; one unnormalized "
+                "launch (1 device kernel) and one all-reduce a hop")
+
+    def _dist_mimic(self, table: dict) -> str:
+        """(b) Phase 4's MIMIC session through MeshRingTransport with a
+        mesh = without one, bit for bit."""
+        torch = self.torch
+        from repro_torch.core import engine as E
+        from repro_torch.learners.tree import DecisionTree
+        from repro_torch.sharding.context import make_mesh
+        t0 = time.perf_counter()
+        mesh = make_mesh((1, 1), ("agent", "data"), "cuda")
+        Xtr, ctr, Xte, _ = self._mimic_data()
+        runs = []
+        for m in (mesh, None):
+            proto = E.Protocol(E.SessionConfig(num_classes=2, max_rounds=10),
+                               transport=E.MeshRingTransport(mesh=m),
+                               device="cuda")
+            eps = E.endpoints_for([DecisionTree(depth=4, num_thresholds=16,
+                                                device="cuda")
+                                   for _ in Xtr], Xtr)
+            self.reset_counts()
+            session = proto.start(0, eps, ctr)
+            session.run()
+            preds = session.fitted().predict(Xte)
+            torch.cuda.synchronize()
+            self.read_counts(len(session.state.components),
+                             f"dist mimic mesh={m is not None}")
+            runs.append((session.state, preds))
+        (sm, pm), (s0, p0) = runs
+        self.require(
+            [(c.agent, c.round, c.alpha) for c in sm.components]
+            == [(c.agent, c.round, c.alpha) for c in s0.components]
+            and (sm.round, sm.stopped) == (s0.round, s0.stopped)
+            and torch.equal(sm.w, s0.w) and torch.equal(pm, p0)
+            and sm.history == s0.history,
+            "the MIMIC session with a mesh parts from the one without")
+        table["b"] = {"components": len(sm.components), "round": sm.round,
+                      "max_abs_err": 0.0, "s": time.perf_counter() - t0}
+        return (f"(b) MIMIC trees, MeshRingTransport(mesh=) = without: "
+                f"{len(sm.components)} components, stop round {sm.round}, "
+                f"w and predictions bit for bit")
+
+    def _dist_fleet(self, table: dict) -> str:
+        """(c) ``fleet_run(shard_axis="data")`` on 8 MIMIC int8 sessions,
+        2 rounds = ``fleet_run``'s bits."""
+        torch = self.torch
+        from repro_torch.comm.codecs import QuantCodec
+        from repro_torch.core import compiled as C
+        from repro_torch.learners.logistic import LogisticRegression
+        t0 = time.perf_counter()
+        Xtr, ctr, _, _ = self._mimic_data()
+        plan = C.plan_for([LogisticRegression(steps=MIMIC_STEPS,
+                                              device="cuda")] * 2, 2,
+                          max_rounds=2, codec=QuantCodec(8))
+        keys = list(range(8))
+        res = {}
+        for axis in (None, "data"):
+            self.reset_counts()
+            res[axis] = C.fleet_run(plan, keys, Xtr, ctr, shard_axis=axis)
+            torch.cuda.synchronize()
+            self._compiled_counts(plan, True, f"dist fleet {axis}")
+
+        def leaves(x):
+            if isinstance(x, dict):
+                return [y for v in x.values() for y in leaves(v)]
+            if isinstance(x, (list, tuple)):
+                return [y for v in x for y in leaves(v)]
+            return [x]
+        pairs = list(zip(leaves(tuple(res["data"])), leaves(tuple(res[None]))))
+        self.require(len(pairs) > 10 and all(torch.equal(a, b)
+                                             for a, b in pairs),
+                     "the sharded fleet parts from the unsharded one")
+        table["c"] = {"sessions": 8, "leaves": len(pairs),
+                      "max_abs_err": 0.0, "s": time.perf_counter() - t0}
+        return (f"(c) sharded fleet of 8 MIMIC int8 sessions, 2 rounds = "
+                f"fleet_run, {len(pairs)} leaves bit for bit")
+
+    def _dist_ep(self, table: dict) -> str:
+        """(d) One MoE layer of granite-moe and of qwen3-moe, batch 4 x
+        512 tokens: ep_a2a at D = 1 against the grouped path, float32
+        within 1e-5 of max|y| and no token dropped; bf16 within 1.25 x the
+        grouped path's distance from float32 (19(a)'s bf16 rule)."""
+        torch = self.torch
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.models import moe
+        from repro_torch.sharding import ep
+        from repro_torch.sharding.context import make_mesh, mesh_context
+        t0 = time.perf_counter()
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        rows, out = [], []
+        for arch in ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b"):
+            cfg = ARCHS[arch]
+            gen = torch.Generator(device=self.dev).manual_seed(20)
+            p = moe.moe_init(gen, cfg, torch.float32, device=self.dev)
+            x = torch.randn(4, 512, cfg.d_model, generator=gen,
+                            device=self.dev)
+            with torch.no_grad():
+                _, idx, _ = moe.router_topk(p, x.reshape(-1, cfg.d_model),
+                                            cfg)
+                cap = ep.capacity(4 * 512, cfg, 1)
+                _, keep, _ = ep.dispatch(idx.reshape(-1) // cfg.num_experts,
+                                         1, cap)
+                self.require(bool(keep.all()), f"{arch}: tokens dropped at "
+                                               f"D = 1")
+                gmm, aux_g = moe.moe_apply(p, x, cfg, "gmm")
+                with mesh_context(mesh):
+                    t1 = time.perf_counter()
+                    epy, aux_e = moe.moe_apply(p, x, cfg, "ep_a2a")
+                    torch.cuda.synchronize()
+                    ep_s = time.perf_counter() - t1
+                scale = float(gmm.abs().max())
+                err = float((epy - gmm).abs().max()) / scale
+                self.require(err <= 1e-5 and torch.equal(aux_e, aux_g),
+                             f"{arch}: ep_a2a {err} of max|y| from grouped")
+                pb = {k: v.to(torch.bfloat16) for k, v in p.items()}
+                xb = x.to(torch.bfloat16)
+                gb, _ = moe.moe_apply(pb, xb, cfg, "gmm")
+                with mesh_context(mesh):
+                    eb, _ = moe.moe_apply(pb, xb, cfg, "ep_a2a")
+                d_g = float((gb.float() - gmm).abs().max()) / scale
+                d_e = float((eb.float() - gmm).abs().max()) / scale
+                self.require(d_e <= 1.25 * d_g,
+                             f"{arch}: bf16 ep_a2a {d_e} from float32 "
+                             f"against grouped's {d_g}")
+            rows.append({"arch": arch, "cap": cap, "f32_err": err,
+                         "bf16_ep": d_e, "bf16_gmm": d_g, "ep_s": ep_s})
+            out.append(f"{arch} f32 {err:.3g}, bf16 {d_e:.3g} vs grouped "
+                       f"{d_g:.3g} of max|y|")
+            del p, pb, gmm, epy, gb, eb
+            torch.cuda.empty_cache()
+        table["d"] = {"rows": rows, "s": time.perf_counter() - t0}
+        return "(d) ep_a2a (D = 1, none dropped) - grouped: " + "; ".join(out)
+
+    def _dist_trainer(self, table: dict) -> str:
+        """(e) ``Trainer(mesh=)`` on qwen3-0.6b at full width, batch 8, seq
+        256, 2 steps = the mesh-less Trainer's loss and parameters bit for
+        bit; under ``torch.use_deterministic_algorithms`` (the embedding's
+        backward accumulates by index, which is not deterministic
+        otherwise), and the mesh-less run twice to show that it repeats
+        its own bits."""
+        torch = self.torch
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.models import api
+        from repro_torch.optim import optimizers as topt
+        from repro_torch.sharding.context import make_mesh
+        from repro_torch.train.trainer import Trainer, TrainerConfig
+        t0 = time.perf_counter()
+        cfg = ARCHS["qwen3-0.6b"]
+        mesh = make_mesh((1,), ("data",), "cuda")
+        params = api.init_params(cfg, torch.Generator(
+            device=self.dev).manual_seed(0))
+        batches = [self._train_batch(cfg, s) for s in (1, 2)]
+        runs = []
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for m in (mesh, None, None):
+                opt = topt.adamw(1e-3)
+                start = topt.tree_map(torch.clone, params)
+                self.reset_counts()
+                p, _, hist = Trainer(cfg, opt, TrainerConfig(
+                    steps=2, log_every=1), mesh=m).run(
+                        None, iter(batches), params=start,
+                        opt_state=opt.init(start))
+                torch.cuda.synchronize()
+                self.read_counts(0, f"dist trainer mesh={m is not None}",
+                                 weighted_ce_fwd=2, weighted_ce_bwd=2)
+                runs.append((p, [h["loss"] for h in hist]))
+        finally:
+            torch.use_deterministic_algorithms(was)
+
+        def same(a, b):
+            return a[1] == b[1] and all(torch.equal(x, y) for x, y in zip(
+                topt.tree_leaves(a[0]), topt.tree_leaves(b[0])))
+        self.require(same(runs[1], runs[2]),
+                     "the mesh-less trainer does not repeat its own bits")
+        (pm, lm), (p0, l0) = runs[:2]
+        self.require(same(runs[0], runs[1]), f"the data-parallel trainer "
+                                             f"parts from the mesh-less "
+                                             f"one: {lm} {l0}")
+        table["e"] = {"losses": lm, "max_abs_err": 0.0,
+                      "s": time.perf_counter() - t0}
+        return (f"(e) Trainer(mesh=) qwen3-0.6b full width, 2 steps = "
+                f"mesh-less, losses {lm[0]:.6f} -> {lm[1]:.6f} and "
+                f"{len(topt.tree_leaves(pm))} leaves bit for bit")
+
 
 def _zoo_cfg(arch: str, layers):
     """An arch's full config, ``layers`` deep (None: its own depth;
@@ -5721,7 +6006,8 @@ def main(argv: list[str]) -> int:
               8: s.flash_vs_plain, 9: s.serve, 10: s.ce_vs_plain,
               11: s.train, 12: s.learners, 13: s.control,
               14: s.compiled, 15: s.serve_path, 16: s.scenarios,
-              17: s.telemetry, 18: s.compiled_rest, 19: s.zoo}
+              17: s.telemetry, 18: s.compiled_rest, 19: s.zoo,
+              20: s.distributed}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])

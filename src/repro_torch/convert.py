@@ -15,7 +15,10 @@ params the same way, ``model_params_from_numpy`` a model-zoo parameter
 tree (the serve and training paths' weights), ``neural_params_from_numpy``
 a classifier's or neural backbone's tree and ``opt_state_from_numpy``
 an optimizer state over such a tree (the reference trainer's
-``{"params", "opt"}`` checkpoints).
+``{"params", "opt"}`` checkpoints).  ``local_shards_from_numpy`` cuts one
+rank's shard of each leaf of full arrays by the sharding rules' specs
+(``repro_torch.sharding.rules``), as a multi-device path takes its
+weights.
 """
 from __future__ import annotations
 
@@ -132,3 +135,29 @@ def opt_state_from_numpy(cfg: ArchConfig, opt_state: Mapping, *,
     dtypes)."""
     return {k: model_params_from_numpy(cfg, v, device=device)
             for k, v in opt_state.items()}
+
+
+def local_shards_from_numpy(tree, specs, mesh, coord=None, *,
+                            device: str | torch.device = "cuda"):
+    """One rank's shard of each leaf of ``tree`` (full numpy arrays, in
+    nested dicts, lists and NamedTuples) under ``specs`` (the same tree
+    with the sharding rules' spec tuples as leaves) on ``mesh``: the rank
+    at ``coord`` (a dict of axis -> index), or this rank of a
+    :class:`~repro_torch.sharding.context.Mesh` when None.  Tensors on
+    ``device``, bfloat16 carried bit for bit."""
+    from repro_torch.sharding import rules
+    dev = resolve_device(device)
+    where = mesh if coord is None else coord
+
+    def walk(node, spec):
+        if rules.is_spec(spec):
+            a = np.asarray(node)
+            cut = a[rules.shard_index(mesh, spec, a.shape, where)]
+            return _tensor(cut).to(dev)
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if hasattr(node, "_fields"):
+            return type(node)(*(walk(v, s) for v, s in zip(node, spec)))
+        return type(node)(walk(v, s) for v, s in zip(node, spec))
+
+    return walk(tree, specs)

@@ -61,9 +61,9 @@ budget's caps (``TRACE_COUNTS`` counts the sweep's builds).  Each sweep
 row equals the static plan's run bit for bit.
 
 PyTorch runs eagerly: "compiled" names the fixed-shape, host-read-free
-program, not a compiler.  ``fleet_run(shard_axis=)`` spans several cards
-and is a later slice of the port (ROADMAP Queue 1, item 5,
-multi-device); it raises ``NotImplementedError``.
+program, not a compiler.  ``fleet_run(shard_axis=)`` spreads a fleet's
+sessions over the ranks of a ``torch.distributed`` world and gathers
+the result on every rank.
 
 Quickstart::
 
@@ -93,7 +93,7 @@ from repro_torch.control.scheduler import (REWARD_SMOOTHING,
                                            traced_round_order)
 from repro_torch.core import scores
 from repro_torch.core.encoding import encode_labels
-from repro_torch.core.engine import (LabelsMsg, SampleIdsMsg, _later_slice,
+from repro_torch.core.engine import (LabelsMsg, SampleIdsMsg,
                                      key_data, tree_map)
 from repro_torch.kernels import ignorance as _ig
 from repro_torch.kernels import ops
@@ -749,11 +749,18 @@ def fleet_run(plan: SessionPlan, keys, Xs: Sequence[torch.Tensor],
     :func:`compiled_session` with ``keys[f]`` within what batched matrix
     products change (see tests/test_torch_compiled.py).  ``live``: one
     round tap a session and round, a round's F taps staged as one copy
-    (the tap's vmap rule).  ``shard_axis`` (a fleet across cards) is a
-    later slice: ROADMAP Queue 1, item 5, multi-device."""
+    (the tap's vmap rule).  ``shard_axis`` names the axis the fleet is
+    sharded over: every rank of the initialised ``torch.distributed``
+    world (its size must divide F) takes the same keys and cohort, runs
+    the sessions of its slice, and the results are all-gathered, so each
+    rank returns the whole [F] result, as the reference's global array
+    (``nccl`` for CUDA tensors, ``gloo`` for CPU ones; with ``live`` it
+    raises, as the reference does)."""
     if shard_axis is not None:
-        raise _later_slice("sharded fleets (shard_axis=; ROADMAP Queue 1, "
-                           "item 5, multi-device)")
+        if live:
+            raise ValueError("live emission does not compose with sharded "
+                             "fleets: run --watch fleets unsharded")
+        return _sharded_fleet(plan, keys, Xs, classes, data_batched, source)
     Xs = tuple(Xs)
     shapes = tuple(tuple(x.shape[2:] if data_batched else x.shape[1:])
                    for x in Xs)
@@ -764,6 +771,42 @@ def fleet_run(plan: SessionPlan, keys, Xs: Sequence[torch.Tensor],
     data_ax = 0 if data_batched else None
     return torch.func.vmap(fn, in_dims=(0, data_ax, data_ax))(draws, Xs,
                                                               classes)
+
+
+def _sharded_fleet(plan: SessionPlan, keys, Xs, classes: torch.Tensor,
+                   data_batched: bool, source) -> SessionResult:
+    """:func:`fleet_run` of this rank's slice of the sessions, every field
+    all-gathered over the world."""
+    import torch.distributed as dist
+    from repro_torch.sharding.context import BACKENDS
+    if not dist.is_initialized():
+        raise RuntimeError("fleet_run(shard_axis=) needs an initialised "
+                           "process group")
+    want = BACKENDS.get(classes.device.type)
+    if dist.get_backend() != want:
+        raise RuntimeError(f"a fleet on {classes.device.type} gathers over "
+                           f"{want}, but the world runs "
+                           f"{dist.get_backend()}")
+    keys, world = list(keys), dist.get_world_size()
+    if len(keys) % world:
+        raise ValueError(f"{world} ranks do not divide a fleet of "
+                         f"{len(keys)} sessions")
+    per = len(keys) // world
+    cut = slice(dist.get_rank() * per, (dist.get_rank() + 1) * per)
+    if data_batched:
+        Xs, classes = tuple(x[cut] for x in Xs), classes[cut]
+    if isinstance(source, (list, tuple)):
+        source = list(source)[cut]
+    local = fleet_run(plan, keys[cut], Xs, classes,
+                      data_batched=data_batched, source=source)
+
+    def gather(x: torch.Tensor) -> torch.Tensor:
+        wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+        parts = [torch.empty_like(wire) for _ in range(world)]
+        dist.all_gather(parts, wire)
+        return torch.cat(parts).to(x.dtype)
+
+    return SessionResult(*(tree_map(gather, field) for field in local))
 
 
 # ================================================================ async barrier

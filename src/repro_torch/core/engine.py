@@ -34,8 +34,8 @@ reference's does: ``session`` -> ``round`` -> ``hop`` spans on the eager
 path, ``session`` and ``replay`` (and ``serve``) on the compiled one, the
 ledger's counters at the transport's choke points, and the live plane's
 round and serve taps; it changes no value and no kernel launch.  The
-mesh ring is a later slice of the port; ``mesh=`` raises
-``NotImplementedError``.
+mesh ring (``MeshRingTransport(mesh=).ring_step``) runs a round of hops
+over a ``torch.distributed`` mesh (``core.collectives``).
 
 One rule differs from the reference, and it is deliberate: every standard
 hop (``Transport._execute_update``) goes through
@@ -512,14 +512,33 @@ class MeteredTransport(Transport):
 
 
 class MeshRingTransport(Transport):
-    """Device-resident interchange.  Without a mesh it runs each hop
-    through the ignorance kernel, as every transport of the port does; the
-    multi-device ring (``mesh=``) is a later slice."""
+    """Device-resident interchange.  Each hop runs through the ignorance
+    kernel, as on every transport of the port, with or without a mesh;
+    given a mesh (:class:`repro_torch.sharding.context.Mesh`) with an
+    ``agent`` axis, :meth:`ring_step` runs a whole round of hops as one
+    neighbour exchange over it (``core.collectives``)."""
 
-    def __init__(self, mesh=None, **channel) -> None:
-        if mesh is not None:
-            raise _later_slice("the multi-device ring (mesh=)")
+    def __init__(self, mesh=None, *, agent_axis: str = "agent",
+                 data_axis: str = "data", **channel) -> None:
         super().__init__(**channel)
+        self.mesh = mesh
+        self.agent_axis = agent_axis
+        self.data_axis = data_axis
+        self._ring = None
+
+    def ring_step(self, w_stack: torch.Tensor, r_stack: torch.Tensor,
+                  alphas: torch.Tensor) -> torch.Tensor:
+        """All-lanes ring hop on the mesh: agent m + 1 receives agent m's
+        updated score.  Shapes [M, n], [M, n], [M]; full tensors that
+        every rank passes alike, and the full result on every rank."""
+        if self.mesh is None:
+            raise ValueError("ring_step needs a mesh with an agent axis")
+        if self._ring is None:
+            from repro_torch.core.collectives import make_ring_interchange
+            self._ring = make_ring_interchange(
+                self.mesh, agent_axis=self.agent_axis,
+                data_axis=self.data_axis)
+        return self._ring(w_stack, r_stack, alphas)
 
 
 # =================================================================== schedulers

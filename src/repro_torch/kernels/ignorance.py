@@ -10,6 +10,9 @@ replaces, together with the normalizer of ``repro/kernels/ops.py``, with
     note), or in two launches above that (the large-n route);
   * :func:`ignorance_update_unnormalized` -- ``w * exp(alpha(1-r))`` and one
     partial sum per 1024-tile, the JAX function's API, in one launch;
+  * :func:`ignorance_update_group` -- the normalized update of a shard
+    of a score sharded over a process group: the unnormalized mode, then
+    its total all-reduced over the group (the reference's ``axis_name=``);
   * :func:`ignorance_update_batched` -- F normalized updates, rows of
     ``w [F, n]``, ``r [F, n]`` and ``alpha [F]``, in one launch: the
     counterpart of ``vmap`` over the TPU kernel (the session on the grid's
@@ -313,6 +316,26 @@ def ignorance_update_unnormalized(w: torch.Tensor, r: torch.Tensor,
 
 
 ignorance_update_unnormalized.launches = 0
+
+
+def ignorance_update_group(w: torch.Tensor, r: torch.Tensor,
+                           alpha: torch.Tensor, group) -> torch.Tensor:
+    """The normalized update of a score sharded over the process group
+    ``group``, ``w``/``r`` this rank's shard: one launch of
+    :func:`ignorance_update_unnormalized`, the shard's total from its tile
+    sums in the kernel's order (:func:`_total_plain`), one ``all_reduce``
+    of the totals over the group, then ``w / max(total, 1e-12)``.  In a
+    group of one the total is the one-launch kernel's, so are the bits.
+    Counts its all-reduces in ``ignorance_update_group.all_reduces``."""
+    import torch.distributed as dist
+    w_new, partials = ignorance_update_unnormalized(w, r, alpha)
+    total = _total_plain(partials).reshape(1)
+    dist.all_reduce(total, group=group)
+    ignorance_update_group.all_reduces += 1
+    return w_new / torch.clamp(total[0], min=_EPS)
+
+
+ignorance_update_group.all_reduces = 0
 
 
 def launch_floor(device: torch.device, cluster: int = 1) -> None:

@@ -240,10 +240,16 @@ def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def ignorance_update(w: torch.Tensor, r: torch.Tensor,
-                     alpha: torch.Tensor) -> torch.Tensor:
+                     alpha: torch.Tensor, group=None) -> torch.Tensor:
     """Eqs. (10)/(12), normalized: one launch of the CUDA kernel for CUDA
     tensors (a thread-block cluster sums and scales), its plain version for
-    CPU tensors; under vmap one batched launch for all sessions."""
+    CPU tensors; under vmap one batched launch for all sessions.
+
+    ``group`` (the reference's ``axis_name=``): ``w`` and ``r`` are this
+    rank's shard of a score sharded over that process group, normalized
+    by the whole score's sum (``ignorance.ignorance_update_group``)."""
+    if group is not None:
+        return _ig.ignorance_update_group(w, r, alpha, group)
     if not _transformed():
         return _ig.ignorance_update(w, r, alpha)
     return _ignorance_update_op(w, r, alpha)

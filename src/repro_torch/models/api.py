@@ -18,6 +18,7 @@ writes the whole ``dlogits`` with no scatter into a [:, :-1] slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -160,10 +161,23 @@ def weighted_next_token_loss(logits: torch.Tensor, batch: dict,
     ``batch['sample_weight']`` [B] is the ASCII ignorance score w_t of each
     collated sample (sequence), uniform when absent; ``batch['loss_mask']``
     [B, S] masks target tokens.  For VLM archs the frontend positions carry
-    no loss.  Returns ``sum(nll * w) / max(sum(w), 1e-9)``."""
+    no loss.  Returns ``sum(nll * w) / max(sum(w), 1e-9)``; under a mesh
+    with data axes (:func:`~repro_torch.sharding.context.mesh_context`)
+    the batch is this rank's shard and ``sum(w)`` the global batch's
+    (all-reduced, no gradient), so the ranks' losses sum to the global
+    one."""
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.context import current_mesh
     rows, labels, weights = next_token_rows(logits, batch, cfg)
     nll = ops.weighted_ce(rows, labels, weights)
-    return torch.sum(nll) / torch.clamp(torch.sum(weights), min=1e-9)
+    total = torch.sum(weights)
+    group = rules.data_group(current_mesh())
+    if group is not None:
+        import torch.distributed as dist
+        total = total.detach().reshape(1)
+        dist.all_reduce(total, group=group)
+        total = total[0]
+    return torch.sum(nll) / torch.clamp(total, min=1e-9)
 
 
 # ---------------------------------------------------------- step functions
@@ -176,11 +190,20 @@ def loss_and_grads(params: dict, batch: dict, cfg: ArchConfig,
     graph was built on, in ``tree_leaves`` order, and ``logits`` the
     graph's output, so a caller that keeps the graph
     (``retain_graph=True``) can take other gradients of the same
-    forward."""
+    forward.  Under a mesh with data axes (n ranks) the batch is this
+    rank's shard; the MoE layers' aux is the same on the ranks of a data
+    group (``models/moe.py``), and this rank's share of it, aux / n,
+    enters its loss: loss, aux and gradients are this rank's shares,
+    which sum over the data axes to the global batch's."""
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.context import current_mesh
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(leaves)
     tracked = tree_map(lambda _: next(it), params)
     logits, aux = forward_train(tracked, batch, cfg)
+    mesh = current_mesh()
+    if rules.data_group(mesh) is not None:
+        aux = aux / math.prod(mesh.shape[a] for a in rules.data_axes(mesh))
     loss = weighted_next_token_loss(logits, batch, cfg)
     if cfg.is_moe:
         loss = loss + cfg.router_aux_coef * aux
@@ -196,13 +219,26 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer) -> Callable:
     Gradients by ``loss_and_grads``; with ``cfg.microbatches`` m > 1 the
     batch is split in m along axis 0, the gradients are summed and divided
     by m, and loss and aux are averaged, as the reference's ``scan`` does.  Returns new parameter and state
-    trees; the metrics are 0-d float32 tensors on the device."""
+    trees; the metrics are 0-d float32 tensors on the device.
+
+    Under a mesh with data axes
+    (:func:`~repro_torch.sharding.context.mesh_context`) the step is data
+    parallel: ``batch`` is this rank's shard (with m microbatches, its
+    shard of each of the global batch's m, in order), ``params`` this
+    rank's parameters (``rules.held_specs``: under ep_a2a its slice of
+    the expert banks).  Each gradient is summed with ``all_reduce`` over
+    the data axes its leaf is not split over (a leaf split over all of
+    them is this rank's own), and loss and aux over all of them, so every
+    rank takes the one-device step on the global batch."""
     if cfg.use_flash:
         raise NotImplementedError(
             "make_train_step with use_flash: the flash kernels have no "
             "backward kernel (nor does the reference's Pallas kernel); "
             "training runs the einsum attention, use_flash=False")
     transformer.check_supported(cfg)
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.context import current_mesh
+    held = [None, None]          # the mesh and its held_specs
 
     def grads_of(params, mb):
         loss, grads, aux = loss_and_grads(params, mb, cfg)[:3]
@@ -226,12 +262,42 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer) -> Callable:
                 loss, aux = loss + l_, aux + a
             grads = tree_map(lambda g: g / m, grads)
             loss, aux = loss / m, aux / m
+        mesh = current_mesh()
+        if rules.data_group(mesh) is not None:
+            if held[0] is not mesh:
+                held[:] = [mesh, rules.held_specs(cfg, mesh)]
+            grads, loss, aux = _all_reduce_step(grads, loss, aux, mesh,
+                                                held[1])
         with torch.no_grad():
             params, opt_state = optimizer.update(grads, opt_state, params,
                                                  step)
         return params, opt_state, {"loss": loss, "aux_loss": aux}
 
     return train_step
+
+
+def _all_reduce_step(grads: dict, loss, aux, mesh, specs):
+    """The ranks' shares summed: each gradient leaf over the data axes
+    its ``specs`` entry does not split it over (every data axis where
+    ``specs`` is None), loss and aux in one all-reduce over all of
+    them."""
+    import torch.distributed as dist
+    from repro_torch.sharding import rules
+    axes = rules.data_axes(mesh)
+
+    def reduce(g, spec=()):
+        rest = tuple(a for a in axes if a not in rules.spec_axes(spec))
+        if rest:
+            g = g.contiguous()
+            dist.all_reduce(g, group=mesh.group(rest))
+        return g
+    grads = (tree_map(reduce, grads) if specs is None
+             else tree_map(reduce, grads, specs))
+    metrics = torch.stack([torch.as_tensor(loss, dtype=torch.float32),
+                           torch.as_tensor(aux, dtype=torch.float32)]).to(
+        tree_leaves(grads)[0].device)
+    dist.all_reduce(metrics, group=rules.data_group(mesh))
+    return grads, metrics[0], metrics[1]
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

@@ -12,12 +12,22 @@ Implementations (``cfg.moe_impl``):
     (stably) and each expert's segment takes one matrix product.  The
     segment lengths are read back to the host once a layer (the reference's
     ``ragged_dot`` takes them on the device); see ROADMAP Queue 3.
-  * ``ep_a2a`` -- expert parallelism over a mesh: not ported (ROADMAP
-    Queue 1, item 5, multi-device); it raises.
+  * ``ep_a2a`` -- expert parallelism over a mesh's ``data`` axis with
+    fixed-capacity all-to-alls (``repro_torch.sharding.ep``), on the mesh
+    of :func:`repro_torch.sharding.context.mesh_context`; without one,
+    the grouped path, as the reference falls back.
 
 Router: softmax over experts in float32, top-k with ties to the lower
 index (as ``lax.top_k``), renormalized among the chosen k, and the Switch
-load-balance loss E * sum_e f_e P_e.
+load-balance loss E * sum_e f_e P_e.  Under a mesh with data axes
+(:func:`~repro_torch.sharding.context.mesh_context`: x is this rank's
+shard of the batch) the dense and grouped paths' loss is the global
+batch's, the same on every rank: the expert counts, the token count and
+the probability sums all-reduced over the data axes in one
+differentiable collective, as the reference's step computes it on its
+global arrays.  ``ep_a2a``'s is the reference's mean over ``data`` of
+the shards' losses.  A data-parallel step takes a share of either
+(``api.loss_and_grads``).
 
 The grouped combine writes each copy's weighted output back to its
 (token, slot) place by index (no two copies share one) and adds a token's
@@ -45,9 +55,11 @@ def moe_init(gen: torch.Generator | None, cfg: ArchConfig, dtype: torch.dtype,
             "wo": he_init(gen, (e, f, d), dtype, fan_in=f, **kw)}
 
 
-def router_topk(params: dict, x_flat: torch.Tensor, cfg: ArchConfig):
+def router_topk(params: dict, x_flat: torch.Tensor, cfg: ArchConfig,
+                group=None):
     """x_flat [T, d] -> (probs [T, k] in x's dtype, idx [T, k] int64, aux
-    float32 scalar)."""
+    float32 scalar); ``group``: x_flat is this rank's shard of a batch
+    split over ``group``, and aux the whole batch's loss."""
     logits = x_flat.to(torch.float32) @ params["router"].to(torch.float32)
     probs_full = torch.softmax(logits, dim=-1)
     # a stable descending sort: equal probabilities keep the lower expert
@@ -56,10 +68,29 @@ def router_topk(params: dict, x_flat: torch.Tensor, cfg: ArchConfig):
     probs, idx = probs[:, :cfg.top_k], idx[:, :cfg.top_k]
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
     e = cfg.num_experts
+    if group is not None:
+        return probs.to(x_flat.dtype), idx, _global_aux(probs_full, idx, e,
+                                                         group)
     frac_tokens = F.one_hot(idx, e).to(torch.float32).sum(1).mean(0)  # f_e
     frac_probs = probs_full.mean(0)                                   # P_e
     aux = e * torch.sum(frac_tokens * frac_probs)
     return probs.to(x_flat.dtype), idx, aux
+
+
+def _global_aux(probs_full: torch.Tensor, idx: torch.Tensor, e: int,
+                group) -> torch.Tensor:
+    """The load-balance loss of the batch split over ``group``: the
+    expert counts, the token count and the probability sums of the shards
+    summed in one all-reduce that carries the gradient back to each
+    shard's probabilities."""
+    from repro_torch.sharding.ep import differentiable
+    stats = torch.cat([F.one_hot(idx, e).to(torch.float32).sum((0, 1)),
+                       torch.tensor([float(idx.shape[0])],
+                                    device=idx.device),
+                       probs_full.sum(0)])
+    stats = differentiable("all_reduce")(stats, group=group)
+    counts, tokens, prob_sums = stats[:e], stats[e], stats[e + 1:]
+    return e * torch.sum(counts / tokens * (prob_sums / tokens))
 
 
 def _expert_ffn_dense(params: dict, x_flat: torch.Tensor, probs, idx,
@@ -106,14 +137,17 @@ def _expert_ffn_gmm(params: dict, x_flat: torch.Tensor, probs, idx,
 def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
               impl: str | None = None):
     """x [B, S, d] -> (y [B, S, d], aux_loss float32 scalar)."""
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.context import current_mesh
     impl = impl or cfg.moe_impl
     if impl == "ep_a2a":
-        raise NotImplementedError(
-            "moe_impl='ep_a2a' (expert parallelism over a mesh) is not "
-            "ported: ROADMAP Queue 1, item 5, multi-device")
+        # routing happens on each data shard (sharding/ep.py)
+        from repro_torch.sharding.ep import moe_apply_ep_a2a
+        return moe_apply_ep_a2a(params, x, cfg)
     b, s, d = x.shape
     x_flat = x.reshape(-1, d)
-    probs, idx, aux = router_topk(params, x_flat, cfg)
+    probs, idx, aux = router_topk(params, x_flat, cfg,
+                                  rules.data_group(current_mesh()))
     if impl == "dense":
         y = _expert_ffn_dense(params, x_flat, probs, idx, cfg)
     elif impl == "gmm":

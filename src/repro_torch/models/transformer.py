@@ -36,9 +36,7 @@ Entry points, as in the reference:
 
 ``batch["patch_emb"]`` [B, Timg, d] (the vision frontend's stub
 embeddings) is prepended to the token embeddings.  What raises:
-``moe_impl="ep_a2a"`` (expert parallelism over a mesh, ROADMAP Queue 1,
-item 5) and ``use_flash`` where the kernels cannot serve
-(``attention.check_flash``).
+``use_flash`` where the kernels cannot serve (``attention.check_flash``).
 """
 from __future__ import annotations
 
@@ -63,15 +61,9 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what the port does not run: expert parallelism over a
-    mesh, unknown implementation switches, and ``use_flash`` where the
-    kernels cannot serve."""
-    if cfg.is_moe and cfg.moe_impl == "ep_a2a":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl='ep_a2a' (expert parallelism over a "
-            f"mesh) is not ported: ROADMAP Queue 1, item 5, multi-device; "
-            f"use moe_impl='gmm' or 'dense'")
-    if cfg.is_moe and cfg.moe_impl not in ("gmm", "dense"):
+    """Raise for what the port does not run: unknown implementation
+    switches, and ``use_flash`` where the kernels cannot serve."""
+    if cfg.is_moe and cfg.moe_impl not in ("gmm", "dense", "ep_a2a"):
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
     if cfg.attn_impl not in ("einsum", "chunked"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")

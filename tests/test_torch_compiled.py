@@ -609,8 +609,24 @@ def test_compiled_rejects_what_it_does_not_lower(blob):
     with pytest.raises(ValueError, match="neither"):    # no control plane
         TC.make_session_fn(plan, shapes, control_arg=True)
     TC.make_session_fn(plan, shapes, live=True)   # the live taps lower
-    with pytest.raises(NotImplementedError, match="item 5, multi-device"):
-        TC.fleet_run(plan, [0, 1], _t(Xtr), c, shard_axis="data")
+    # a sharded fleet in a gloo world of one: the unsharded fleet's bits;
+    # live taps do not shard (the reference raises too)
+    import torch.distributed as dist
+    short = replace(plan, max_rounds=2)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        whole = TC.fleet_run(short, [0, 1], _t(Xtr), c)
+        sharded = TC.fleet_run(short, [0, 1], _t(Xtr), c, shard_axis="data")
+        with pytest.raises(ValueError, match="live emission"):
+            TC.fleet_run(short, [0, 1], _t(Xtr), c, shard_axis="data",
+                         live=True)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(jax.tree.leaves(whole), jax.tree.leaves(sharded)):
+        assert torch.equal(a, b)
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        TC.fleet_run(short, [0, 1], _t(Xtr), c, shard_axis="data")
     with pytest.raises(ValueError, match="async_session"):
         TC.compiled_session(replace(plan, scheduler=TC.AsyncStalePlan()), 0,
                             _t(Xtr), c)

@@ -94,16 +94,24 @@ def test_gmm_equals_dense_and_repeats_its_bits(arch):
 
 
 def test_expert_parallelism_raises():
-    """moe_impl='ep_a2a' needs a mesh (ROADMAP Queue 1, item 5): the block,
-    the model and the train step raise; an unknown impl is refused."""
+    """moe_impl='ep_a2a' without a mesh is the grouped path, bit for bit,
+    as the reference falls back (its mesh path: test_torch_ep_a2a.py);
+    the model and the train step take it; an unknown impl still raises."""
     _, tcfg, _, tparams, x = _layer(MOE[0])
-    with pytest.raises(NotImplementedError, match="item 5, multi-device"):
-        tmoe.moe_apply(tparams, torch.from_numpy(x)[None], tcfg, "ep_a2a")
+    xt = torch.from_numpy(x)[None]
+    ep_y, ep_aux = tmoe.moe_apply(tparams, xt, tcfg, "ep_a2a")
+    gmm_y, gmm_aux = tmoe.moe_apply(tparams, xt, tcfg, "gmm")
+    assert torch.equal(ep_y, gmm_y) and torch.equal(ep_aux, gmm_aux)
     ep = tcfg.with_overrides(moe_impl="ep_a2a")
-    with pytest.raises(NotImplementedError, match="item 5, multi-device"):
-        tapi.init_params(ep)
-    with pytest.raises(NotImplementedError, match="item 5, multi-device"):
-        tapi.make_train_step(ep, topt.adamw(1e-3))
+    params = tapi.init_params(ep, torch.Generator().manual_seed(0))
+    step = tapi.make_train_step(ep, topt.sgd(0.1))
+    tokens = torch.randint(0, ep.vocab_size, (2, 8),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    _, _, m = step(params, topt.sgd(0.1).init(params), {"tokens": tokens}, 0)
+    gmm = tcfg.with_overrides(moe_impl="gmm")
+    want = tapi.loss_and_grads(params, {"tokens": tokens}, gmm)
+    assert float(m["loss"]) == float(want[0].detach()) and float(want[2]) > 0
     with pytest.raises(ValueError, match="unknown moe_impl"):
         tapi.init_params(tcfg.with_overrides(moe_impl="grouped"))
 

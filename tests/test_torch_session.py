@@ -409,8 +409,9 @@ def test_entry_points_raise_without_card(blob):
 
 
 def test_later_slice_arguments_raise(blob):
-    """What later slices of the port bring raises NotImplementedError: the
-    mesh ring.  Telemetry (tests/test_torch_telemetry.py), the wire
+    """Every later slice of the port is in: the mesh ring (its hops run
+    as without a mesh; ``ring_step`` needs one, and runs over a world in
+    tests/test_torch_collectives.py).  Telemetry (tests/test_torch_telemetry.py), the wire
     channel (tests/test_torch_comm_session.py), the control plane with the
     async variant (tests/test_torch_control.py), the compiled backend's
     sequential and async-stale lowerings (tests/test_torch_compiled.py,
@@ -450,5 +451,16 @@ def test_later_slice_arguments_raise(blob):
                                          "1", "--accountant",
                                          "subsampled-rdp"]))
     assert T.variant_setup("async")[0].stale
-    with pytest.raises(NotImplementedError):
-        T.MeshRingTransport(mesh=object())
+    from repro_torch.sharding.context import AbstractMesh
+    mesh = AbstractMesh((2, 1), ("agent", "data"))
+    runs = [_torch_session(Xtr, ctr, k, transport=T.MeshRingTransport(
+        mesh=m)) for m in (mesh, None)]
+    for s in runs:
+        s.run()
+    assert [(c.agent, c.round, c.alpha) for c in runs[0].state.components] \
+        == [(c.agent, c.round, c.alpha) for c in runs[1].state.components]
+    assert torch.equal(runs[0].state.w, runs[1].state.w)
+    assert runs[0].state.round == runs[1].state.round
+    with pytest.raises(ValueError, match="needs a mesh"):
+        T.MeshRingTransport().ring_step(torch.ones(2, 4), torch.ones(2, 4),
+                                        torch.ones(2))

@@ -380,8 +380,17 @@ def test_trainer_checkpoints_and_refuses_a_mesh(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(
         topt.tree_leaves(restored), topt.tree_leaves(
             {"params": params, "opt": opt_state})))
-    with pytest.raises(NotImplementedError, match="Queue 1, multi-device"):
-        Trainer(cfg, topt.adamw(1e-3), mesh=object())
+    # a mesh with a model axis above 1 (tensor parallelism) raises, naming
+    # the ROADMAP item; a data-parallel mesh is taken (its runs:
+    # tests/test_torch_trainer_dp.py), in_shardings only with a mesh
+    from repro_torch.sharding.context import AbstractMesh
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5, TP"):
+        Trainer(cfg, topt.adamw(1e-3),
+                mesh=AbstractMesh((2, 2), ("data", "model")))
+    Trainer(cfg, topt.adamw(1e-3), mesh=AbstractMesh((4, 1),
+                                                     ("data", "model")))
+    with pytest.raises(ValueError, match="in_shardings needs a mesh"):
+        Trainer(cfg, topt.adamw(1e-3), in_shardings={})
     with pytest.raises(ValueError, match="ckpt_dir"):
         Trainer(cfg, topt.adamw(1e-3), TrainerConfig(ckpt_every=2))
 

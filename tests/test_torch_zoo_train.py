@@ -96,14 +96,21 @@ def test_neural_core_fit_over_mla_backbone():
 
 
 def test_what_stays_unported_raises():
-    """Expert parallelism (moe_impl='ep_a2a') and a mesh (ROADMAP Queue 1,
-    item 5); use_flash with MLA (the kernels take one head dim for q, k
-    and v); the encoder-decoder as a classifier or neural backbone."""
+    """Tensor parallelism in a Trainer mesh (ROADMAP Queue 1, item 5);
+    use_flash with MLA (the kernels take one head dim for q, k and v); the
+    encoder-decoder as a classifier or neural backbone.  Expert
+    parallelism (moe_impl='ep_a2a') is in: its init is the grouped
+    config's, and without a mesh it runs the grouped path."""
+    from repro_torch.sharding.context import AbstractMesh
     _, moe = cfgs("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="item 5, multi-device"):
-        tapi.init_params(moe.with_overrides(moe_impl="ep_a2a"))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        Trainer(moe, topt.adamw(1e-3), mesh=object())
+    ep = tapi.init_params(moe.with_overrides(moe_impl="ep_a2a"),
+                          torch.Generator().manual_seed(0))
+    gmm = tapi.init_params(moe, torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(topt.tree_leaves(ep),
+                                                 topt.tree_leaves(gmm)))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        Trainer(moe, topt.adamw(1e-3),
+                mesh=AbstractMesh((1, 2), ("data", "model")))
     _, mla = cfgs("minicpm3-4b", use_flash=True)
     for call in (lambda: tapi.init_params(mla),
                  lambda: tapi.forward({}, {"tokens": torch.zeros(
