@@ -342,6 +342,37 @@
    ``torch.use_deterministic_algorithms`` (the mesh-less run twice, to
    show it repeats its bits).  Prints ``dist_table`` (the NCCL version,
    each check's error, launches and seconds).
+21. Tensor parallelism's kernel modes and plumbing (one card: NCCL places
+   no two ranks on one device, so the TP program across ranks runs only
+   on the CPU's gloo worlds, tests/test_torch_tp.py).  (a) The vocab-shard
+   weighted CE at qwen3-0.6b's full width: 2048 x 151936 bf16 logits cut
+   into 16 column views of 9496 (row stride V, no copy), each shard's
+   (lse, gold) by ``ops.weighted_ce_shard_fwd`` combined by
+   ``tp.combine_ce`` and its dlogits by ``ops.weighted_ce_shard_bwd``: the
+   loss and lse within rtol 1e-5 of the whole-vocab kernel and of the
+   plain version, the dlogits as phase 10 holds them (elementwise 2^-7,
+   row sums 0); one launch of each shard kernel a shard.  (b) The
+   length-shard ``flash_decode`` at decode_32k's per-data-shard geometry
+   (B 8, H 16, KV 8, D 128, S 32768 bf16, the model's [B, S, KV, D] cache
+   views) cut into 16 chunks of 2048 at pos 32767, 20000 (chunks past it)
+   and 4096 (a chunk's first row): each chunk's lse within 1e-3 of the
+   plain shard mode's (-inf exactly past pos) and its o within 2^-6 of
+   its max|o|; ``tp.merge_partials`` of the chunks' (o, lse) within 2^-6
+   max|ref| of the whole-cache kernel and of the plain version; one
+   launch a chunk that holds a valid position.  (c) Plumbing
+   only: the steps under a (1, 1) mesh over a one-rank NCCL group =
+   the mesh-less steps bit for bit, qwen3-0.6b full width bf16 with
+   use_flash: prefill and 4 decode steps at batch 4 (the heads layout)
+   and at batch 1 (the cache split along its positions over (data,
+   model): ``flash_decode_shard`` and a one-rank merge), and one AdamW
+   ``Trainer(mesh=)`` step under deterministic algorithms.  (d)
+   ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape
+   train_4k`` and ``decode_32k`` on the card's host (a fake world of 256
+   ranks), started before (a) and run beside (a)-(c): their seconds and
+   roofline terms.  Prints ``tp_table`` (device
+   ms: the 16 shards' launches, and the whole kernel's, each a CUDA graph
+   replayed between CUDA events, and a shard's share of the 16; the
+   bound a shard; errors; seconds).
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -437,6 +468,31 @@ def _cuda_time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the call captured into a CUDA
+    graph (its launches back to back, no host time between them), the
+    graph replayed ``reps`` times between two CUDA events.  For a call of
+    many short launches, where torch.profiler's window may drop some."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _counters() -> dict:
     """Each kernel of the main path by its JSON name: the wrapper that
     counts its launches."""
@@ -458,7 +514,10 @@ def _counters() -> dict:
             "flash_attention": fa.flash_attention,
             "flash_decode": fd.flash_decode,
             "weighted_ce_fwd": wce.weighted_ce_fwd,
-            "weighted_ce_bwd": wce.weighted_ce_bwd}
+            "weighted_ce_bwd": wce.weighted_ce_bwd,
+            "weighted_ce_shard_fwd": wce.weighted_ce_shard_fwd,
+            "weighted_ce_shard_bwd": wce.weighted_ce_shard_bwd,
+            "flash_decode_shard": fd.flash_decode_shard}
 
 
 # The quantize kernels with the range as a device operand (the
@@ -5903,6 +5962,371 @@ class Smoke:
                 f"mesh-less, losses {lm[0]:.6f} -> {lm[1]:.6f} and "
                 f"{len(topt.tree_leaves(pm))} leaves bit for bit")
 
+    # --------------------------------------------------- tensor parallel
+    def tensor_parallel(self) -> str:
+        """21. The kernels' shard modes at full width, the TP plumbing at
+        world 1, the dry run on the card's host."""
+        table = {"card": self.card}
+        procs, t0 = self._tp_dryrun_start()    # on the host, beside (a)-(c)
+        try:
+            out = [self._tp_vocab_ce(table), self._tp_length_decode(table),
+                   self._tp_world1(table), self._tp_dryrun(table, procs, t0)]
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        print("tp_table " + json.dumps(table), flush=True)
+        return "; ".join(out)
+
+    def _tp_vocab_ce(self, table: dict) -> str:
+        """(a) The vocab-shard CE, 16 shards of qwen3-0.6b's vocab."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import weighted_ce as wce
+        from repro_torch.sharding import tp
+        t, v, parts = 2048, 151936, 16
+        v_loc = v // parts
+        gen = torch.Generator(device=self.dev).manual_seed(21)
+        x = (torch.randn(t, v, generator=gen, device=self.dev) * 2
+             ).to(torch.bfloat16)
+        lab = torch.randint(0, v, (t,), generator=gen, device=self.dev,
+                            dtype=torch.int32)
+        lab[:parts] = torch.arange(parts, device=self.dev) * v_loc
+        w = torch.rand(t, generator=gen, device=self.dev) + 0.5
+        g = torch.rand(t, generator=gen, device=self.dev) + 0.5
+        cols = [x[:, r * v_loc:(r + 1) * v_loc] for r in range(parts)]
+
+        def fwd():
+            got = [ops.weighted_ce_shard_fwd(c, lab, r * v_loc)
+                   for r, c in enumerate(cols)]
+            return tp.combine_ce(torch.stack([a for a, _ in got]),
+                                 torch.stack([b for _, b in got]))
+
+        def bwd(lse):
+            return [ops.weighted_ce_shard_bwd(c, lab, w, lse, g, r * v_loc)
+                    for r, c in enumerate(cols)]
+        self.reset_counts()
+        lse, gold = fwd()
+        loss = w * (lse - gold)
+        d = torch.cat(bwd(lse), dim=1)
+        torch.cuda.synchronize()
+        self.read_counts(0, "21(a) vocab-shard CE",
+                         weighted_ce_shard_fwd=parts,
+                         weighted_ce_shard_bwd=parts)
+        whole_loss, whole_lse = wce.weighted_ce_fwd(x, lab, w)
+        whole_d = wce.weighted_ce_bwd(x, lab, w, whole_lse, g)
+        plain_loss, plain_lse = wce.weighted_ce_fwd_plain(x, lab, w)
+        plain_d = wce.weighted_ce_bwd_plain(x, lab, w, plain_lse, g)
+        for what, (wl, wlse, wd) in (("whole kernel",
+                                      (whole_loss, whole_lse, whole_d)),
+                                     ("plain", (plain_loss, plain_lse,
+                                                plain_d))):
+            self.require(_max_rel(loss, wl) <= 1e-5
+                         and _max_rel(lse, wlse) <= 1e-5,
+                         f"21(a) shards vs {what}: loss {_max_rel(loss, wl)}"
+                         f", lse {_max_rel(lse, wlse)} (rtol 1e-5)")
+            elem, row = _dlogits_ratios(d, wd, w, g)
+            self.require(elem <= 1 and row <= 1, f"21(a) dlogits vs {what}:"
+                         f" {elem}, {row} of their tolerances")
+        again = torch.cat(bwd(fwd()[0]), dim=1)
+        self.require(torch.equal(again, d), "21(a): two runs differ")
+        esize = x.element_size()
+        b_fwd, by_fwd = _bound_ms(t * v_loc * esize + 12 * t, 4 * t * v_loc)
+        b_bwd, by_bwd = _bound_ms(2 * t * v_loc * esize + 16 * t,
+                                  4 * t * v_loc)
+        fwd_sum = _graph_ms(lambda: [ops.weighted_ce_shard_fwd(
+            c, lab, r * v_loc) for r, c in enumerate(cols)])
+        bwd_sum = _graph_ms(lambda: bwd(lse))
+        row = {"T": t, "V": v, "shards": parts, "V_loc": v_loc,
+               "fwd_ms": _cuda_time_ms(lambda: ops.weighted_ce_shard_fwd(
+                   cols[1], lab, v_loc), reps=50),
+               "bwd_ms": _cuda_time_ms(lambda: ops.weighted_ce_shard_bwd(
+                   cols[1], lab, w, lse, g, v_loc), reps=50),
+               "fwd_device_ms_shard": fwd_sum / parts,
+               "bwd_device_ms_shard": bwd_sum / parts,
+               "fwd_device_ms_16": fwd_sum, "bwd_device_ms_16": bwd_sum,
+               "whole_fwd_device_ms": _graph_ms(
+                   lambda: wce.weighted_ce_fwd(x, lab, w)),
+               "whole_bwd_device_ms": _graph_ms(
+                   lambda: wce.weighted_ce_bwd(x, lab, w, whole_lse, g)),
+               "plain_fwd_ms": _cuda_time_ms(
+                   lambda: wce.weighted_ce_shard_fwd_plain(cols[1], lab,
+                                                           v_loc),
+                   reps=10, warmup=2),
+               "plain_bwd_ms": _cuda_time_ms(
+                   lambda: wce.weighted_ce_bwd_plain(cols[1], lab, w, lse,
+                                                     g, v_loc),
+                   reps=10, warmup=2),
+               "fwd_bound_ms_shard": b_fwd, "bwd_bound_ms_shard": b_bwd,
+               "loss_err": float((loss - plain_loss).abs().max()),
+               "dlogits_err": float((d.float() - plain_d.float()
+                                     ).abs().max())}
+        table["a"] = row
+        self.kernels["weighted_ce_shard_fwd"] = {
+            "source": "src/repro_torch/csrc/weighted_ce.cu",
+            "replaces": "src/repro/kernels/weighted_ce.py:68",
+            "max_abs_err": row["loss_err"], "ms": row["fwd_ms"],
+            "device_ms": row["fwd_device_ms_shard"],
+            "plain_ms": row["plain_fwd_ms"], "bound_ms": b_fwd,
+            "bound_by": by_fwd, "library_ms": None}
+        self.kernels["weighted_ce_shard_bwd"] = {
+            "source": "src/repro_torch/csrc/weighted_ce.cu",
+            "replaces": "src/repro/kernels/weighted_ce.py:113",
+            "max_abs_err": row["dlogits_err"], "ms": row["bwd_ms"],
+            "device_ms": row["bwd_device_ms_shard"],
+            "plain_ms": row["plain_bwd_ms"], "bound_ms": b_bwd,
+            "bound_by": by_bwd, "library_ms": None}
+        return (f"(a) vocab-shard CE {t} x {v} bf16 in {parts} shards of "
+                f"{v_loc}: loss, lse and dlogits = the whole kernel and the "
+                f"plain version; device ms a shard fwd "
+                f"{row['fwd_device_ms_shard']:.4f} (bound {b_fwd:.4f}), bwd "
+                f"{row['bwd_device_ms_shard']:.4f} (bound {b_bwd:.4f}); 16 "
+                f"shards {fwd_sum:.4f} + {bwd_sum:.4f} against the whole "
+                f"{row['whole_fwd_device_ms']:.4f} + "
+                f"{row['whole_bwd_device_ms']:.4f}")
+
+    def _tp_length_decode(self, table: dict) -> str:
+        """(b) The length-shard decode, 16 chunks of decode_32k's cache."""
+        torch = self.torch
+        from repro_torch.kernels import flash_decode as fd
+        from repro_torch.kernels import ops
+        from repro_torch.sharding import tp
+        b, h, kv, s, d, parts = 8, 16, 8, 32768, 128, 16
+        n = s // parts
+        gen = torch.Generator(device=self.dev).manual_seed(22)
+        q = torch.randn(b, h, d, generator=gen, device=self.dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn(b, s, kv, d, generator=gen, device=self.dev
+                            ).to(torch.bfloat16).transpose(1, 2)
+                for _ in range(2))
+        rows, launches = [], 0
+        for pos in (s - 1, 20000, 2 * n):
+            def chunks(pos=pos):
+                return [ops.flash_decode_shard(
+                    q, k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n],
+                    pos, r * n) for r in range(parts)]
+
+            def merged(parts_ol):
+                return tp.merge_partials(
+                    torch.stack([o for o, _ in parts_ol]),
+                    torch.stack([m for _, m in parts_ol])).to(q.dtype)
+            held = sum(fd.valid_range(pos, n, None, r * n)[1]
+                       >= fd.valid_range(pos, n, None, r * n)[0]
+                       for r in range(parts))
+            self.reset_counts()
+            per_chunk = chunks()
+            torch.cuda.synchronize()
+            self.read_counts(0, f"21(b) length-shard decode pos {pos}",
+                             flash_decode_shard=held)
+            launches += held
+            got = merged(per_chunk)
+            # each chunk's (o, lse) against the plain shard mode: the lse
+            # within 1e-3 (a log2-unit or offset lse moves it by ~1), -inf
+            # exactly where the chunk lies past pos; o within 2^-6 of the
+            # chunk's max|o|
+            lse_err, o_err = 0.0, 0.0
+            for r, (o_r, m_r) in enumerate(per_chunk):
+                po, pm = fd.flash_decode_plain(
+                    q, k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n],
+                    pos, s0=r * n, return_lse=True)
+                fin = torch.isfinite(pm)
+                self.require(torch.equal(torch.isfinite(m_r), fin),
+                             f"21(b) pos {pos} chunk {r}: lse finite "
+                             f"where the plain one is not")
+                if bool(fin.any()):
+                    lse_err = max(lse_err, float(
+                        (m_r[fin] - pm[fin]).abs().max()))
+                e = float((o_r - po).abs().max())
+                self.require(e <= 2 ** -6 * float(po.abs().max()),
+                             f"21(b) pos {pos} chunk {r}: o err {e}")
+                o_err = max(o_err, e)
+            self.require(lse_err <= 1e-3,
+                         f"21(b) pos {pos}: lse err {lse_err} > 1e-3")
+            whole = fd.flash_decode(q, k, v, pos)
+            plain = fd.flash_decode_plain(q, k, v, pos)
+            # the limit scales with the output (its entries are ~1/sqrt
+            # of the valid positions, far under max|v|): zeros or a
+            # mis-weighted chunk fail it
+            ref_max = float(plain.float().abs().max())
+            errs = {w: float((got.float() - ref.float()).abs().max())
+                    for w, ref in (("whole", whole), ("plain", plain))}
+            self.require(max(errs.values()) <= 2 ** -6 * ref_max,
+                         f"21(b) pos {pos}: {errs} > 2^-6 * {ref_max}")
+            self.require(torch.equal(merged(chunks()), got),
+                         f"21(b) pos {pos}: two runs differ")
+            rows.append({"pos": pos, "chunks_launched": held, **errs,
+                         "max_abs_ref": ref_max, "chunk_lse_err": lse_err,
+                         "chunk_o_err": o_err})
+        pos = s - 1
+        shard_sum = _graph_ms(
+            lambda: [ops.flash_decode_shard(
+                q, k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n],
+                pos, r * n) for r in range(parts)])
+        b_shard, by = _bound_ms(2 * b * kv * n * d * 2 + b * h * d * 2
+                                + b * h * (d + 1) * 4, 4 * b * h * n * d,
+                                BF16_OPS_PER_S)
+        row = {"B": b, "H": h, "KV": kv, "S": s, "D": d, "chunks": parts,
+               "checks": rows, "ms": _cuda_time_ms(
+                   lambda: ops.flash_decode_shard(
+                       q, k[:, :, :n], v[:, :, :n], pos, 0), reps=50),
+               "device_ms_chunk": shard_sum / parts,
+               "device_ms_16": shard_sum,
+               "whole_device_ms": _graph_ms(
+                   lambda: fd.flash_decode(q, k, v, pos)),
+               "plain_ms": _cuda_time_ms(lambda: fd.flash_decode_plain(
+                   q, k[:, :, :n], v[:, :, :n], pos, s0=0, return_lse=True),
+                   reps=10, warmup=2),
+               "bound_ms_chunk": b_shard, "bound_by": by}
+        table["b"] = row
+        self.kernels["flash_decode_shard"] = {
+            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:96",
+            "max_abs_err": max(r["plain"] for r in rows), "ms": row["ms"],
+            "device_ms": row["device_ms_chunk"], "plain_ms": row["plain_ms"],
+            "bound_ms": b_shard, "bound_by": by, "library_ms": None}
+        return (f"(b) length-shard decode B {b} H {h} KV {kv} S {s} D {d} "
+                f"in {parts} chunks at pos {[r['pos'] for r in rows]}: = "
+                f"the whole kernel and the plain version (max err "
+                f"{max(max(r['whole'], r['plain']) for r in rows):.3g} "
+                f"against 2^-6 max|ref|, at least "
+                f"{min(r['max_abs_ref'] for r in rows) / 64:.3g}; chunk lse "
+                f"within {max(r['chunk_lse_err'] for r in rows):.3g} of the "
+                f"plain version's), {launches} chunk launches; device ms "
+                f"a chunk {row['device_ms_chunk']:.4f} (bound "
+                f"{b_shard:.4f}), 16 chunks {shard_sum:.4f} against the "
+                f"whole {row['whole_device_ms']:.4f}")
+
+    def _tp_world1(self, table: dict) -> str:
+        """(c) Plumbing only: the steps under a (1, 1) mesh over a
+        one-rank NCCL group = the mesh-less steps, bit for bit."""
+        torch = self.torch
+        import torch.distributed as dist
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.models import api
+        from repro_torch.optim import optimizers as topt
+        from repro_torch.sharding import tp
+        from repro_torch.sharding.context import make_mesh, mesh_context
+        from repro_torch.train.trainer import Trainer, TrainerConfig
+        t0 = time.perf_counter()
+        self.require(not dist.is_initialized(),
+                     "a process group is already initialised")
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+        cfg = ARCHS["qwen3-0.6b"].with_overrides(use_flash=True)
+        layers = cfg.num_layers
+        params = api.init_params(cfg, torch.Generator(
+            device=self.dev).manual_seed(0))
+        gen = torch.Generator(device=self.dev).manual_seed(3)
+        prompt, steps = 256, 4
+        out, checked = {}, []
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            for batch in (4, 1):
+                tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                       generator=gen, device=self.dev)
+                follow = torch.randint(0, cfg.vocab_size, (batch, steps),
+                                       generator=gen, device=self.dev)
+                runs = []
+                for m in (mesh, None):
+                    self.reset_counts()
+                    with torch.no_grad(), mesh_context(m):
+                        logits, caches = api.make_prefill_step(cfg)(
+                            params, {"tokens": tokens})
+                        caches = api.pad_prefill_cache(
+                            caches, cfg, prompt + steps, batch=batch)
+                        split = tp.split_of(caches["sub0"][0]) is not None
+                        seq = [logits]
+                        for i in range(steps):
+                            _, lg, caches = api.make_serve_step(cfg)(
+                                params, caches, follow[:, i:i + 1],
+                                prompt + i)
+                            seq.append(lg)
+                    torch.cuda.synchronize()
+                    dec = layers * steps
+                    self.read_counts(
+                        0, f"21(c) batch {batch} mesh={m is not None}",
+                        flash_attention=layers,
+                        flash_decode=0 if split else dec,
+                        flash_decode_shard=dec if split else 0)
+                    runs.append((seq, split))
+                (tp_seq, split), (seq, _) = runs
+                self.require(split == (batch == 1), f"21(c) batch {batch}: "
+                             f"length split {split}")
+                self.require(all(torch.equal(a, b) for a, b in
+                                 zip(tp_seq, seq)), f"21(c) batch {batch}:"
+                             f" the (1, 1) mesh's logits part from the "
+                             f"mesh-less ones")
+                checked.append(f"batch {batch} prefill + {steps} steps "
+                               f"({'split along positions' if split else 'heads'})")
+            train_cfg = cfg.with_overrides(use_flash=False)
+            batches = [self._train_batch(train_cfg, 1)]
+            was = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            trained = []
+            try:
+                for m in (mesh, None):
+                    opt = topt.adamw(1e-3)
+                    start = topt.tree_map(torch.clone, params)
+                    self.reset_counts()
+                    p, _, hist = Trainer(train_cfg, opt, TrainerConfig(
+                        steps=1), mesh=m).run(None, iter(batches),
+                                              params=start,
+                                              opt_state=opt.init(start))
+                    torch.cuda.synchronize()
+                    self.read_counts(0, f"21(c) train mesh={m is not None}",
+                                     weighted_ce_fwd=1, weighted_ce_bwd=1)
+                    trained.append((p, hist[0]["loss"]))
+            finally:
+                torch.use_deterministic_algorithms(was)
+            (pm, lm), (p0, l0) = trained
+            self.require(lm == l0 and all(torch.equal(a, b) for a, b in zip(
+                topt.tree_leaves(pm), topt.tree_leaves(p0))),
+                f"21(c) the (1, 1) mesh's train step parts: {lm} {l0}")
+            checked.append(f"one AdamW step, loss {lm:.6f}")
+        finally:
+            dist.destroy_process_group()
+        table["c"] = {"checked": checked, "s": time.perf_counter() - t0}
+        return ("(c) plumbing only, qwen3-0.6b full width bf16 under a "
+                "(1, 1) mesh over NCCL = mesh-less bit for bit: "
+                + ", ".join(checked))
+
+    @staticmethod
+    def _tp_dryrun_start() -> tuple[dict, float]:
+        """(d)'s two dry runs started side by side (the host's CPU only):
+        the processes by shape, and their start time."""
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        return {shape: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3-0.6b", "--shape", shape, "--out",
+             os.path.join(SMOKE_DIR, "dryrun")], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for shape in ("train_4k", "decode_32k")}, time.perf_counter()
+
+    def _tp_dryrun(self, table: dict, procs: dict, t0: float) -> str:
+        """(d) The dry run on the card's host: a fake world of 256."""
+        rows = {}
+        out_dir = os.path.join(SMOKE_DIR, "dryrun")
+        for shape, proc in procs.items():
+            text, _ = proc.communicate(timeout=300)
+            self.require(proc.returncode == 0,
+                         f"21(d) dryrun {shape}: {text[-3000:]}")
+            with open(os.path.join(out_dir,
+                                   f"qwen3-0.6b_{shape}_16x16.json")) as f:
+                art = json.load(f)
+            rows[shape] = {"s": time.perf_counter() - t0,
+                           "run_s": art["lower_s"], **art["roofline"],
+                           "collectives": art["collectives"],
+                           "memory": art["memory"]}
+        table["d"] = rows
+        return ("(d) dryrun qwen3-0.6b on 16x16, both shapes side by "
+                "side and beside (a)-(c) (seconds since their start): "
+                ) + "; ".join(
+            f"{k} {r['s']:.1f} s, compute {r['compute_s']:.3e} s, memory "
+            f"{r['memory_s']:.3e} s, collective {r['collective_s']:.3e} s "
+            f"-> {r['bottleneck']}" for k, r in rows.items())
 
 def _zoo_cfg(arch: str, layers):
     """An arch's full config, ``layers`` deep (None: its own depth;
@@ -6007,7 +6431,7 @@ def main(argv: list[str]) -> int:
               11: s.train, 12: s.learners, 13: s.control,
               14: s.compiled, 15: s.serve_path, 16: s.scenarios,
               17: s.telemetry, 18: s.compiled_rest, 19: s.zoo,
-              20: s.distributed}
+              20: s.distributed, 21: s.tensor_parallel}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])

@@ -91,11 +91,6 @@ Params = Any
 VARIANTS = ("ascii", "simple", "random", "async")
 
 
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (see ROADMAP.md)")
-
-
 def key_data(key) -> np.ndarray:
     """Opaque uint32 key data: an int seed becomes the data of the
     reference's ``jax.random.key(seed)``, i.e. ``[0, seed]``; an array of
@@ -803,6 +798,9 @@ class ASCIIVariant(ProtocolVariant):
 # ================================================================ session state
 #: The channel bookkeeping the port restores (``SessionState.comm``): DP
 #: releases, budget spend, the controller's EMA and the scheduler's state.
+#: A checkpoint's other ``comm`` keys are dropped on load, as the
+#: reference's ``_comm_restore`` reads these with ``snap.get`` and ignores
+#: the rest.
 COMM_KEYS = ("releases", "ledger_bits", "link_spent", "exhausted",
              "ctrl_state", "scheduler")
 
@@ -859,9 +857,8 @@ class SessionState:
     @classmethod
     def from_tree(cls, tree: dict, meta: dict) -> "SessionState":
         comm = meta.get("comm")
-        later = sorted(set(comm or ()) - set(COMM_KEYS))
-        if later:
-            raise _later_slice(f"a checkpoint with {later} channel state")
+        if comm is not None:
+            comm = {k: v for k, v in comm.items() if k in COMM_KEYS} or None
         components = [
             Component(int(c["agent"]), int(c["round"]), float(c["alpha"]), p)
             for c, p in zip(meta["components"], tree["params"])]

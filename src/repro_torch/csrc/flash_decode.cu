@@ -46,6 +46,15 @@
 // A second launch, `flash_decode_merge`, merges each row's n_split
 // partials in a fixed order and writes out in q's dtype.
 //
+// Shard mode (the length-split cache of tensor parallelism,
+// src/repro_torch/sharding/tp.py): the cache is one rank's positions
+// [s0, s0 + S) and the wrapper gives the valid range [lo, hi] in the
+// shard's own indices.  The merge then writes the output in float32 and
+// each head's log-sum-exp of the scores over the shard's valid positions
+// (natural log, (M + log2(den)) * ln 2), so the ranks' partials merge in
+// float32; a shard with no valid position is not launched (the wrapper
+// returns o = 0, lse = -inf).
+//
 // Every sum runs in a fixed order and no atomics are used: two runs give
 // the same bits.  Any S, any strides with a unit stride on D
 // (the model passes its [B, S, KV, D] cache and [B, S, KV] scales as
@@ -79,6 +88,7 @@ struct DecodeArgs {
   void* o;
   float* part_acc;  // [B * H, n_split, D]
   float* part_ml;   // [B * H, n_split, 2]: m, l
+  float* lse;       // shard mode: [B, H] log-sum-exp (o float32); else null
   int B, H, KV, S, D, lo, hi, chunk, n_split;
   float scale_log2;  // log2(e) / sqrt(D)
   int64_t sq[2], sk[3], sv[3], sks[3], svs[3], so[2];
@@ -344,7 +354,11 @@ __global__ void __launch_bounds__(kThreads) flash_decode_merge(DecodeArgs a) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       den += __shfl_xor_sync(0xffffffffu, den, off);
-    if (lane == 0) s_inv_den[g] = 1.0f / fmaxf(den, 1e-30f);
+    if (lane == 0) {
+      s_inv_den[g] = 1.0f / fmaxf(den, 1e-30f);
+      if (a.lse != nullptr)
+        a.lse[b * a.H + h0 + g] = (big + log2f(den)) * 0.6931471805599453f;
+    }
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < GT * a.D; idx += kThreads) {
@@ -354,8 +368,11 @@ __global__ void __launch_bounds__(kThreads) flash_decode_merge(DecodeArgs a) {
 #pragma unroll 8
     for (int s = 0; s < a.n_split; ++s)
       num = fmaf(acc[s * a.D], s_w[g][s], num);
-    T* o = static_cast<T*>(a.o) + b * a.so[0] + (h0 + g) * a.so[1];
-    o[d] = from_f<T>(num * s_inv_den[g]);
+    const int64_t at = b * a.so[0] + (h0 + g) * a.so[1] + d;
+    if (a.lse != nullptr)
+      static_cast<float*>(a.o)[at] = num * s_inv_den[g];
+    else
+      static_cast<T*>(a.o)[at] = from_f<T>(num * s_inv_den[g]);
   }
 }
 
@@ -406,11 +423,13 @@ extern "C" {
 // strides: 16 element strides: q (b, h), k (b, kv, s), v (b, kv, s),
 // ks (b, kv, s), vs (b, kv, s), out (b, h); the last axis (D) is contiguous
 // in q, k, v and out.
+// lse: null, or shard mode: out is float32 and lse [B, H] float32 receives
+// each head's log-sum-exp over the valid positions.
 int flash_decode(const void* q, const void* k, const void* v, const float* ks,
                  const float* vs, void* o, float* part_acc, float* part_ml,
                  int dtype, int quant, int B, int H, int KV, int S, int D,
                  int lo, int hi, int chunk, int n_split, int gt, float scale,
-                 const int64_t* strides, cudaStream_t stream) {
+                 const int64_t* strides, float* lse, cudaStream_t stream) {
   const int vec_values = dtype == 0 && !quant ? 4 : 8;
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || D <= 0 ||
       D > kMaxD || D % vec_values != 0 || lo < 0 || hi < lo || hi >= S ||
@@ -420,8 +439,9 @@ int flash_decode(const void* q, const void* k, const void* v, const float* ks,
       (dtype != 0 && dtype != 1) ||
       (quant && (ks == nullptr || vs == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  DecodeArgs a{q, k, v, ks, vs, o, part_acc, part_ml, B, H, KV, S, D, lo, hi,
-               chunk, n_split, scale * kLog2e, {}, {}, {}, {}, {}, {}};
+  DecodeArgs a{q, k, v, ks, vs, o, part_acc, part_ml, lse, B, H, KV, S, D,
+               lo, hi, chunk, n_split, scale * kLog2e, {}, {}, {}, {}, {},
+               {}};
   for (int i = 0; i < 2; ++i) {
     a.sq[i] = strides[i];
     a.so[i] = strides[14 + i];

@@ -9,6 +9,13 @@
 //             loss[t] = w[t] * (lse[t] - x[t, label[t]])
 //   backward: dx[t, v] = (w[t] * g[t]) * (exp(x[t, v] - lse[t]) - [v == label[t]])
 //
+// Shard mode (the vocab-parallel loss, src/repro_torch/sharding/tp.py): x is
+// one rank's columns [v0, v0 + V) of the whole vocab, labels are global.
+// `weighted_ce_shard_fwd` writes the shard's lse and gold (0 where the
+// label lies outside the shard) for the ranks' combine; the backward takes
+// the combined lse and v0 and writes softmax - onehot on the shard's
+// columns.  A label outside the shard is never read.
+//
 // x is [T, V] float32 or bfloat16 (upcast in registers), any T and any V,
 // with a row stride and a unit stride on V; labels int32, weights, lse, g
 // and the outputs loss / lse float32; dx is written in x's dtype with its
@@ -103,7 +110,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 wce_fwd_kernel(const T* __restrict__ x, const int32_t* __restrict__ labels,
                const float* __restrict__ weights, float* __restrict__ loss,
-               float* __restrict__ lse, int64_t V, int64_t row_stride) {
+               float* __restrict__ lse, int64_t V, int64_t row_stride,
+               int64_t v0, bool shard) {
   constexpr int N = VecWidth<T>::N;
   const int64_t row = blockIdx.x;
   const T* p = x + row * row_stride;
@@ -150,15 +158,16 @@ wce_fwd_kernel(const T* __restrict__ x, const int32_t* __restrict__ labels,
     MaxSum total = warp_sums[0];
     for (int w = 1; w < kWarps; ++w) total = combine(total, warp_sums[w]);
     const float out_lse = total.m + logf(total.l);
-    const int32_t label = labels[row];
+    const int64_t label = labels[row] - v0;
     const float gold = (label >= 0 && label < V) ? to_f(p[label]) : 0.0f;
     lse[row] = out_lse;
-    loss[row] = weights[row] * (out_lse - gold);
+    // shard mode: `loss` receives the shard's gold logit
+    loss[row] = shard ? gold : weights[row] * (out_lse - gold);
   }
 }
 
 template <typename T>
-__device__ __forceinline__ T grad_of(float x, int64_t col, int32_t label,
+__device__ __forceinline__ T grad_of(float x, int64_t col, int64_t label,
                                      float wg, float row_lse) {
   const float onehot = col == label ? 1.0f : 0.0f;
   return from_f<T>(wg * (expf(x - row_lse) - onehot));
@@ -170,13 +179,13 @@ wce_bwd_kernel(const T* __restrict__ x, const int32_t* __restrict__ labels,
                const float* __restrict__ weights,
                const float* __restrict__ lse, const float* __restrict__ g,
                T* __restrict__ dx, int64_t V, int64_t row_stride,
-               int64_t out_stride) {
+               int64_t out_stride, int64_t v0) {
   constexpr int N = VecWidth<T>::N;
   const int64_t row = blockIdx.x;
   const T* p = x + row * row_stride;
   T* q = dx + row * out_stride;
   const int tid = threadIdx.x;
-  const int32_t label = labels[row];
+  const int64_t label = labels[row] - v0;  // column of the label, if here
   const float wg = weights[row] * g[row];
   const float row_lse = lse[row];
 
@@ -226,6 +235,23 @@ bool bad_shape(int64_t T, int64_t V) {
   return T <= 0 || V <= 0 || T > 2147483647LL;
 }
 
+int fwd(const void* x, int dtype, const int32_t* labels, const float* weights,
+        float* out, float* lse, int64_t T, int64_t V, int64_t row_stride,
+        int64_t v0, bool shard, cudaStream_t stream) {
+  if (bad_shape(T, V) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(T));
+  if (dtype == 0)
+    wce_fwd_kernel<float><<<grid, kThreads, 0, stream>>>(
+        static_cast<const float*>(x), labels, weights, out, lse, V,
+        row_stride, v0, shard);
+  else
+    wce_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), labels, weights, out, lse, V,
+        row_stride, v0, shard);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -235,37 +261,37 @@ extern "C" {
 int weighted_ce_fwd(const void* x, int dtype, const int32_t* labels,
                     const float* weights, float* loss, float* lse, int64_t T,
                     int64_t V, int64_t row_stride, cudaStream_t stream) {
-  if (bad_shape(T, V) || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(T));
-  if (dtype == 0)
-    wce_fwd_kernel<float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), labels, weights, loss, lse, V,
-        row_stride);
-  else
-    wce_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), labels, weights, loss, lse, V,
-        row_stride);
-  return static_cast<int>(cudaGetLastError());
+  return fwd(x, dtype, labels, weights, loss, lse, T, V, row_stride, 0, false,
+             stream);
+}
+
+// Shard mode: lse[T] and gold[T] of the columns [v0, v0 + V) of a vocab.
+int weighted_ce_shard_fwd(const void* x, int dtype, const int32_t* labels,
+                          float* gold, float* lse, int64_t T, int64_t V,
+                          int64_t row_stride, int64_t v0,
+                          cudaStream_t stream) {
+  return fwd(x, dtype, labels, nullptr, gold, lse, T, V, row_stride, v0, true,
+             stream);
 }
 
 // dx[T, V] (x's dtype, row stride out_stride) from x, labels, weights, the
-// forward's lse and the upstream gradient g[T].
+// forward's lse and the upstream gradient g[T]; x holds the columns
+// [v0, v0 + V) of the vocab (v0 = 0: the whole vocab).
 int weighted_ce_bwd(const void* x, int dtype, const int32_t* labels,
                     const float* weights, const float* lse, const float* g,
                     void* dx, int64_t T, int64_t V, int64_t row_stride,
-                    int64_t out_stride, cudaStream_t stream) {
+                    int64_t out_stride, int64_t v0, cudaStream_t stream) {
   if (bad_shape(T, V) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(T));
   if (dtype == 0)
     wce_bwd_kernel<float><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(x), labels, weights, lse, g,
-        static_cast<float*>(dx), V, row_stride, out_stride);
+        static_cast<float*>(dx), V, row_stride, out_stride, v0);
   else
     wce_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(x), labels, weights, lse, g,
-        static_cast<__nv_bfloat16*>(dx), V, row_stride, out_stride);
+        static_cast<__nv_bfloat16*>(dx), V, row_stride, out_stride, v0);
   return static_cast<int>(cudaGetLastError());
 }
 

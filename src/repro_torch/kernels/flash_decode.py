@@ -22,6 +22,14 @@ other axis, the card's SM count and the rows a block loads at once
 (:func:`rows_per_pass`).  The cache's rows are read in vectors
 (:func:`check_cache_layout`).
 
+Shard mode (``return_lse=True``, the length-split cache of tensor
+parallelism): the cache holds the positions [s0, s0 + S) of a longer one;
+the call returns the float32 output over the shard's valid positions and
+each head's log-sum-exp [B, H] of their scores, for the ranks' merge
+(``sharding/tp.py::merge_decode``).  A shard with no valid position (wholly
+past ``pos``, or before the window) launches nothing and returns o = 0,
+lse = -inf.
+
 :func:`flash_decode` launches the kernel for CUDA tensors and uses
 :func:`flash_decode_plain` (the semantics of ``repro/kernels/ref.py``'s
 ``flash_decode``) only for CPU tensors; it never falls back from one to
@@ -44,9 +52,11 @@ from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        pos: int, *, k_scale: torch.Tensor | None = None,
                        v_scale: torch.Tensor | None = None,
-                       window: int | None = None) -> torch.Tensor:
+                       window: int | None = None, s0: int = 0,
+                       return_lse: bool = False):
     """Dense single-row attention in float32 with the kernel's masking:
-    [B, H, D] in q's dtype."""
+    [B, H, D] in q's dtype; with ``return_lse`` the shard mode's float32
+    (o, lse) over the positions [s0, s0 + S)."""
     k, v = k.to(torch.float32), v.to(torch.float32)
     if k_scale is not None:
         k = k * k_scale[..., None]
@@ -55,14 +65,19 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv, s = k.shape[1], k.shape[2]
     qg = q.reshape(b, kv, h // kv, d).to(torch.float32)
     scores = torch.einsum("bkgd,bktd->bkgt", qg, k) / math.sqrt(d)
-    idx = torch.arange(s, device=q.device)
+    idx = s0 + torch.arange(s, device=q.device)
     valid = idx <= pos
     if window is not None:
         valid &= idx > pos - window
+    if return_lse and not bool(valid.any()):
+        return (q.new_zeros((b, h, d), dtype=torch.float32),
+                q.new_full((b, h), -math.inf, dtype=torch.float32))
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgt,bktd->bkgd", probs, v)
-    return out.reshape(b, h, d).to(q.dtype)
+    out = torch.einsum("bkgt,bktd->bkgd", probs, v).reshape(b, h, d)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1).reshape(b, h)
+    return out.to(q.dtype)
 
 
 # --------------------------------------------------------------- the plan
@@ -72,10 +87,13 @@ MAX_SPLIT = 64       # the kernel's merge takes at most this many chunks
 MAX_HEADS_PER_BLOCK = 8
 
 
-def valid_range(pos: int, s: int, window: int | None) -> tuple[int, int]:
-    """The valid positions [lo, hi] of a cache of ``s`` at ``pos``."""
-    lo = 0 if window is None else max(0, pos - window + 1)
-    return lo, min(pos, s - 1)
+def valid_range(pos: int, s: int, window: int | None,
+                s0: int = 0) -> tuple[int, int]:
+    """The valid positions [lo, hi] of a cache of ``s`` at ``pos``, in the
+    indices of a shard holding the positions [s0, s0 + s); hi < lo when it
+    holds none."""
+    lo = 0 if window is None else max(0, pos - window + 1 - s0)
+    return lo, min(pos - s0, s - 1)
 
 
 def heads_per_block(g: int) -> int:
@@ -158,12 +176,13 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_decode.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_decode.argtypes = [p] * 8 + [i32] * 12 + [
-            ctypes.c_float, ctypes.POINTER(ctypes.c_int64), p]
+            ctypes.c_float, ctypes.POINTER(ctypes.c_int64), p, p]
         lib.flash_decode.restype = ctypes.c_int
     return lib
 
 
-def _check(q, k, v, pos, k_scale, v_scale, window) -> None:
+def _check(q, k, v, pos, k_scale, v_scale, window, s0=0,
+           shard=False) -> None:
     if q.dim() != 3 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q must be [B, H, D] and k/v [B, KV, S, D], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -178,8 +197,11 @@ def _check(q, k, v, pos, k_scale, v_scale, window) -> None:
                          f"{kv}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
-    if not 0 <= pos < s:
+    if not shard and not 0 <= pos < s:
         raise ValueError(f"pos must lie in [0, {s}), got {pos}")
+    if shard and (s0 < 0 or pos < 0):
+        raise ValueError(f"a shard takes s0 >= 0 and pos >= 0, got s0 "
+                         f"{s0}, pos {pos}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if q.dtype not in DTYPES:
@@ -208,22 +230,58 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
     positions <= pos (and > pos - window) of the cache k/v [B, KV, S, D]:
     [B, H, D] in q's dtype.  With ``k_scale``/``v_scale`` the cache is int8
     and is dequantized in registers."""
-    pos = int(pos)
-    _check(q, k, v, pos, k_scale, v_scale, window)
+    out, launched = _decode(q, k, v, int(pos), k_scale, v_scale, window, 0,
+                            False)
+    flash_decode.launches += launched
+    return out
+
+
+flash_decode.launches = 0
+
+
+def flash_decode_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       pos, s0, *, k_scale: torch.Tensor | None = None,
+                       v_scale: torch.Tensor | None = None,
+                       window: int | None = None):
+    """The shard mode: the cache k/v [B, KV, S, D] holds the positions
+    [s0, s0 + S) of a longer one; returns (o [B, H, D] float32, lse [B, H]
+    float32) over its valid positions: o = 0, lse = -inf (and no launch)
+    where it holds none."""
+    out, launched = _decode(q, k, v, int(pos), k_scale, v_scale, window,
+                            int(s0), True)
+    flash_decode_shard.launches += launched
+    return out
+
+
+flash_decode_shard.launches = 0
+
+
+def _decode(q, k, v, pos: int, k_scale, v_scale, window, s0: int,
+            return_lse: bool):
+    """The two wrappers' checks and launch: (the result, whether the
+    kernel was launched); ``return_lse``: the result is (o, lse)
+    float32."""
+    _check(q, k, v, pos, k_scale, v_scale, window, s0, return_lse)
     if not on_card(q, "flash_decode"):
         return flash_decode_plain(q, k, v, pos, k_scale=k_scale,
-                                  v_scale=v_scale, window=window)
+                                  v_scale=v_scale, window=window, s0=s0,
+                                  return_lse=return_lse), False
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_head_dim_last(name, x)
     check_cache_layout(("k", k), ("v", v))
     b, h, d = q.shape
     kv, s = k.shape[1], k.shape[2]
     quant = k_scale is not None
-    lo, hi = valid_range(pos, s, window)
+    lo, hi = valid_range(pos, s, window, s0)
+    if return_lse and hi < lo:                 # no valid position here
+        return (q.new_zeros((b, h, d), dtype=torch.float32),
+                q.new_full((b, h), -math.inf, dtype=torch.float32)), False
     gt = heads_per_block(h // kv)
     n_split, chunk = split_plan(lo, hi, b * h // gt, sm_count(q.device.index),
                                 rows_per_pass(k.dtype, d))
-    out = q.new_empty((b, h, d))
+    out = q.new_empty((b, h, d),
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = q.new_empty((b, h), dtype=torch.float32) if return_lse else None
     # the blocks' partials: acc [B * H, n_split, D], then (m, l) pairs
     scratch = q.new_empty(b * h * n_split * (d + 2), dtype=torch.float32)
     part_ml = scratch.data_ptr() + 4 * b * h * n_split * d
@@ -238,12 +296,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
             v_scale.data_ptr() if quant else None, out.data_ptr(),
             scratch.data_ptr(), part_ml, DTYPES[q.dtype], int(quant), b, h,
             kv, s, d, lo, hi, chunk, n_split, gt, 1.0 / math.sqrt(d),
-            strides, raw_stream(q.device))
+            strides, lse.data_ptr() if return_lse else None,
+            raw_stream(q.device))
     if status != 0:
         raise RuntimeError(f"flash_decode launch failed with cudaError_t "
                            f"{status}")
-    flash_decode.launches += 1
-    return out
-
-
-flash_decode.launches = 0
+    return ((out, lse) if return_lse else out), True

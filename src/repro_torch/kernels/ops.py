@@ -24,6 +24,22 @@ row f is bit for bit the call of session f alone; a batched launch counts
 once.  Outside a functorch transform the
 wrappers call the kernels directly, as before: same bits, same counts,
 without the dispatcher's host time on every eager hop.
+
+The model path's kernels (flash attention, flash decode and its shard
+mode, the weighted CE and its shard modes) are custom ops too, with fake
+implementations and ``torch.utils.flop_counter`` formulas from their
+shapes, for tensors on the meta device only: the dry run
+(``launch/dryrun.py``) runs the model there and counts the kernels'
+products and bytes, not their plain versions' intermediates.  On the card
+and the CPU the wrappers call the kernels directly (:func:`_meta`), for
+two reasons.  The custom ops have no autograd rule, while on the CPU
+autograd differentiates through the plain versions (flash attention in a
+training step).  And the dispatcher's host time: through the custom op a
+``flash_decode`` call took 92-123 us of host time against 60-66 us
+direct on an H100 80GB HBM3 at 700 W, two runs of
+``tools/model_op_host_cost.py``; qwen3-0.6b's decode at batch 1 (28 such
+calls a token) took 46.78 against 45.34 ms a token in one and 39.83
+against 40.83 in the other, within the runs' spread.
 """
 from __future__ import annotations
 
@@ -213,6 +229,162 @@ def _(info, in_dims, packed, scales, n, tile):
                                        tile), 0
 
 
+# ------------------------------------------------ the model path's kernels
+def _meta(x: torch.Tensor) -> bool:
+    """Whether a model-path wrapper goes through its custom op: for meta
+    tensors only (the module docstring says why not for the others)."""
+    return x.device.type == "meta"
+
+
+@torch.library.custom_op("repro_torch::weighted_ce_fwd", mutates_args=())
+def _wce_fwd_op(logits: torch.Tensor, labels: torch.Tensor,
+                weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _wce.weighted_ce_fwd(logits, labels, weights)
+
+
+@torch.library.custom_op("repro_torch::weighted_ce_shard_fwd",
+                         mutates_args=())
+def _wce_shard_fwd_op(logits: torch.Tensor, labels: torch.Tensor,
+                      v0: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return _wce.weighted_ce_shard_fwd(logits, labels, v0)
+
+
+@torch.library.custom_op("repro_torch::weighted_ce_bwd", mutates_args=())
+def _wce_bwd_op(logits: torch.Tensor, labels: torch.Tensor,
+                weights: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                v0: int) -> torch.Tensor:
+    return _wce.weighted_ce_shard_bwd(logits, labels, weights, lse, g, v0)
+
+
+def _rows_fake(logits, *args):
+    t = logits.shape[0]
+    return (logits.new_empty(t, dtype=torch.float32),
+            logits.new_empty(t, dtype=torch.float32))
+
+
+_wce_fwd_op.register_fake(_rows_fake)
+_wce_shard_fwd_op.register_fake(_rows_fake)
+
+
+@_wce_bwd_op.register_fake
+def _(logits, labels, weights, lse, g, v0):
+    return torch.empty_like(logits, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: int | None) -> torch.Tensor:
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=())
+def _flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: int, k_scale: torch.Tensor | None,
+                     v_scale: torch.Tensor | None,
+                     window: int | None) -> torch.Tensor:
+    return _fd.flash_decode(q, k, v, pos, k_scale=k_scale, v_scale=v_scale,
+                            window=window)
+
+
+@_flash_decode_op.register_fake
+def _(q, k, v, pos, k_scale, v_scale, window):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_decode_shard", mutates_args=())
+def _flash_decode_shard_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           pos: int, s0: int, k_scale: torch.Tensor | None,
+                           v_scale: torch.Tensor | None, window: int | None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _fd.flash_decode_shard(q, k, v, pos, s0, k_scale=k_scale,
+                                  v_scale=v_scale, window=window)
+
+
+@_flash_decode_shard_op.register_fake
+def _(q, k, v, pos, s0, k_scale, v_scale, window):
+    b, h, d = q.shape
+    return (q.new_empty((b, h, d), dtype=torch.float32),
+            q.new_empty((b, h), dtype=torch.float32))
+
+
+def attention_pairs(s: int, t: int, causal: bool, window) -> int:
+    """The (query, key) pairs a flash attention of S queries right-aligned
+    against T keys computes: query i (at T - S + i) sees the keys at or
+    before it (when causal) and within the window."""
+    if not causal and window is None:
+        return s * t
+    pairs = 0
+    for i in range(s):
+        p = t - s + i
+        hi = p if causal else t - 1
+        lo = 0 if window is None else max(0, p - window + 1)
+        pairs += max(0, min(hi, t - 1) - lo + 1)
+    return pairs
+
+
+def _register_flops() -> None:
+    """FlopCounterMode's formulas for the model path's kernels: 4 D
+    flops a (query, key) pair for the attentions (Q K^T and P V); none
+    for the CE kernels, which run no matrix product."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q_shape, k_shape, v_shape, causal, window, *a, **kw):
+        b, h, s, d = q_shape
+        return 4 * b * h * d * attention_pairs(s, k_shape[2], causal, window)
+
+    def decode(q_shape, k_shape, pos, s0, window):
+        b, h, d = q_shape
+        lo, hi = _fd.valid_range(pos, k_shape[2], window, s0)
+        return 4 * b * h * d * max(0, hi - lo + 1)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_decode)
+    def _(q_shape, k_shape, v_shape, pos, k_scale, v_scale, window, *a,
+          **kw):
+        return decode(q_shape, k_shape, pos, 0, window)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_decode_shard)
+    def _(q_shape, k_shape, v_shape, pos, s0, k_scale, v_scale, window, *a,
+          **kw):
+        return decode(q_shape, k_shape, pos, s0, window)
+
+    for op in (torch.ops.repro_torch.weighted_ce_fwd,
+               torch.ops.repro_torch.weighted_ce_shard_fwd,
+               torch.ops.repro_torch.weighted_ce_bwd):
+        register_flop_formula(op)(lambda *a, **kw: 0)
+
+
+_register_flops()
+
+
+def weighted_ce_fwd(logits, labels, weights):
+    """(loss [T], lse [T]) of the forward kernel (``weighted_ce.py``)."""
+    if _meta(logits):
+        return _wce_fwd_op(logits, labels, weights)
+    return _wce.weighted_ce_fwd(logits, labels, weights)
+
+
+def weighted_ce_shard_fwd(logits, labels, v0: int):
+    """(lse [T], gold [T]) of the vocab columns [v0, v0 + V) ``logits``:
+    the forward kernel's shard mode."""
+    if _meta(logits):
+        return _wce_shard_fwd_op(logits, labels, int(v0))
+    return _wce.weighted_ce_shard_fwd(logits, labels, v0)
+
+
+def weighted_ce_shard_bwd(logits, labels, weights, lse, g, v0: int):
+    """dlogits of the vocab columns [v0, v0 + V) from the whole vocab's
+    lse: the backward kernel's shard mode."""
+    if _meta(logits):
+        return _wce_bwd_op(logits, labels, weights, lse, g, int(v0))
+    return _wce.weighted_ce_shard_bwd(logits, labels, weights, lse, g, v0)
+
+
 class _WeightedCE(torch.autograd.Function):
     """The reference's ``custom_vjp``: the forward kernel saves lse, the
     backward kernel recomputes the probabilities from it; labels and
@@ -220,13 +392,16 @@ class _WeightedCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, labels, weights):
-        loss, lse = _wce.weighted_ce_fwd(logits, labels, weights)
+        loss, lse = weighted_ce_fwd(logits, labels, weights)
         ctx.save_for_backward(logits, labels, weights, lse)
         return loss
 
     @staticmethod
     def backward(ctx, g):
         logits, labels, weights, lse = ctx.saved_tensors
+        if _meta(logits):
+            return (_wce_bwd_op(logits, labels, weights, lse, g, 0), None,
+                    None)
         return (_wce.weighted_ce_bwd(logits, labels, weights, lse, g),
                 None, None)
 
@@ -337,6 +512,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Blocked online-softmax attention: q [B, H, S, D] against k/v
     [B, KV, T, D] (GQA, queries right-aligned), causal and with an optional
     sliding window; returns [B, H, S, D]."""
+    if _meta(q):
+        return _flash_attention_op(q, k, v, causal, window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -347,5 +524,21 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
     """Single-row attention of q [B, H, D] against positions <= pos of a
     [B, KV, S, D] cache (int8 with [B, KV, S] scales when given); returns
     [B, H, D]."""
+    if _meta(q):
+        return _flash_decode_op(q, k, v, int(pos), k_scale, v_scale, window)
     return _fd.flash_decode(q, k, v, pos, k_scale=k_scale, v_scale=v_scale,
                             window=window)
+
+
+def flash_decode_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       pos, s0, *, k_scale: torch.Tensor | None = None,
+                       v_scale: torch.Tensor | None = None,
+                       window: int | None = None):
+    """:func:`flash_decode` over a cache shard holding the positions
+    [s0, s0 + S): (o [B, H, D] float32, lse [B, H] float32) for the
+    length-split merge (``sharding/tp.py::merge_decode``)."""
+    if _meta(q):
+        return _flash_decode_shard_op(q, k, v, int(pos), int(s0), k_scale,
+                                      v_scale, window)
+    return _fd.flash_decode_shard(q, k, v, pos, s0, k_scale=k_scale,
+                                  v_scale=v_scale, window=window)

@@ -19,9 +19,17 @@ unit stride on V; labels int32 (int64 is converted here, once per call) in
 ``repro/kernels/ref.py``'s ``weighted_ce`` / ``weighted_ce_grad``, with
 float64 math for float64 inputs (gradcheck).
 
+Shard mode (the vocab-parallel loss, ``sharding/tp.py``): the logits are
+the columns [v0, v0 + V) of a vocab and the labels global.
+:func:`weighted_ce_shard_fwd` gives the shard's ``(lse [T], gold [T])``
+(gold 0 where the label lies elsewhere) for the ranks' combine;
+:func:`weighted_ce_bwd` with ``v0`` writes ``softmax - onehot`` on the
+shard's columns from the combined lse.  The same two kernels run it.
+
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 version only for CPU tensors; it never falls back from one to the other.
-Each counts its launches in ``.launches``.
+Each counts its launches in ``.launches`` (the shard modes in
+``weighted_ce_shard_fwd.launches`` and ``weighted_ce_shard_bwd.launches``).
 """
 from __future__ import annotations
 
@@ -49,14 +57,28 @@ def weighted_ce_fwd_plain(logits: torch.Tensor, labels: torch.Tensor,
     return weights.to(x.dtype) * (lse - gold), lse
 
 
+def weighted_ce_shard_fwd_plain(logits: torch.Tensor, labels: torch.Tensor,
+                                v0: int):
+    """The shard's ``(lse [T], gold [T])`` of the vocab columns [v0, v0 +
+    V), in PyTorch ops; gold is 0 where the label lies outside."""
+    x = logits.to(_math_dtype(logits.dtype))
+    col = labels.long() - v0
+    inside = (col >= 0) & (col < x.shape[1])
+    gold = x.gather(-1, torch.where(inside, col, 0)[:, None])[:, 0]
+    return torch.logsumexp(x, dim=-1), torch.where(inside, gold, 0.0)
+
+
 def weighted_ce_bwd_plain(logits: torch.Tensor, labels: torch.Tensor,
                           weights: torch.Tensor, lse: torch.Tensor,
-                          g: torch.Tensor) -> torch.Tensor:
+                          g: torch.Tensor, v0: int = 0) -> torch.Tensor:
     """dL/dlogits of ``loss_t = w_t (lse_t - x_t[label_t])`` scaled by the
-    upstream ``g [T]``, in PyTorch ops, in the logits' dtype."""
+    upstream ``g [T]``, in PyTorch ops, in the logits' dtype; the logits
+    are the vocab columns [v0, v0 + V)."""
     x = logits.to(_math_dtype(logits.dtype))
     grad = torch.exp(x - lse.to(x.dtype)[:, None])
-    grad[torch.arange(x.shape[0], device=x.device), labels.long()] -= 1.0
+    col = labels.long() - v0
+    rows = torch.nonzero((col >= 0) & (col < x.shape[1]))[:, 0]
+    grad[rows, col[rows]] -= 1.0
     wg = weights.to(x.dtype) * g.to(x.dtype)
     return (wg[:, None] * grad).to(logits.dtype)
 
@@ -70,13 +92,17 @@ def _lib() -> ctypes.CDLL:
         lib.weighted_ce_fwd.argtypes = [p, i32, p, p, p, p, i64, i64, i64, p]
         lib.weighted_ce_fwd.restype = ctypes.c_int
         lib.weighted_ce_bwd.argtypes = [p, i32, p, p, p, p, p, i64, i64, i64,
-                                        i64, p]
+                                        i64, i64, p]
         lib.weighted_ce_bwd.restype = ctypes.c_int
+        lib.weighted_ce_shard_fwd.argtypes = [p, i32, p, p, p, i64, i64, i64,
+                                              i64, p]
+        lib.weighted_ce_shard_fwd.restype = ctypes.c_int
     return lib
 
 
 def _check(logits: torch.Tensor, labels: torch.Tensor,
-           weights: torch.Tensor, *rows: tuple[str, torch.Tensor]) -> None:
+           weights: torch.Tensor | None,
+           *rows: tuple[str, torch.Tensor]) -> None:
     if logits.dim() != 2 or logits.shape[0] < 1 or logits.shape[1] < 1:
         raise ValueError(f"logits must be a non-empty [T, V] matrix, got "
                          f"{tuple(logits.shape)}")
@@ -85,7 +111,9 @@ def _check(logits: torch.Tensor, labels: torch.Tensor,
         raise TypeError(f"logits must be floating point, got {logits.dtype}")
     if labels.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"labels must be int32 or int64, got {labels.dtype}")
-    for name, x in (("labels", labels), ("weights", weights), *rows):
+    if weights is not None:
+        rows = (("weights", weights), *rows)
+    for name, x in (("labels", labels), *rows):
         if tuple(x.shape) != (t,):
             raise ValueError(f"{name} must be [{t}], got {tuple(x.shape)}")
         if x.device != logits.device:
@@ -94,19 +122,19 @@ def _check(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _card_args(logits: torch.Tensor, labels: torch.Tensor,
-               weights: torch.Tensor, what: str):
+               weights: torch.Tensor | None, what: str):
     """The checks and conversions of a launch: (dtype code, int32 labels,
-    float32 weights), contiguous."""
+    float32 weights or None), contiguous."""
     if logits.dtype not in DTYPES:
         raise TypeError(f"the {what} kernel takes float32 or bfloat16 "
                         f"logits, got {logits.dtype}")
     if logits.stride(1) != 1 and logits.shape[1] > 1:
         raise ValueError(f"logits must have a unit stride on V, got strides "
                          f"{tuple(logits.stride())}")
-    if weights.dtype != torch.float32:
+    if weights is not None and weights.dtype != torch.float32:
         raise TypeError(f"weights must be float32, got {weights.dtype}")
     return (DTYPES[logits.dtype], labels.to(torch.int32).contiguous(),
-            weights.contiguous())
+            None if weights is None else weights.contiguous())
 
 
 def weighted_ce_fwd(logits: torch.Tensor, labels: torch.Tensor,
@@ -136,14 +164,67 @@ def weighted_ce_fwd(logits: torch.Tensor, labels: torch.Tensor,
 weighted_ce_fwd.launches = 0
 
 
+def weighted_ce_shard_fwd(logits: torch.Tensor, labels: torch.Tensor,
+                          v0: int):
+    """``(lse [T], gold [T])`` float32 of the vocab columns [v0, v0 + V)
+    ``logits`` [T, V]: the forward kernel's shard mode for CUDA tensors,
+    the plain version for CPU tensors."""
+    _check(logits, labels, None)
+    if not on_card(logits, "weighted_ce_shard_fwd"):
+        return weighted_ce_shard_fwd_plain(logits, labels, v0)
+    code, labels, _ = _card_args(logits, labels, None,
+                                 "weighted_ce_shard_fwd")
+    t, v = logits.shape
+    gold = torch.empty(t, dtype=torch.float32, device=logits.device)
+    lse = torch.empty(t, dtype=torch.float32, device=logits.device)
+    stream = torch.cuda.current_stream(logits.device).cuda_stream
+    with torch.cuda.device(logits.device):
+        status = _lib().weighted_ce_shard_fwd(
+            logits.data_ptr(), code, labels.data_ptr(), gold.data_ptr(),
+            lse.data_ptr(), t, v, logits.stride(0), int(v0), stream)
+    if status != 0:
+        raise RuntimeError(f"weighted_ce_shard_fwd launch failed with "
+                           f"cudaError_t {status}")
+    weighted_ce_shard_fwd.launches += 1
+    return lse, gold
+
+
+weighted_ce_shard_fwd.launches = 0
+
+
 def weighted_ce_bwd(logits: torch.Tensor, labels: torch.Tensor,
                     weights: torch.Tensor, lse: torch.Tensor,
                     g: torch.Tensor) -> torch.Tensor:
     """dlogits [T, V] in the logits' dtype (contiguous): the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
+    out, launched = _bwd(logits, labels, weights, lse, g, 0)
+    weighted_ce_bwd.launches += launched
+    return out
+
+
+weighted_ce_bwd.launches = 0
+
+
+def weighted_ce_shard_bwd(logits: torch.Tensor, labels: torch.Tensor,
+                          weights: torch.Tensor, lse: torch.Tensor,
+                          g: torch.Tensor, v0: int) -> torch.Tensor:
+    """The backward's shard mode: dlogits of the vocab columns [v0, v0 +
+    V) ``logits`` [T, V] from the whole vocab's ``lse``."""
+    out, launched = _bwd(logits, labels, weights, lse, g, int(v0))
+    weighted_ce_shard_bwd.launches += launched
+    return out
+
+
+weighted_ce_shard_bwd.launches = 0
+
+
+def _bwd(logits, labels, weights, lse, g, v0: int):
+    """The backward wrappers' checks and launch: (dlogits, whether the
+    kernel was launched)."""
     _check(logits, labels, weights, ("lse", lse), ("g", g))
     if not on_card(logits, "weighted_ce_bwd"):
-        return weighted_ce_bwd_plain(logits, labels, weights, lse, g)
+        return weighted_ce_bwd_plain(logits, labels, weights, lse, g,
+                                     v0), False
     code, labels, weights = _card_args(logits, labels, weights,
                                        "weighted_ce_bwd")
     if lse.dtype != torch.float32 or g.dtype != torch.float32:
@@ -157,12 +238,8 @@ def weighted_ce_bwd(logits: torch.Tensor, labels: torch.Tensor,
         status = _lib().weighted_ce_bwd(
             logits.data_ptr(), code, labels.data_ptr(), weights.data_ptr(),
             lse.data_ptr(), g.data_ptr(), dlogits.data_ptr(), t, v,
-            logits.stride(0), dlogits.stride(0), stream)
+            logits.stride(0), dlogits.stride(0), int(v0), stream)
     if status != 0:
         raise RuntimeError(f"weighted_ce_bwd launch failed with cudaError_t "
                            f"{status}")
-    weighted_ce_bwd.launches += 1
-    return dlogits
-
-
-weighted_ce_bwd.launches = 0
+    return dlogits, True

@@ -15,6 +15,17 @@ rows, with weight 0 wherever a position predicts nothing (each sequence's
 last position and, for a vision model, its image prefix): the weighted sum
 is the reference's, no copy of the logits is made, and the backward kernel
 writes the whole ``dlogits`` with no scatter into a [:, :-1] slice.
+
+Tensor parallelism (a ``model`` axis above 1 in the mesh of
+:func:`~repro_torch.sharding.context.mesh_context`, ``sharding/tp.py``):
+the params are this rank's shards (``rules.held_specs``), the logits of a
+vocab-split head this rank's columns, and the loss the vocab-parallel CE
+(``tp.weighted_ce``: the CE kernels' shard modes, the ranks' (lse, gold)
+combined), the same on every rank of a model group.  The prefill and
+serve steps return whole logits (the ranks' columns gathered).  Under a
+mesh (tensor parallel or not) :func:`init_cache` takes the global batch
+and returns this rank's shard of the cache (``rules.cache_specs``), and
+:func:`pad_prefill_cache` cuts the prefill's caches to it.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from repro_torch.models import encdec, transformer
 from repro_torch.models.attention import KVCache, QuantKVCache, quantize_kv
 from repro_torch.models.ssm import SSMState
 from repro_torch.optim.optimizers import Optimizer, tree_leaves, tree_map
+from repro_torch.sharding import tp as tp_lib
 
 
 def is_encdec(cfg: ArchConfig) -> bool:
@@ -59,10 +71,52 @@ def decode_step(params: dict, caches: dict, tokens: torch.Tensor, pos: int,
                                    cache_mode)
 
 
+def _world_mesh():
+    """The mesh of :func:`~repro_torch.sharding.context.mesh_context` when
+    it is over a world (has process groups), else None."""
+    from repro_torch.sharding.context import current_mesh
+    mesh = current_mesh()
+    return mesh if hasattr(mesh, "group") else None
+
+
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
                dtype: torch.dtype | None = None,
                device: torch.device | str = DEFAULT_DEVICE) -> dict:
-    return _model(cfg).init_cache(cfg, batch, s_cache, dtype, device)
+    """The zero decode cache; under a mesh this rank's shard of the cache
+    of the global ``batch`` (``rules.cache_specs``), a split along the
+    positions registered (``tp.register_split``)."""
+    mesh = _world_mesh()
+    if mesh is None:
+        return _model(cfg).init_cache(cfg, batch, s_cache, dtype, device)
+    from repro_torch.sharding import rules
+    whole = _model(cfg).init_cache(cfg, batch, s_cache, dtype, "meta")
+    specs = rules.cache_specs(cfg, mesh, batch, s_cache)(whole)
+
+    def zeros(a: torch.Tensor, spec: tuple) -> torch.Tensor:
+        shape = [n // rules._axsize(mesh, e) for n, e in zip(a.shape, spec)]
+        return torch.zeros(shape, dtype=a.dtype, device=device)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        out = type(node)(*(zeros(a, sp) for a, sp in zip(node, spec)))
+        _register(out, spec[0], mesh)
+        return out
+
+    return walk(whole, specs)
+
+
+def _register(leaf, spec: tuple, mesh) -> None:
+    """Register a cache leaf whose positions (axis 2 of the stacked
+    layout) ``spec`` splits: this rank's chunk of them."""
+    axes = spec[2]
+    if axes is None:
+        return
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    parts = math.prod(mesh.shape[a] for a in axes)
+    s0 = mesh.coordinate(axes) * leaf[0].shape[2]
+    tp_lib.register_split(leaf[0], tp_lib.CacheSplit(
+        axes, mesh.group(axes), parts, s0))
 
 
 def cache_length(cfg: ArchConfig, seq_len: int) -> int:
@@ -76,11 +130,15 @@ def count_params(params: dict) -> int:
 def _walk(caches: dict, kv, quant, key=None):
     """The cache tree with each KVCache leaf under ``key`` mapped by
     ``kv(leaf, key)`` and each QuantKVCache by ``quant``; SSM states pass
-    through."""
-    if isinstance(caches, QuantKVCache):
-        return quant(caches)
-    if isinstance(caches, KVCache):
-        return kv(caches, key)
+    through.  A new leaf keeps the old one's split along the positions
+    (``tp.split_of``): it holds the same positions."""
+    if isinstance(caches, (KVCache, QuantKVCache)):
+        out = (quant(caches) if isinstance(caches, QuantKVCache)
+               else kv(caches, key))
+        split = tp_lib.split_of(caches[0])
+        if split is not None and tp_lib.split_of(out[0]) is None:
+            tp_lib.register_split(out[0], split)
+        return out
     if isinstance(caches, SSMState):
         return caches
     if isinstance(caches, dict):
@@ -88,12 +146,16 @@ def _walk(caches: dict, kv, quant, key=None):
     raise TypeError(type(caches))
 
 
-def pad_prefill_cache(caches: dict, cfg: ArchConfig, s_cache: int) -> dict:
+def pad_prefill_cache(caches: dict, cfg: ArchConfig, s_cache: int,
+                      batch: int | None = None) -> dict:
     """Grow the prefill caches (length = prompt) to decode capacity: K/V
     leaves (and MLA's latents) are zero-padded along the sequence axis
     (axis 2 of the stacked [U, B, S, ...] layout); SSM states are O(1) and
     the encoder-decoder's cross K/V is encoder-length, so both pass
-    through."""
+    through.  Under a mesh a leaf that ``rules.cache_specs`` splits along
+    its positions is cut to this rank's chunk (and registered); ``batch``
+    is the global batch (default: the local one times the data axes'
+    size)."""
     def pad_axis2(a: torch.Tensor) -> torch.Tensor:
         if a.shape[2] >= s_cache:
             return a
@@ -103,8 +165,28 @@ def pad_prefill_cache(caches: dict, cfg: ArchConfig, s_cache: int) -> dict:
     def kv(leaf, key):
         return leaf if key == "cross" else KVCache(*map(pad_axis2, leaf))
 
-    return _walk(caches, kv,
-                 lambda leaf: QuantKVCache(*map(pad_axis2, leaf)))
+    padded = _walk(caches, kv,
+                   lambda leaf: QuantKVCache(*map(pad_axis2, leaf)))
+    mesh = _world_mesh()
+    if mesh is None:
+        return padded
+    from repro_torch.sharding import rules
+    if batch is None:
+        b = next(iter(padded.values()))[0].shape[1]
+        batch = b * math.prod(mesh.shape[a] for a in rules.data_axes(mesh))
+    specs = rules.cache_specs(cfg, mesh, batch, s_cache)(padded)
+
+    def cut(node, spec):
+        if isinstance(node, dict):
+            return {k: cut(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, SSMState) or spec[0][2] is None:
+            return node
+        mine = rules.shard_index(mesh, (spec[0][2],), (s_cache,), mesh)[0]
+        out = type(node)(*(a[:, :, mine].contiguous() for a in node))
+        _register(out, spec[0], mesh)
+        return out
+
+    return cut(padded, specs)
 
 
 def quantize_cache(caches: dict, cfg: ArchConfig) -> dict:
@@ -169,14 +251,15 @@ def weighted_next_token_loss(logits: torch.Tensor, batch: dict,
     from repro_torch.sharding import rules
     from repro_torch.sharding.context import current_mesh
     rows, labels, weights = next_token_rows(logits, batch, cfg)
-    nll = ops.weighted_ce(rows, labels, weights)
+    tp = tp_lib.active(cfg)
+    if tp is not None and logits.shape[-1] < cfg.vocab_size:
+        nll = tp_lib.weighted_ce(rows, labels, weights, tp)
+    else:
+        nll = ops.weighted_ce(rows, labels, weights)
     total = torch.sum(weights)
     group = rules.data_group(current_mesh())
     if group is not None:
-        import torch.distributed as dist
-        total = total.detach().reshape(1)
-        dist.all_reduce(total, group=group)
-        total = total[0]
+        total = tp_lib.all_reduce_(total.detach().reshape(1), group)[0]
     return torch.sum(nll) / torch.clamp(total, min=1e-9)
 
 
@@ -281,29 +364,36 @@ def _all_reduce_step(grads: dict, loss, aux, mesh, specs):
     its ``specs`` entry does not split it over (every data axis where
     ``specs`` is None), loss and aux in one all-reduce over all of
     them."""
-    import torch.distributed as dist
     from repro_torch.sharding import rules
     axes = rules.data_axes(mesh)
 
     def reduce(g, spec=()):
         rest = tuple(a for a in axes if a not in rules.spec_axes(spec))
         if rest:
-            g = g.contiguous()
-            dist.all_reduce(g, group=mesh.group(rest))
+            g = tp_lib.all_reduce_(g.contiguous(), mesh.group(rest))
         return g
     grads = (tree_map(reduce, grads) if specs is None
              else tree_map(reduce, grads, specs))
     metrics = torch.stack([torch.as_tensor(loss, dtype=torch.float32),
                            torch.as_tensor(aux, dtype=torch.float32)]).to(
         tree_leaves(grads)[0].device)
-    dist.all_reduce(metrics, group=rules.data_group(mesh))
+    tp_lib.all_reduce_(metrics, rules.data_group(mesh))
     return grads, metrics[0], metrics[1]
+
+
+def _whole_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits of the whole vocab: a vocab-split head's columns gathered
+    from the ranks."""
+    tp = tp_lib.active(cfg)
+    if tp is None or logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return tp_lib.gather(logits, tp, -1)
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
     def prefill_step(params, batch):
         logits, caches, _ = forward(params, batch, cfg)
-        return logits[:, -1:, :], caches
+        return _whole_vocab(logits[:, -1:, :], cfg), caches
     return prefill_step
 
 
@@ -314,6 +404,7 @@ def make_serve_step(cfg: ArchConfig, cache_mode: str = "full") -> Callable:
     def serve_step(params, caches, tokens, pos):
         logits, caches = decode_step(params, caches, tokens, pos, cfg,
                                      cache_mode)
+        logits = _whole_vocab(logits, cfg)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return next_tok[:, None], logits, caches
 

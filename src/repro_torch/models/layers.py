@@ -123,7 +123,16 @@ def activation(act: str, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, act: str, tp=None,
+              split: bool = False, whole: bool = False) -> torch.Tensor:
+    """The gated MLP.  Under tensor parallelism (``tp``, a
+    ``sharding.tp.TP``) ``wi_gate``/``wi_up`` are this rank's columns of
+    d_ff and ``wo`` its rows, the partial products summed over ``model``
+    (``whole``: every rank holds the whole MLP); ``split``: x is the
+    rank's chunk of S (sequence parallelism)."""
+    from repro_torch.sharding import tp as tp_lib
+    x = tp_lib.enter(x, tp, split, whole)
     gate = x @ params["wi_gate"]
     up = x @ params["wi_up"]
-    return (activation(act, gate) * up) @ params["wo"]
+    return tp_lib.leave((activation(act, gate) * up) @ params["wo"], tp,
+                        split, whole)

@@ -29,6 +29,17 @@ global arrays.  ``ep_a2a``'s is the reference's mean over ``data`` of
 the shards' losses.  A data-parallel step takes a share of either
 (``api.loss_and_grads``).
 
+Tensor parallelism (``tp``, a ``sharding.tp.TP``) with ``moe_ff_axis =
+"model"``: the expert banks are this rank's slice of ``moe_d_ff`` and each
+rank's expert outputs partial sums, combined with the gate probabilities
+and then summed over ``model``; the probabilities enter the region by
+``copy_to_model``, so the router's gradient is whole on every rank.
+Under sequence parallelism (``split``) each rank routes its chunk of S
+(the router's statistics summed over ``model`` as well) and the tokens
+and probabilities are all-gathered for the experts.  ``ep_a2a`` under
+tensor parallelism raises.  On the meta device (the dry run) the grouped
+path takes balanced segments: the routing is data.
+
 The grouped combine writes each copy's weighted output back to its
 (token, slot) place by index (no two copies share one) and adds a token's
 k copies one after another in the order of their experts, in the output's
@@ -56,10 +67,11 @@ def moe_init(gen: torch.Generator | None, cfg: ArchConfig, dtype: torch.dtype,
 
 
 def router_topk(params: dict, x_flat: torch.Tensor, cfg: ArchConfig,
-                group=None):
+                group=None, tp=None):
     """x_flat [T, d] -> (probs [T, k] in x's dtype, idx [T, k] int64, aux
     float32 scalar); ``group``: x_flat is this rank's shard of a batch
-    split over ``group``, and aux the whole batch's loss."""
+    split over ``group``, and aux the whole batch's loss; ``tp``: x_flat
+    is the rank's chunk of S too, its statistics summed over ``model``."""
     logits = x_flat.to(torch.float32) @ params["router"].to(torch.float32)
     probs_full = torch.softmax(logits, dim=-1)
     # a stable descending sort: equal probabilities keep the lower expert
@@ -68,9 +80,9 @@ def router_topk(params: dict, x_flat: torch.Tensor, cfg: ArchConfig,
     probs, idx = probs[:, :cfg.top_k], idx[:, :cfg.top_k]
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
     e = cfg.num_experts
-    if group is not None:
+    if group is not None or tp is not None:
         return probs.to(x_flat.dtype), idx, _global_aux(probs_full, idx, e,
-                                                         group)
+                                                         group, tp)
     frac_tokens = F.one_hot(idx, e).to(torch.float32).sum(1).mean(0)  # f_e
     frac_probs = probs_full.mean(0)                                   # P_e
     aux = e * torch.sum(frac_tokens * frac_probs)
@@ -78,17 +90,24 @@ def router_topk(params: dict, x_flat: torch.Tensor, cfg: ArchConfig,
 
 
 def _global_aux(probs_full: torch.Tensor, idx: torch.Tensor, e: int,
-                group) -> torch.Tensor:
+                group, tp=None) -> torch.Tensor:
     """The load-balance loss of the batch split over ``group``: the
     expert counts, the token count and the probability sums of the shards
     summed in one all-reduce that carries the gradient back to each
-    shard's probabilities."""
+    shard's probabilities (and, under ``tp``, over the S chunks of
+    ``model`` first, with an identity backward: each model rank's loss
+    holds the whole aux)."""
+    from repro_torch.sharding import tp as tp_lib
     from repro_torch.sharding.ep import differentiable
     stats = torch.cat([F.one_hot(idx, e).to(torch.float32).sum((0, 1)),
                        torch.tensor([float(idx.shape[0])],
                                     device=idx.device),
                        probs_full.sum(0)])
-    stats = differentiable("all_reduce")(stats, group=group)
+    if tp is not None:
+        stats = tp_lib.reduce_from_model(stats, tp)
+    if group is not None:
+        tp_lib.book("all-reduce", stats.numel() * 4, group)
+        stats = differentiable("all_reduce")(stats, group=group)
     counts, tokens, prob_sums = stats[:e], stats[e], stats[e + 1:]
     return e * torch.sum(counts / tokens * (prob_sums / tokens))
 
@@ -113,8 +132,11 @@ def _expert_ffn_gmm(params: dict, x_flat: torch.Tensor, probs, idx,
     flat_expert = idx.reshape(-1)                               # [T*k]
     order = torch.argsort(flat_expert, stable=True)
     x_sorted = x_flat[order // k]                               # [T*k, d]
-    # one host read a layer: the segments' lengths
-    sizes = torch.bincount(flat_expert, minlength=e).tolist()
+    # one host read a layer: the segments' lengths (balanced on meta)
+    if x_flat.device.type == "meta":
+        sizes = [t * k // e + (i < t * k % e) for i in range(e)]
+    else:
+        sizes = torch.bincount(flat_expert, minlength=e).tolist()
     ys = []
     for ex, xs in enumerate(torch.split(x_sorted, sizes)):
         if xs.shape[0]:
@@ -135,23 +157,40 @@ def _expert_ffn_gmm(params: dict, x_flat: torch.Tensor, probs, idx,
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
-              impl: str | None = None):
-    """x [B, S, d] -> (y [B, S, d], aux_loss float32 scalar)."""
+              impl: str | None = None, tp=None, split: bool = False):
+    """x [B, S, d] -> (y [B, S, d], aux_loss float32 scalar); ``tp``,
+    ``split``: this rank's share (module docstring)."""
     from repro_torch.sharding import rules
+    from repro_torch.sharding import tp as tp_lib
     from repro_torch.sharding.context import current_mesh
     impl = impl or cfg.moe_impl
     if impl == "ep_a2a":
+        if tp is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: moe_impl='ep_a2a' under tensor parallelism "
+                f"over model (ROADMAP Queue 1, item 5): use 'gmm'")
         # routing happens on each data shard (sharding/ep.py)
         from repro_torch.sharding.ep import moe_apply_ep_a2a
         return moe_apply_ep_a2a(params, x, cfg)
-    b, s, d = x.shape
-    x_flat = x.reshape(-1, d)
-    probs, idx, aux = router_topk(params, x_flat, cfg,
-                                  rules.data_group(current_mesh()))
-    if impl == "dense":
-        y = _expert_ffn_dense(params, x_flat, probs, idx, cfg)
-    elif impl == "gmm":
-        y = _expert_ffn_gmm(params, x_flat, probs, idx, cfg)
-    else:
+    if impl not in ("dense", "gmm"):
         raise ValueError(f"unknown moe_impl {impl!r}")
-    return y.reshape(b, s, d), aux
+    group = rules.data_group(current_mesh())
+    share = tp is not None and params["wi_gate"].shape[-1] < cfg.moe_d_ff
+    d, k = x.shape[-1], cfg.top_k
+    if split:                   # route this rank's chunk, then gather
+        b, s_loc, _ = x.shape
+        router = {"router": tp_lib.shared(params["router"], tp)}
+        probs, idx, aux = router_topk(router, x.reshape(-1, d), cfg, group,
+                                      tp)
+        x = tp_lib.gather_seq(x, tp, partial_grad=share)
+        probs = tp_lib.gather_seq(probs.reshape(b, s_loc, k), tp,
+                                  partial_grad=share).reshape(-1, k)
+        idx = tp_lib.gather(idx.reshape(b, s_loc, k), tp, 1).reshape(-1, k)
+    else:
+        probs, idx, aux = router_topk(params, x.reshape(-1, d), cfg, group)
+        if share:
+            x, probs = (tp_lib.copy_to_model(t, tp) for t in (x, probs))
+    b, s, _ = x.shape
+    ffn = _expert_ffn_dense if impl == "dense" else _expert_ffn_gmm
+    y = ffn(params, x.reshape(-1, d), probs, idx, cfg).reshape(b, s, d)
+    return tp_lib.leave(y, tp, split, whole=not share), aux

@@ -10,6 +10,15 @@ plain loop over S / chunk steps.  Jamba's Mamba layers use the same block.
 Decode carries an O(1) recurrent state per layer: the last conv - 1
 inputs of the x, B and C streams and the SSM state [B, H, N, P]
 (:class:`SSMState`).
+
+Tensor parallelism (``tp``, a ``sharding.tp.TP``): ``in_z``, ``in_x``,
+``in_dt``, ``conv_x`` and the gated norm's scale are this rank's slice of
+``d_inner`` (its heads); ``in_B``, ``in_C``, their convs, ``A_log``,
+``D`` and ``dt_bias`` stay whole (the rank reads its heads' entries of
+the last three); the gated RMSNorm over ``d_inner`` all-reduces its sum
+of squares; ``out_proj`` is row-parallel, its partial sums summed over
+``model``.  The state holds the rank's slice of ``conv_x`` and of the SSM
+heads, as ``rules.cache_specs`` lays them out.
 """
 from __future__ import annotations
 
@@ -137,51 +146,106 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return (y_intra + y_inter).reshape(b, s, h, p), H
 
 
-def _project(params: dict, x: torch.Tensor, cfg: ArchConfig):
+def _share(params: dict, cfg: ArchConfig, tp):
+    """``tp`` when this rank holds a slice of ``d_inner``, else None."""
+    if tp is None or params["in_x"].shape[-1] == cfg.d_inner:
+        return None
+    if params["in_dt"].shape[-1] == cfg.ssm_heads:
+        raise NotImplementedError(
+            f"{cfg.name}: d_inner {cfg.d_inner} splits over model "
+            f"{tp.size} but its {cfg.ssm_heads} heads do not")
+    return tp
+
+
+def _heads(params: dict, tp) -> tuple:
+    """A_log, D and dt_bias of this rank's heads."""
+    leaves = (params["A_log"], params["D"], params["dt_bias"])
+    if tp is None:
+        return leaves
+    from repro_torch.sharding import tp as tp_lib
+    return tuple(tp_lib.chunk(tp_lib.shared(a, tp), tp, a.dim() - 1)
+                 for a in leaves)
+
+
+_WHOLE = ("in_B", "in_C", "conv_B", "conv_B_bias", "conv_C", "conv_C_bias")
+
+
+def _local(params: dict, tp) -> dict:
+    """The params as this rank uses them: the whole B/C streams' leaves
+    through ``tp.shared`` (each rank's gradient is its heads' share)."""
+    if tp is None:
+        return params
+    from repro_torch.sharding import tp as tp_lib
+    return {k: tp_lib.shared(v, tp) if k in _WHOLE else v
+            for k, v in params.items()}
+
+
+def _project(params: dict, x: torch.Tensor, dt_bias: torch.Tensor):
     z = x @ params["in_z"]
     xs = x @ params["in_x"]
     B = x @ params["in_B"]
     C = x @ params["in_C"]
     dt = F.softplus((x @ params["in_dt"]).to(torch.float32)
-                    + params["dt_bias"])
+                    + dt_bias)
     return z, xs, B, C, dt
 
 
 def _out(params: dict, y: torch.Tensor, z: torch.Tensor,
-         cfg: ArchConfig) -> torch.Tensor:
-    y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
+         cfg: ArchConfig, tp=None) -> torch.Tensor:
+    y = y * F.silu(z)
+    if tp is None:
+        y = rmsnorm(params["norm"], y, cfg.norm_eps)
+    else:                       # the mean square over the whole d_inner
+        from repro_torch.sharding import tp as tp_lib
+        yf = y.to(torch.float32)
+        ss = tp_lib.all_reduce_sum(yf.square().sum(-1, keepdim=True), tp)
+        yf = yf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+        y = (yf * params["norm"]["scale"].to(torch.float32)).to(y.dtype)
     return y @ params["out_proj"]
 
 
-def ssm_forward(params: dict, x: torch.Tensor,
-                cfg: ArchConfig) -> tuple[torch.Tensor, SSMState]:
+def ssm_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, tp=None,
+                split: bool = False) -> tuple[torch.Tensor, SSMState]:
     """Full-sequence SSD block.  x [B, S, d] -> (y [B, S, d], final
-    state)."""
+    state); ``tp``, ``split``: this rank's share (module docstring)."""
+    from repro_torch.sharding import tp as tp_lib
+    share = _share(params, cfg, tp)
+    params = _local(params, share)
+    x = tp_lib.enter(x, tp, split, whole=share is None)
     b, s, _ = x.shape
-    d_inner, h, p = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
-    conv = cfg.ssm_conv
-    z, xs_raw, B_raw, C_raw, dt = _project(params, x, cfg)
+    p, conv = cfg.ssm_head_dim, cfg.ssm_conv
+    a_log, d_skip, dt_bias = _heads(params, share)
+    z, xs_raw, B_raw, C_raw, dt = _project(params, x, dt_bias)
+    d_inner = xs_raw.shape[-1]
+    h = d_inner // p
     xs = _conv_full(params["conv_x"], params["conv_x_bias"], xs_raw, conv)
     B = _conv_full(params["conv_B"], params["conv_B_bias"], B_raw, conv)
     C = _conv_full(params["conv_C"], params["conv_C_bias"], C_raw, conv)
     xs = xs.reshape(b, s, h, p)
-    y, H = ssd_chunked(xs, dt, params["A_log"], B, C, min(cfg.ssm_chunk, s))
-    y = y + params["D"][None, None, :, None] * xs.to(torch.float32)
+    y, H = ssd_chunked(xs, dt, a_log, B, C, min(cfg.ssm_chunk, s))
+    y = y + d_skip[None, None, :, None] * xs.to(torch.float32)
     y = y.reshape(b, s, d_inner).to(x.dtype)
     state = SSMState(conv_x=xs_raw[:, -(conv - 1):, :],
                      conv_B=B_raw[:, -(conv - 1):, :],
                      conv_C=C_raw[:, -(conv - 1):, :], ssm=H)
-    return _out(params, y, z, cfg), state
+    return tp_lib.leave(_out(params, y, z, cfg, share), tp, split,
+                        whole=share is None), state
 
 
 def ssm_decode(params: dict, x: torch.Tensor, state: SSMState,
-               cfg: ArchConfig) -> tuple[torch.Tensor, SSMState]:
+               cfg: ArchConfig, tp=None) -> tuple[torch.Tensor, SSMState]:
     """Single-token recurrent step.  x [B, 1, d] -> (y [B, 1, d], the next
-    state)."""
-    b = x.shape[0]
-    d_inner, h, p = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    state); ``tp``: this rank's share (its slice of the state)."""
+    from repro_torch.sharding import tp as tp_lib
+    share = _share(params, cfg, tp)
+    params = _local(params, share)
+    x = tp_lib.enter(x, tp, False, whole=share is None)
+    b, p = x.shape[0], cfg.ssm_head_dim
     f32 = torch.float32
-    z, xs_raw, B_raw, C_raw, dt = _project(params, x, cfg)
+    a_log, d_skip, dt_bias = _heads(params, share)
+    z, xs_raw, B_raw, C_raw, dt = _project(params, x, dt_bias)
+    d_inner = xs_raw.shape[-1]
+    h = d_inner // p
     dt1 = dt[:, 0]                                             # [B, H]
     xs1, cx = _conv_step(params["conv_x"], params["conv_x_bias"],
                          state.conv_x, xs_raw)
@@ -191,12 +255,13 @@ def ssm_decode(params: dict, x: torch.Tensor, state: SSMState,
                         state.conv_C, C_raw)
     xs1 = xs1.reshape(b, h, p).to(f32)
     B1, C1 = B1.to(f32), C1.to(f32)
-    a = -torch.exp(params["A_log"].to(f32))
+    a = -torch.exp(a_log.to(f32))
     dec = torch.exp(dt1 * a)                                   # [B, H]
     upd = torch.einsum("bn,bhp,bh->bhnp", B1, xs1, dt1)
     H = state.ssm * dec[:, :, None, None] + upd
     y = torch.einsum("bn,bhnp->bhp", C1, H)
-    y = y + params["D"][None, :, None] * xs1
+    y = y + d_skip[None, :, None] * xs1
     y = y.reshape(b, 1, d_inner).to(x.dtype)
-    return _out(params, y, z, cfg), SSMState(conv_x=cx, conv_B=cB,
-                                             conv_C=cC, ssm=H)
+    y = tp_lib.leave(_out(params, y, z, cfg, share), tp, False,
+                     whole=share is None)
+    return y, SSMState(conv_x=cx, conv_B=cB, conv_C=cC, ssm=H)

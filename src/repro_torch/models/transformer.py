@@ -19,8 +19,7 @@ units: ``KVCache(k=[U, B, S, KV, D], v=...)`` (or a ``QuantKVCache``),
 MLA's latent ``KVCache(k=[U, B, S, R], v=[U, B, S, Dr])`` or an
 ``SSMState`` ([U, B, conv-1, *] and a float32 [U, B, H, N, P]).  A plain
 loop over the units, each a view of the stacked tensors, replaces
-``lax.scan``; there is no sequence sharding (``cfg.seq_parallel`` is the
-reference's no-op without a mesh).  ``cfg.remat == "block"`` recomputes
+``lax.scan``.  ``cfg.remat == "block"`` recomputes
 each unit in the backward pass (``torch.utils.checkpoint``), as the
 reference's ``jax.checkpoint`` of its scan body.  The MoE blocks' aux
 losses are summed over the sub-layers of a unit, then over the units.
@@ -37,6 +36,21 @@ Entry points, as in the reference:
 ``batch["patch_emb"]`` [B, Timg, d] (the vision frontend's stub
 embeddings) is prepended to the token embeddings.  What raises:
 ``use_flash`` where the kernels cannot serve (``attention.check_flash``).
+
+Tensor parallelism: under :func:`~repro_torch.sharding.context.mesh_context`
+with a ``model`` axis above 1 and ``rules.use_tp(cfg)``
+(:func:`repro_torch.sharding.tp.active`), the params are this rank's
+shards (``rules.held_specs``) and every step runs the rank's share of the
+reference's sharded program: the vocab-parallel embedding (its rows of
+the table, the ranks' lookups summed) and head (logits of its vocab
+range, [B, S, V / tp]), column- and row-parallel attention, MLP, MoE and
+SSM blocks (``models/attention.py``, ``layers.py``, ``moe.py``,
+``ssm.py``).  With ``cfg.seq_parallel`` the residual stream between the
+blocks is the rank's chunk of S, as the reference's ``_seq_shard``
+constrains it, and skipped, as there, when ``model`` does not divide S.
+Decode caches are laid out by ``rules.cache_specs`` (``init_cache`` under
+the mesh gives this rank's shard; a cache split along its positions is
+registered with ``tp.register_split``).
 """
 from __future__ import annotations
 
@@ -51,6 +65,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed, lm_head, mlp_apply, mlp_init,
                                        normal_init, rmsnorm, rmsnorm_init,
                                        rope_tables, unembed)
+from repro_torch.sharding import tp as tp_lib
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -113,45 +128,52 @@ def _init_sub_block(gen, cfg: ArchConfig, kind: str, sub_idx: int, dtype,
     return p
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, sub_idx: int):
+def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, sub_idx: int, tp=None,
+         split: bool = False):
     """The sub-layer's feed-forward half: (x, aux)."""
     ffn = _ffn_kind(cfg, sub_idx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "none":
+        return x, aux
+    h = rmsnorm(tp_lib.norm_params(p["ln2"], tp, split), x, cfg.norm_eps)
     if ffn == "moe":
-        y, aux = moe_lib.moe_apply(p["moe"],
-                                   rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        y, aux = moe_lib.moe_apply(p["moe"], h, cfg, tp=tp, split=split)
         x = x + y
-    elif ffn == "mlp":
-        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-                          cfg.act)
+    else:
+        whole = p["mlp"]["wi_gate"].shape[-1] == cfg.d_ff
+        x = x + mlp_apply(p["mlp"], h, cfg.act, tp, split, whole)
     return x, aux
 
 
 def _sub_block_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
-                       sub_idx: int, positions: torch.Tensor, rope):
-    """Full-sequence sub-layer: (x, cache leaf, aux)."""
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+                       sub_idx: int, positions: torch.Tensor, rope, tp=None,
+                       split: bool = False):
+    """Full-sequence sub-layer: (x, cache leaf, aux); ``tp``, ``split``:
+    this rank's share and whether x is its chunk of S."""
+    h = rmsnorm(tp_lib.norm_params(p["ln1"], tp, split), x, cfg.norm_eps)
     if kind == "attn":
         fwd = attn.mla_forward if cfg.attention == "mla" else attn.gqa_forward
-        out, cache = fwd(p["attn"], h, cfg, positions, rope)
+        out, cache = fwd(p["attn"], h, cfg, positions, rope, tp, split)
     else:
-        out, cache = ssm_lib.ssm_forward(p["ssm"], h, cfg)
-    x, aux = _ffn(p, x + out, cfg, sub_idx)
+        out, cache = ssm_lib.ssm_forward(p["ssm"], h, cfg, tp, split)
+    x, aux = _ffn(p, x + out, cfg, sub_idx, tp, split)
     return x, cache, aux
 
 
 def _sub_block_decode(p: dict, x: torch.Tensor, cache, pos: int,
                       cfg: ArchConfig, kind: str, sub_idx: int,
-                      cache_mode: str, rope):
+                      cache_mode: str, rope, tp=None, seq=None):
     """One-token sub-layer: (x, cache leaf).  An attention leaf is written
-    in place; an SSM state comes back new."""
+    in place; an SSM state comes back new.  ``seq``: the attention cache's
+    split along its positions (``tp.CacheSplit``)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "attn":
         dec = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
-        out, cache = dec(p["attn"], h, cache, pos, cfg, cache_mode, rope)
+        out, cache = dec(p["attn"], h, cache, pos, cfg, cache_mode, rope,
+                         tp, seq)
     else:
-        out, cache = ssm_lib.ssm_decode(p["ssm"], h, cache, cfg)
-    x, _ = _ffn(p, x + out, cfg, sub_idx)
+        out, cache = ssm_lib.ssm_decode(p["ssm"], h, cache, cfg, tp)
+    x, _ = _ffn(p, x + out, cfg, sub_idx, tp)
     return x, cache
 
 
@@ -167,21 +189,23 @@ def _layers(params: dict, n: int) -> list[dict]:
 
 
 def _unit_forward(unit: dict, x: torch.Tensor, cfg: ArchConfig,
-                  positions: torch.Tensor, rope):
+                  positions: torch.Tensor, rope, tp=None,
+                  split: bool = False):
     """One unit's sub-layers: (x, {"sub<i>": cache leaf}, aux)."""
     caches = {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(_block_kinds(cfg)):
         x, caches[f"sub{i}"], aux = _sub_block_forward(
-            unit[f"sub{i}"], x, cfg, kind, i, positions, rope)
+            unit[f"sub{i}"], x, cfg, kind, i, positions, rope, tp, split)
         aux_total = aux_total + aux
     return x, caches, aux_total
 
 
 def _unit_train(unit: dict, x: torch.Tensor, cfg: ArchConfig,
-                positions: torch.Tensor, rope):
+                positions: torch.Tensor, rope, tp=None,
+                split: bool = False):
     """One unit without its caches (the training forward's unit)."""
-    x, _, aux = _unit_forward(unit, x, cfg, positions, rope)
+    x, _, aux = _unit_forward(unit, x, cfg, positions, rope, tp, split)
     return x, aux
 
 
@@ -217,43 +241,91 @@ def init_params(cfg: ArchConfig, gen: torch.Generator | None = None) -> dict:
     return params
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+def _head(params: dict) -> tuple[torch.Tensor, bool]:
+    """The head's matrix and whether it is [V, d] (the tied embedding)."""
+    if "lm_head" in params:
+        return params["lm_head"]["unembedding"], False
+    return params["embed"]["embedding"], True
+
+
+def vocab_split(params: dict, cfg: ArchConfig, tp) -> bool:
+    """Whether this rank's head holds a share of the vocab: its logits
+    are then [..., V / tp], the columns [rank * V / tp, ...)."""
+    w, tied = _head(params)
+    return tp is not None and w.shape[0 if tied else 1] < cfg.vocab_size
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: ArchConfig, tp=None,
+            split: bool = False) -> torch.Tensor:
+    """The final norm and the head over x (this rank's chunk of S when
+    ``split``): logits of every position, of the rank's vocab range under
+    a vocab split."""
+    x = rmsnorm(tp_lib.norm_params(params["final_norm"], tp, split), x,
+                cfg.norm_eps)
+    x = tp_lib.enter(x, tp, split, whole=not vocab_split(params, cfg, tp))
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
     return lm_head(params["lm_head"], x)
 
 
-def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Token embeddings, with the vision frontend's stub embeddings
-    ``batch["patch_emb"]`` prepended."""
-    x = embed(params["embed"], batch["tokens"], cfg.embed_scale)
-    if cfg.frontend == "vision" and "patch_emb" in batch:
-        x = torch.cat([batch["patch_emb"].to(x.dtype), x], dim=1)
+def _embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig, tp,
+                  split: bool) -> torch.Tensor:
+    """The token embeddings (the rank's chunk of S when ``split``): the
+    vocab-parallel lookup where the rank holds a share of the table."""
+    table = params["embed"]["embedding"]
+    if tp is None or table.shape[0] == cfg.vocab_size:
+        x = embed(params["embed"], tokens, cfg.embed_scale)
+        return tp_lib.split(x, tp) if split else x
+    x = tp_lib.embed(table, tokens, tp, split)
+    if cfg.embed_scale:   # as layers.embed: sqrt(d) in x's dtype
+        x = x * float(torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype))
     return x
 
 
+def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Token embeddings, with the vision frontend's stub embeddings
+    ``batch["patch_emb"]`` prepended."""
+    return _inputs(params, batch, cfg, None)[0]
+
+
+def _inputs(params: dict, batch: dict, cfg: ArchConfig, tp):
+    """The residual stream's input and whether it is this rank's chunk of
+    S (sequence parallelism): the embeddings, the vision stub's
+    prepended."""
+    tokens = batch["tokens"]
+    prefix = batch.get("patch_emb") if cfg.frontend == "vision" else None
+    s = tokens.shape[1] + (0 if prefix is None else prefix.shape[1])
+    split = tp_lib.seq_split(tp, s)
+    if prefix is None:
+        return _embed_tokens(params, tokens, cfg, tp, split), split
+    x = _embed_tokens(params, tokens, cfg, tp, False)
+    x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    return (tp_lib.split(x, tp) if split else x), split
+
+
 def _stack(params: dict, x: torch.Tensor, cfg: ArchConfig,
-           keep_caches: bool):
-    """The units over embeddings x [B, S, d]: (x, the caches stacked over
-    the units or None, aux)."""
+           keep_caches: bool, tp=None, split: bool = False):
+    """The units over embeddings x [B, S, d] (this rank's chunk of S when
+    ``split``): (x, the caches stacked over the units or None, aux)."""
     if cfg.remat not in ("none", "block"):
         raise ValueError(f"remat must be 'none' or 'block', got "
                          f"{cfg.remat!r}")
     b, s, _ = x.shape
+    s = s * tp.size if split else s
     positions = torch.arange(s, device=x.device).expand(b, s)
     rope = _rope(cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_unit = []
     for unit in _layers(params["layers"], _num_units(cfg)):
         if keep_caches:
-            x, caches, aux_u = _unit_forward(unit, x, cfg, positions, rope)
+            x, caches, aux_u = _unit_forward(unit, x, cfg, positions, rope,
+                                             tp, split)
             per_unit.append(caches)
         elif cfg.remat == "block" and torch.is_grad_enabled():
             x, aux_u = checkpoint(_unit_train, unit, x, cfg, positions, rope,
-                                  use_reentrant=False)
+                                  tp, split, use_reentrant=False)
         else:
-            x, aux_u = _unit_train(unit, x, cfg, positions, rope)
+            x, aux_u = _unit_train(unit, x, cfg, positions, rope, tp, split)
         aux = aux + aux_u
     if not keep_caches:
         return x, None, aux
@@ -270,8 +342,13 @@ def hidden_states(params: dict, x: torch.Tensor,
     forward, the reference's ``scan`` of ``_unit_forward``, whose aux loss
     it carries and drops."""
     check_supported(cfg)
-    x, _, _ = _stack(params, x, cfg, keep_caches=False)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    tp = tp_lib.active(cfg)
+    split = tp_lib.seq_split(tp, x.shape[1])
+    if split:
+        x = tp_lib.split(x, tp)
+    x, _, _ = _stack(params, x, cfg, False, tp, split)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return tp_lib.gather_seq(x, tp, partial_grad=False) if split else x
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig):
@@ -279,9 +356,10 @@ def forward(params: dict, batch: dict, cfg: ArchConfig):
     "patch_emb" [B, Timg, d] for the vision frontend).  Returns (logits
     [B, S_total, V], caches, aux_loss)."""
     check_supported(cfg)
-    x, caches, aux = _stack(params, embed_inputs(params, batch, cfg), cfg,
-                            keep_caches=True)
-    return _logits(params, x, cfg), caches, aux
+    tp = tp_lib.active(cfg)
+    x, split = _inputs(params, batch, cfg, tp)
+    x, caches, aux = _stack(params, x, cfg, True, tp, split)
+    return _logits(params, x, cfg, tp, split), caches, aux
 
 
 def forward_train(params: dict, batch: dict, cfg: ArchConfig):
@@ -290,9 +368,10 @@ def forward_train(params: dict, batch: dict, cfg: ArchConfig):
     training step has no use for it), and each unit under
     ``torch.utils.checkpoint`` when ``cfg.remat == "block"``."""
     check_supported(cfg)
-    x, _, aux = _stack(params, embed_inputs(params, batch, cfg), cfg,
-                       keep_caches=False)
-    return _logits(params, x, cfg), aux
+    tp = tp_lib.active(cfg)
+    x, split = _inputs(params, batch, cfg, tp)
+    x, _, aux = _stack(params, x, cfg, False, tp, split)
+    return _logits(params, x, cfg, tp, split), aux
 
 
 def decode_step(params: dict, caches: dict, tokens: torch.Tensor, pos: int,
@@ -304,21 +383,25 @@ def decode_step(params: dict, caches: dict, tokens: torch.Tensor, pos: int,
     check_supported(cfg)
     attn.check_flash(cfg, cache_mode)
     pos = int(pos)
-    x = embed(params["embed"], tokens, cfg.embed_scale)
+    tp = tp_lib.active(cfg)
+    x = _embed_tokens(params, tokens, cfg, tp, False)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     rope = _rope(cfg, positions)
     kinds = _block_kinds(cfg)
+    splits = {i: tp_lib.split_of(caches[f"sub{i}"][0])
+              for i in range(len(kinds))}
     for u, unit in enumerate(_layers(params["layers"], _num_units(cfg))):
         for i, kind in enumerate(kinds):
             stacked = caches[f"sub{i}"]
             view = type(stacked)(*(a[u] for a in stacked))
             x, new = _sub_block_decode(unit[f"sub{i}"], x, view, pos, cfg,
-                                       kind, i, cache_mode, rope)
+                                       kind, i, cache_mode, rope, tp,
+                                       splits[i])
             if new is not view:              # an SSM state: copy it back
                 for dst, src in zip(view, new):
                     dst.copy_(src)
-    return _logits(params, x, cfg), caches
+    return _logits(params, x, cfg, tp), caches
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_cache: int,

@@ -97,6 +97,22 @@ class Mesh(AbstractMesh):
         return self._groups[axes]
 
 
+class SubMesh(AbstractMesh):
+    """Some axes of a :class:`Mesh`, with its groups and coordinates along
+    them: a step that must not reduce over the others (a batch every data
+    rank holds whole under tensor parallelism)."""
+
+    def __init__(self, mesh: Mesh, axes: tuple) -> None:
+        super().__init__(tuple(mesh.shape[a] for a in axes), axes)
+        self.mesh = mesh
+
+    def group(self, axes):
+        return self.mesh.group(axes)
+
+    def coordinate(self, axes) -> int:
+        return self.mesh.coordinate(axes)
+
+
 def make_mesh(shape: tuple, axis_names: tuple, device: str = "cuda") -> Mesh:
     """A :class:`Mesh` of ``shape`` over the initialised world (its size
     the world's), ranks laid out row-major as ``jax.make_mesh`` lays out

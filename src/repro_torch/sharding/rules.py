@@ -44,15 +44,39 @@ def data_group(mesh):
     return mesh.group(axes) if axes else None
 
 
+def tp_on(cfg: ArchConfig, mesh) -> bool:
+    """Whether ``mesh`` runs ``cfg`` tensor parallel: a ``model`` axis
+    above 1 and :func:`use_tp`."""
+    return use_tp(cfg) and mesh.shape.get("model", 1) > 1
+
+
 def held_specs(cfg: ArchConfig, mesh):
     """What a rank of ``mesh`` holds of each parameter in the port's
-    data-parallel step: under ``moe_impl="ep_a2a"`` the rules' specs
-    (:func:`param_specs` of the full shapes: the expert banks split over
-    ``data``), else None, every leaf whole on every rank."""
-    if not (cfg.is_moe and cfg.moe_impl == "ep_a2a"):
+    step (:func:`param_specs` of the full shapes, in part): under tensor
+    parallelism (:func:`tp_on`) every split over ``model``; under
+    ``moe_impl="ep_a2a"`` every split (the expert banks' over ``data``
+    too).  None when every leaf is whole on every rank."""
+    ep = cfg.is_moe and cfg.moe_impl == "ep_a2a"
+    if not (ep or tp_on(cfg, mesh)):
         return None
     from repro_torch.models import api
-    return param_specs(api.init_params(cfg), cfg, mesh)
+    specs = param_specs(api.init_params(cfg), cfg, mesh)
+    if ep:
+        return specs
+    data = set(data_axes(mesh))
+
+    def model_only(e):
+        axes = () if e is None else (e,) if isinstance(e, str) else e
+        return _norm(tuple(a for a in axes if a not in data)) or None
+
+    return _map_specs(lambda spec: tuple(map(model_only, spec)), specs)
+
+
+def _map_specs(fn, tree):
+    """``fn`` over the specs of a spec tree (dicts of specs)."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def spec_axes(spec: tuple) -> tuple[str, ...]:

@@ -13,13 +13,14 @@ the step under ``mesh_context``, where losses, router statistics and
 gradients are all-reduced, so each step is the one-device step on the
 global batch.  A batch whose size the data axes do not divide is
 replicated, as its spec says: every rank runs the one-device step on all
-of it.  A rank holds its parameters as ``rules.held_specs`` says (under
-``moe_impl="ep_a2a"`` its slice of the expert banks over ``data``:
-``shard_params``; ``run(params=)`` takes them so); checkpoints hold the
-full tree, gathered on every rank and written by rank 0.
+of it.  A ``model`` axis above 1 makes the step tensor parallel as well
+(``sharding/tp.py``; ``rules.use_tp`` configs): the ranks of a model
+group take the same rows, each holding its shard of the parameters.  A
+rank holds its parameters as ``rules.held_specs`` says (its model-axis
+splits; under ``moe_impl="ep_a2a"`` its slice of the expert banks over
+``data``: ``shard_params``; ``run(params=)`` takes them so); checkpoints
+hold the full tree, gathered on every rank and written by rank 0.
 ``in_shardings`` (the batch's specs) is checked against ``batch_spec``.
-A ``model`` axis larger than 1 (tensor parallelism) raises: ROADMAP Queue
-1, item 5.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from repro_torch.models import api
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.sharding import rules
 from repro_torch.optim.optimizers import tree_map
-from repro_torch.sharding.context import mesh_context
+from repro_torch.sharding.context import SubMesh, mesh_context
 from repro_torch.train import checkpoint as ckpt_lib
 
 
@@ -56,12 +57,6 @@ class Trainer:
     mesh: Any = None
 
     def __post_init__(self) -> None:
-        if self.mesh is not None and self.mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                "Trainer: tensor parallelism over a model axis of "
-                f"{self.mesh.shape['model']} is not ported yet (ROADMAP "
-                "Queue 1, item 5, TP over model with seq_parallel); the "
-                "trainer is data parallel")
         if self.in_shardings is not None and self.mesh is None:
             raise ValueError("Trainer: in_shardings needs a mesh")
         if self.tcfg.ckpt_every and not self.tcfg.ckpt_dir:
@@ -111,7 +106,7 @@ class Trainer:
                              f"are not the batch's specs {spec}")
         axes = rules.data_axes(self.mesh)
         if spec["tokens"][0] is None:
-            if self._held() is not None:
+            if self.cfg.is_moe and self.cfg.moe_impl == "ep_a2a":
                 raise ValueError(f"ep_a2a needs the batch of "
                                  f"{tokens.shape[0]} split over {axes}")
             return batch, False
@@ -143,7 +138,8 @@ class Trainer:
         opt_state, history)."""
         if params is None:
             params, opt_state = self.init(gen)
-        if self.mesh is not None and not rules.data_axes(self.mesh):
+        tp = self.mesh is not None and rules.tp_on(self.cfg, self.mesh)
+        if self.mesh is not None and not (rules.data_axes(self.mesh) or tp):
             raise ValueError(f"Trainer: the mesh {self.mesh.shape} has no "
                              f"data axis")
         step_fn = api.make_train_step(self.cfg, self.optimizer)
@@ -153,7 +149,8 @@ class Trainer:
             batch, mesh = next(data), self.mesh
             if mesh is not None:
                 batch, split = self._rows(batch)
-                mesh = mesh if split else None
+                if not split:       # every data rank runs the whole batch
+                    mesh = SubMesh(mesh, ("model",)) if tp else None
             with mesh_context(mesh):
                 params, opt_state, metrics = step_fn(params, opt_state,
                                                      batch, step)

@@ -380,13 +380,13 @@ def test_trainer_checkpoints_and_refuses_a_mesh(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(
         topt.tree_leaves(restored), topt.tree_leaves(
             {"params": params, "opt": opt_state})))
-    # a mesh with a model axis above 1 (tensor parallelism) raises, naming
-    # the ROADMAP item; a data-parallel mesh is taken (its runs:
-    # tests/test_torch_trainer_dp.py), in_shardings only with a mesh
+    # a mesh with a model axis above 1 (tensor parallelism; its runs:
+    # tests/test_torch_tp.py) and a data-parallel mesh (its runs:
+    # tests/test_torch_trainer_dp.py) are taken, in_shardings only with a
+    # mesh
     from repro_torch.sharding.context import AbstractMesh
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5, TP"):
-        Trainer(cfg, topt.adamw(1e-3),
-                mesh=AbstractMesh((2, 2), ("data", "model")))
+    Trainer(cfg, topt.adamw(1e-3),
+            mesh=AbstractMesh((2, 2), ("data", "model")))
     Trainer(cfg, topt.adamw(1e-3), mesh=AbstractMesh((4, 1),
                                                      ("data", "model")))
     with pytest.raises(ValueError, match="in_shardings needs a mesh"):

@@ -29,7 +29,6 @@ from repro_torch.learners.neural import NeuralBackbone as TNeural
 from repro_torch.models import api as tapi
 from repro_torch.models import classifier as tclassifier
 from repro_torch.optim import optimizers as topt
-from repro_torch.train.trainer import Trainer
 from test_torch_moe import (_ref_loss, _train_case, assert_grads_close,
                             neural_fit_matches_reference)
 from torch_zoo_common import cfgs, jbatch, np_tree, tbatch
@@ -96,21 +95,17 @@ def test_neural_core_fit_over_mla_backbone():
 
 
 def test_what_stays_unported_raises():
-    """Tensor parallelism in a Trainer mesh (ROADMAP Queue 1, item 5);
-    use_flash with MLA (the kernels take one head dim for q, k and v); the
-    encoder-decoder as a classifier or neural backbone.  Expert
+    """use_flash with MLA (the kernels take one head dim for q, k and v);
+    the encoder-decoder as a classifier or neural backbone.  Expert
     parallelism (moe_impl='ep_a2a') is in: its init is the grouped
-    config's, and without a mesh it runs the grouped path."""
-    from repro_torch.sharding.context import AbstractMesh
+    config's, and without a mesh it runs the grouped path.  Tensor
+    parallelism in a Trainer mesh is in too (tests/test_torch_tp.py)."""
     _, moe = cfgs("granite-moe-1b-a400m")
     ep = tapi.init_params(moe.with_overrides(moe_impl="ep_a2a"),
                           torch.Generator().manual_seed(0))
     gmm = tapi.init_params(moe, torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b) for a, b in zip(topt.tree_leaves(ep),
                                                  topt.tree_leaves(gmm)))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Trainer(moe, topt.adamw(1e-3),
-                mesh=AbstractMesh((1, 2), ("data", "model")))
     _, mla = cfgs("minicpm3-4b", use_flash=True)
     for call in (lambda: tapi.init_params(mla),
                  lambda: tapi.forward({}, {"tokens": torch.zeros(

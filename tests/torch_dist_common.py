@@ -14,7 +14,9 @@ CPU, and the JAX package's multi-device reference in a subprocess.
     ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` (the flag
     never reaches the test process) that saves its outputs with
     ``np.savez`` to the path in ``OUT`` (its inputs, if any, in the
-    ``.npz`` at ``INPUTS``); :meth:`JaxReference.result` loads them.  Start it before the world: the two run side by side.
+    ``.npz`` at ``INPUTS``); :meth:`JaxReference.result` loads them (it is
+    killed at ``deadline`` seconds, ``DEADLINE`` by default).  Start it
+    before the world: the two run side by side.
 
 A rank function's module must not import ``jax`` at its top: every rank
 imports it.
@@ -132,7 +134,8 @@ class JaxReference:
     (8 host devices), started at construction."""
 
     def __init__(self, script: str, tmp: Path,
-                 inputs: dict | None = None) -> None:
+                 inputs: dict | None = None,
+                 deadline: float = DEADLINE) -> None:
         tmp = Path(tmp)
         tmp.mkdir(parents=True, exist_ok=True)
         self.out = tmp / "jax_ref.npz"
@@ -145,11 +148,12 @@ class JaxReference:
                      INPUTS=str(tmp / "jax_inputs.npz")),
             stdout=self.log, stderr=subprocess.STDOUT)
         self.start = time.monotonic()
+        self.deadline = deadline
 
     def result(self) -> dict:
         try:
             self.proc.wait(timeout=max(
-                1.0, DEADLINE - (time.monotonic() - self.start)))
+                1.0, self.deadline - (time.monotonic() - self.start)))
         except subprocess.TimeoutExpired:
             self.proc.kill()
             self.proc.wait()
