@@ -61,8 +61,12 @@
    with the model's strided layouts: flash attention at S = T = 512, a
    ragged S = T = 500, right-aligned S 500 < T 512, a window of 128; flash
    decode against a cache of 576 at pos 0, 511, 575, fp and int8, with and
-   without a window.  Checks that the decode grid at the serve shape puts
-   2 or more blocks on each SM.  Prints ``flash_table`` (bf16, per model):
+   without a window, and on the same inputs the split kernel on its own
+   plan (``flash_decode.split_plan``, through ``flash_decode._launch``,
+   not counted) in both modes, its lse within 1e-3 of the plain
+   version's.  Checks that the decode at the serve shape takes the
+   cluster kernel (``flash_decode.decode_plan``) with a block or more on
+   each SM.  Prints ``flash_table`` (bf16, per model):
    call ms (CUDA events), device_ms (torch.profiler's kernel durations a
    call, L2 warm) and device_ms_cold (the same over copies of the inputs
    that exceed the 50 MB L2), plain version, bound, and
@@ -70,7 +74,7 @@
    yardstick; a boolean mask for a window or a cache position).
 9. Full-width serve, qwen3-0.6b (28 layers, bf16, random weights) through
    ``repro_torch.launch.serve --no-reduced --use_flash``: batch 4, prompt
-   512, SERVE_GEN tokens (32), once plain and once with --kv_quant; one
+   512, SERVE_GEN tokens (16), once plain and once with --kv_quant; one
    flash_attention launch per layer per prefill and one flash_decode
    launch per layer per decode step.  Then, on the same weights and tokens, teacher-forced
    against use_flash=False (the einsum attention) with the weights in
@@ -136,18 +140,20 @@
    ``core.compiled``: the session as one fixed-shape program with no host
    read, its ledger replayed; ``fleet_run``: F sessions in one vmapped
    program).  (a) Fashion at full width with the paper's MLP(128, 64), 200
-   steps, 5 rounds, compiled against eager on the card: components, stop
+   steps, COMPILED_FASHION_ROUNDS (3) rounds, compiled against eager on
+   the card: components, stop
    round, predictions equal, w bit-equal; the session's seconds, ms a fit
    and peak memory for both.  (b) MIMIC size, LogisticRegression agents
-   (``--steps`` MIMIC_STEPS), built through the CLI's parse_args and
+   (``--steps`` MIMIC_STEPS, COMPILED_MIMIC_ROUNDS (5) rounds), built
+   through the CLI's parse_args and
    check_args with --backend compiled: fp32, phase 6's five channels,
    --controller resid, --controller entropy, --scheduler budget-aware
    under the budget; compiled = eager on the card: ledgers, rungs, round
    orders, stop rounds, predictions exact, w bit-equal (the async
    variant under --backend compiled: phase 18(a)).  (c) Fleets: 32 MIMIC
-   int8 sessions (keys 0..31) and 4 Fashion-MLP sessions (2 rounds) on
+   int8 sessions (keys 0..31) and 2 Fashion-MLP sessions (2 rounds) on
    shared data;
-   every Fashion session and 4 of the 32 MIMIC ones (0-2 and 31) against
+   every Fashion session and 2 of the 32 MIMIC ones (0 and 31) against
    compiled_session with the same key (bit-equal; an MLP session may
    part only at a hop that rounding decides: w and alphas bit-equal
    before it, its fits within 12(a)'s limit, every parted prediction a
@@ -204,8 +210,8 @@
    max|R|; one block quantize an int-coded shipped hop.  (c) Fashion
    FedAvg at full width (42000 rows, 2 x 392 pixels, FEDAVG_ROUNDS
    rounds of the paper's 5) with
-   LogisticRegression(steps=300) (d = 3930) and MLP(128, 64) with 200
-   steps (d = 59210), under fp32, int8, int4, DP epsilon 1 with
+   LogisticRegression (d = 3930) and MLP(128, 64) (d = 59210), each
+   FEDAVG_STEPS local steps a round, under fp32, int8, int4, DP epsilon 1 with
    subsampled-rdp under the subsample preset, and a byte budget: the
    card's one-program FedAvg = its eager FedAvg bit for bit (g, history,
    ledger, rungs, skips, releases, exhaustion); quantize launches = the
@@ -247,8 +253,8 @@
    copies of a session, a fleet and the engine beside the device
    operations a live program adds, and each part's seconds.
 18. The rest of the compiled backend, MIMIC at full size (n = 15000,
-   agents of 3 and 13 features, LogisticRegression(steps=MIMIC_STEPS), 10
-   rounds).  (a) The async-stale lowering (``core.compiled.
+   agents of 3 and 13 features, LogisticRegression(steps=MIMIC_STEPS);
+   ASYNC_ROUNDS, SWEEP_ROUNDS and CONTROL_ROUNDS rounds).  (a) The async-stale lowering (``core.compiled.
    async_session`` through ``Protocol(backend="compiled")``) against the
    eager async run on the card under the reference's five async channels
    (plain, int8, DP epsilon 2 clip 0.1, and on the (int8, int4) ladder a
@@ -260,8 +266,8 @@
    release eager, a round and int rung compiled; eager and compiled
    seconds; the async program (tight budget and DP) under
    ``torch.cuda.set_sync_debug_mode("error")``: no host read.  (b)
-   ``quant_sweep_run`` on an int8 plan at qmax [127, 31, 7] with equal
-   keys and the serve axis on the 4500 held-out rows: each row =
+   ``quant_sweep_run`` on an int8 plan at qmax [127, 31, 7], SWEEP_ROUNDS
+   (5) rounds, with equal keys and the serve axis on the 4500 held-out rows: each row =
    ``compiled_session`` + ``serve_session`` of the static plan at its
    range (int8, a 6-bit ``QuantCodec`` built for it, int4) and = the
    eager run, bit for bit, the fits' params within Queue 3's logistic
@@ -351,7 +357,8 @@
    ``tp.combine_ce`` and its dlogits by ``ops.weighted_ce_shard_bwd``: the
    loss and lse within rtol 1e-5 of the whole-vocab kernel and of the
    plain version, the dlogits as phase 10 holds them (elementwise 2^-7,
-   row sums 0); one launch of each shard kernel a shard.  (b) The
+   row sums 0); one launch of each shard kernel a shard, the forward's the
+   staged kernel (``weighted_ce.shard_fwd_plan``).  (b) The
    length-shard ``flash_decode`` at decode_32k's per-data-shard geometry
    (B 8, H 16, KV 8, D 128, S 32768 bf16, the model's [B, S, KV, D] cache
    views) cut into 16 chunks of 2048 at pos 32767, 20000 (chunks past it)
@@ -359,7 +366,10 @@
    plain shard mode's (-inf exactly past pos) and its o within 2^-6 of
    its max|o|; ``tp.merge_partials`` of the chunks' (o, lse) within 2^-6
    max|ref| of the whole-cache kernel and of the plain version; one
-   launch a chunk that holds a valid position.  (c) Plumbing
+   launch a chunk that holds a valid position, every one the cluster
+   kernel (``flash_decode.decode_plan``), one device kernel a chunk (no
+   merge launch); SDPA over each chunk (o alone, no lse) timed beside it
+   as a yardstick.  (c) Plumbing
    only: the steps under a (1, 1) mesh over a one-rank NCCL group =
    the mesh-less steps bit for bit, qwen3-0.6b full width bf16 with
    use_flash: prefill and 4 decode steps at batch 4 (the heads layout)
@@ -419,28 +429,52 @@ SERVE_STEPS = 25
 FASHION_FLEET_ROUNDS = 2
 # phase 14(c)'s fleet sizes and the MIMIC fleet's sessions held against
 # compiled_session and eager runs (Fashion 8 and 8 of 32 MIMIC ones took
-# 99 s on an H100 80GB HBM3 at 700 W; cut for phase 18)
-FASHION_FLEET, MIMIC_FLEET, MIMIC_HELD = 4, 32, (0, 1, 2, 31)
+# 99 s on an H100 80GB HBM3 at 700 W; cut for phase 18; Fashion 4 and 4
+# of 32 took 60 s, and the whole script 1200 s on a slower host: cut to
+# 2 and 2)
+FASHION_FLEET, MIMIC_FLEET, MIMIC_HELD = 2, 32, (0, 31)
 # phase 12(d)'s backbone steps (its CPU fit took 57 s at 20; cut to 10
-# for phase 18, to 6 for phase 19: 28 s at 10 on a slower host)
-BACKBONE_STEPS = 6
-# phase 9's generated tokens (64 until phase 19: its four teacher-forced
-# paths decode every one twice)
-SERVE_GEN = 32
+# for phase 18, to 6 for phase 19: 28 s at 10 on a slower host; to 3 when
+# the whole script passed 1200 s on a slower host: 20 s at 6)
+BACKBONE_STEPS = 3
+# phase 9's generated tokens (64 until phase 19, 32 until the whole script
+# passed 1200 s on a slower host: its four teacher-forced paths decode
+# every one twice)
+SERVE_GEN = 16
+# phase 9's decode steps under torch.profiler (8 until the script passed
+# 1200 s: the profiler's tables of 28 layers' launches cost seconds a step)
+PROFILE_STEPS = 4
+# phase 11's 100m preset steps (300 until the script passed 1200 s: 20 s)
+PRESET_STEPS = 150
 # phase 16(c)'s FedAvg rounds (the paper's 5 cut to 3: its twenty
 # sessions took ~150 s, and phase 17 would take the script past 800 s)
 FEDAVG_ROUNDS = 3
+# phase 16(c)'s local steps a round (logistic 300 and the paper's MLP 200
+# until the whole script passed 1200 s on a slower host; the budget's
+# rounds and every check are the same at any step count)
+FEDAVG_STEPS = 100
+# the rounds of phase 14(a)'s Fashion MLP sessions (the session's 5), 14(b)'s
+# nine MIMIC configs, 18(b)'s sweep and 14(e)'s sync-checked session (10),
+# 18(a)'s async channels and 18(c)'s control sweep (10: the tight budget
+# and the tightest cap still run dry before the last round), and 15(b)'s
+# engine sessions (10): cut when the whole script passed 1200 s on a
+# slower host; each check holds one backend or route to the other,
+# whatever the rounds
+COMPILED_FASHION_ROUNDS, COMPILED_MIMIC_ROUNDS, SWEEP_ROUNDS = 3, 5, 5
+SYNC_CHECK_ROUNDS, ASYNC_ROUNDS, CONTROL_ROUNDS = 3, 7, 7
+ENGINE_FIT_ROUNDS = 5
 # phase 19(a)'s serve cells: arch -> (layers kept, batch, prompt, tokens
-# generated); None keeps the published depth.  qwen3-moe (94 layers) and
+# generated, halved when the whole script passed 1200 s on a slower
+# host); None keeps the published depth.  qwen3-moe (94 layers) and
 # jamba (32) fit one 80 GB card only cut in depth: 2 layers (~6.2 B
 # params, ~12.4 GB in bf16) and one pattern unit of 8 (~13 B, ~26 GB)
-ZOO_SERVE = {"granite-moe-1b-a400m": (None, 4, 512, 32),
-             "mamba2-130m": (None, 4, 512, 32),
-             "minicpm3-4b": (None, 4, 512, 32),
-             "internvl2-2b": (None, 4, 512, 32),
-             "whisper-tiny": (None, 4, 512, 32),
-             "qwen3-moe-235b-a22b": (2, 1, 256, 16),
-             "jamba-v0.1-52b": (8, 1, 256, 16)}
+ZOO_SERVE = {"granite-moe-1b-a400m": (None, 4, 512, 16),
+             "mamba2-130m": (None, 4, 512, 16),
+             "minicpm3-4b": (None, 4, 512, 16),
+             "internvl2-2b": (None, 4, 512, 16),
+             "whisper-tiny": (None, 4, 512, 16),
+             "qwen3-moe-235b-a22b": (2, 1, 256, 8),
+             "jamba-v0.1-52b": (8, 1, 256, 8)}
 # phase 19(d)'s card = CPU cells: arch -> layers kept ("reduced":
 # reduced(); the CPU runs them too)
 ZOO_CPU = {"mamba2-130m": None, "whisper-tiny": None,
@@ -448,10 +482,11 @@ ZOO_CPU = {"mamba2-130m": None, "whisper-tiny": None,
            "jamba-v0.1-52b": "reduced", "qwen3-moe-235b-a22b": "reduced"}
 # phase 19(e): the archs trained and fitted as ASCII backbones, the train
 # steps, and the backbone fits' steps (a CPU fit of granite's 32 dense
-# experts at full width costs ~1 s a step)
+# experts at full width costs ~1 s a step; 3 backbone steps until the
+# whole script passed 1200 s on a slower host)
 ZOO_TRAIN = ("granite-moe-1b-a400m", "mamba2-130m")
 ZOO_TRAIN_STEPS = 3
-ZOO_BACKBONE_STEPS = 3
+ZOO_BACKBONE_STEPS = 2
 
 
 def _cuda_time_ms(fn, reps: int = 200, warmup: int = 20) -> float:
@@ -873,7 +908,8 @@ class Smoke:
         _build.build(*sources)
         secs = time.perf_counter() - t0
         usage, hop = {}, {}
-        for name in ("flash_attention", "flash_decode"):
+        for name in ("flash_attention", "flash_decode",
+                     "flash_decode_cluster"):
             usage.update(_ptxas_usage(_build.LOGS[name]))
         for name in ("ignorance", "quantize"):
             hop.update(_ptxas_usage(_build.LOGS[name]))
@@ -1659,6 +1695,8 @@ class Smoke:
         gen = torch.Generator(device=self.dev).manual_seed(2)
         tols = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
         worst, timed = {}, []
+        sms = fd.sm_count(torch.cuda.current_device())
+        split_s = 0.0           # the split kernel's own checks
 
         def randn(*shape, dtype):
             return torch.randn(*shape, generator=gen, device=self.dev).to(
@@ -1725,21 +1763,28 @@ class Smoke:
                                   f"decode {model} {str(dtype)[6:]}"
                                   f"{' int8' if quant else ''}", got, again,
                                   want, vmax, tol)
+                            t0 = time.perf_counter()
+                            self._split_vs_plain(
+                                check, q, kt, vt, pos, window, scales, sms,
+                                want, vmax, tol)
+                            split_s += time.perf_counter() - t0
                     if dtype == torch.bfloat16 and (
                             model == "qwen3-0.6b" or not quant):
                         timed.append(("decode", model, (q, kt, vt), scales,
                                       got, want))
         # the decode grid at the serve shape's last step (pos 575)
         b, h, kv, d = self.FLASH_SHAPES[0][1:5]
-        sms = fd.sm_count(torch.cuda.current_device())
         lo, hi = fd.valid_range(575, 576, None)
         gt = fd.heads_per_block(h // kv)
-        n_split, chunk = fd.split_plan(lo, hi, b * h // gt, sms,
-                                       fd.rows_per_pass(torch.bfloat16, d))
+        kernel, n_split, chunk = fd.decode_plan(
+            lo, hi, b * h // gt, sms, fd.rows_per_pass(torch.bfloat16, d))
         blocks = b * h // gt * n_split
-        self.require(gt == h // kv and blocks >= 2 * sms,
+        # the cluster kernel: a cluster of n_split blocks a row, every SM
+        # a block or more
+        self.require(gt == h // kv and kernel == "flash_decode_cluster"
+                     and blocks >= sms,
                      f"flash_decode grid {blocks} blocks ({gt} heads a "
-                     f"block) on {sms} SMs")
+                     f"block, {kernel}) on {sms} SMs")
         # call times first, then the profiler's device times (so that no
         # call time is taken after a profiler session)
         rows = [self._flash_row(*row) for row in timed]
@@ -1773,8 +1818,43 @@ class Smoke:
                 "err / max|v|: " + ", ".join(f"{k} {v:.3g}"
                                              for k, v in worst.items())
                 + f" (tolerance 2e-5 f32, 2^-7 bf16); decode grid {blocks} "
-                f"blocks on {sms} SMs ({n_split} splits of {chunk} "
-                f"positions, {gt} query heads a block)")
+                f"blocks on {sms} SMs ({kernel}: {n_split} blocks of "
+                f"{chunk} positions a row, {gt} query heads a block); the "
+                f"split kernel held on its own plan in {split_s:.1f} s")
+
+    def _split_vs_plain(self, check, q, k, v, pos, window, scales, sms,
+                        want, vmax, tol) -> None:
+        """The split kernel and its merge on the same inputs, on its own
+        plan (``split_plan``), in both modes: ``decode_plan`` gives these
+        shapes the cluster kernel, and the split kernel runs on long
+        caches at batch 1 (``decode_plan``).  Its output held to the plain version as the wrapper's is,
+        its lse within 1e-3 of the plain version's; two runs the same
+        bits.  Not counted: ``_launch`` is below the wrappers' counts."""
+        torch = self.torch
+        from repro_torch.kernels import flash_decode as fd
+        b, h, d = q.shape
+        kv = k.shape[1]
+        lo, hi = fd.valid_range(pos, k.shape[2], window)
+        gt = fd.heads_per_block(h // kv)
+        plan = fd.split_plan(lo, hi, b * h // gt, sms,
+                             fd.rows_per_pass(k.dtype, d))
+        ks, vs = scales.get("k_scale"), scales.get("v_scale")
+        what = (f"split kernel {q.dtype} quant={ks is not None} B={b} "
+                f"H={h} D={d} pos={pos} window={window}")
+        key = (f"decode split {str(q.dtype)[6:]}"
+               f"{' int8' if ks is not None else ''}")
+        got, again = (fd._launch("flash_decode", q, k, v, ks, vs, lo, hi,
+                                 *plan, gt, False) for _ in range(2))
+        check(what, key, got, again, want, vmax, tol)
+        (o, lse), (o2, lse2) = (fd._launch("flash_decode", q, k, v, ks, vs,
+                                           lo, hi, *plan, gt, True)
+                                for _ in range(2))
+        want_o, want_lse = fd.flash_decode_plain(
+            q, k, v, pos, window=window, return_lse=True, **scales)
+        check(what + " shard mode", key, o, o2, want_o, vmax, tol)
+        err = float((lse - want_lse).abs().max())
+        self.require(err <= 1e-3, f"{what}: lse err {err} > 1e-3")
+        self.require(torch.equal(lse, lse2), f"{what}: two runs' lse differ")
 
     def _flash_scaling(self) -> list:
         """bf16 flash_attention at qwen3-0.6b's heads (H 16, KV 8, D 128)
@@ -1890,9 +1970,13 @@ class Smoke:
                 cache_bytes += 2 * b * kv * valid * 4
             nbytes = 2 * q.numel() * q.element_size() + cache_bytes
             ops_ = 4 * b * h * valid * d
+            kernel = fd.decode_plan(
+                0, pos, b * h // fd.heads_per_block(h // kv),
+                fd.sm_count(torch.cuda.current_device()),
+                fd.rows_per_pass(k.dtype, d))[0]
             row = {"model": model, "S": s, "pos": pos,
                    "cache": "int8" if scales else "bf16", "source":
-                   "src/repro_torch/csrc/flash_decode.cu", "replaces":
+                   f"src/repro_torch/csrc/{kernel}.cu", "replaces":
                    "src/repro/kernels/flash_decode.py:96"}
         lib_ms = _cuda_time_ms(lib_fn, reps=100)
         bound, by = _bound_ms(nbytes, ops_, BF16_OPS_PER_S)
@@ -1952,7 +2036,8 @@ class Smoke:
                                              for k, v in e.items())
                     for name, e in errs.items()))
 
-    def _profile(self, api, run, quant: bool, steps: int = 8) -> dict:
+    def _profile(self, api, run, quant: bool,
+                 steps: int = PROFILE_STEPS) -> dict:
         """torch.profiler over one prefill and ``steps`` decode steps of the
         flash path on one run's weights and tokens: wall ms (host clock,
         under the profiler), the device's kernel and copy ms, its idle
@@ -2211,17 +2296,18 @@ class Smoke:
         out += "; " + self._kernel_vs_plain_step(run)
         self.reset_counts()
         pre = cli.run(cli.parser().parse_args(
-            ["--preset", "100m", "--steps", "300", "--device", "cuda",
-             "--seed", "0"]))
-        self.read_counts(0, "train 100m", weighted_ce_fwd=300,
-                         weighted_ce_bwd=300)
+            ["--preset", "100m", "--steps", str(PRESET_STEPS), "--device",
+             "cuda", "--seed", "0"]))
+        self.read_counts(0, "train 100m", weighted_ce_fwd=PRESET_STEPS,
+                         weighted_ce_bwd=PRESET_STEPS)
         first, last = pre.history[0]["loss"], pre.history[-1]["loss"]
         self.require(all(math.isfinite(h["loss"]) for h in pre.history)
                      and last < first,
                      f"100m preset: loss {first} -> {last} did not fall")
         pre_ms = statistics.median(pre.step_s[1:]) * 1e3
         return (out + f"; 100m preset (float32, {api.count_params(pre.params)}"
-                f" params) 300 steps: loss {first:.4f} -> {last:.4f} "
+                f" params) {PRESET_STEPS} steps: loss {first:.4f} -> "
+                f"{last:.4f} "
                 f"(improved), step {pre_ms:.2f} ms, "
                 f"{tokens / pre_ms * 1e3:.1f} tokens/s, peak "
                 f"{pre.peak_bytes / 2 ** 30:.3f} GiB")
@@ -3062,7 +3148,8 @@ class Smoke:
         from repro_torch.core import engine as E
         from repro_torch.learners.mlp import MLP
         Xtr, ctr, Xte, cte = self._fashion_data()
-        cfg = E.SessionConfig(num_classes=10, max_rounds=5)
+        rounds = COMPILED_FASHION_ROUNDS
+        cfg = E.SessionConfig(num_classes=10, max_rounds=rounds)
         runs = {}
         for backend in ("eager", "compiled"):
             self.reset_counts()
@@ -3076,7 +3163,7 @@ class Smoke:
             else:
                 plan = C.plan_for([MLP(hidden=(128, 64), steps=200,
                                        device="cuda")] * 2, 10,
-                                  max_rounds=5)
+                                  max_rounds=rounds)
                 self._compiled_counts(plan, False, "fashion mlp compiled")
         (ep, ef, esec, epeak, fit_ms), (cp, cf, csec, cpeak, _) = (
             runs["eager"], runs["compiled"])
@@ -3091,8 +3178,9 @@ class Smoke:
         self.require(same_w, "fashion mlp: compiled w is not the eager w "
                      "bit for bit (the same ops in the same order)")
         acc = float((cf.predict(Xte) == cte).float().mean())
-        fits = 5 * 2
-        return (f"(a) fashion MLP(128,64) 200 steps 5 rounds: compiled = "
+        fits = rounds * 2
+        return (f"(a) fashion MLP(128,64) 200 steps {rounds} rounds: "
+                f"compiled = "
                 f"eager (components {len(cf.components)}, stop, "
                 f"predictions, w bit-equal), acc {acc:.4f}; eager "
                 f"{esec:.2f} s ({statistics.median(fit_ms):.1f} ms a fit, "
@@ -3144,7 +3232,8 @@ class Smoke:
                         _rungs.append(int(_inner(w_prev, w_out)))
                         return _rungs[-1]
                     transport._controller_rung = step
-                cfg = E.SessionConfig(num_classes=2, max_rounds=10,
+                cfg = E.SessionConfig(num_classes=2,
+                                      max_rounds=COMPILED_MIMIC_ROUNDS,
                                       upstream=upstream)
                 self.reset_counts()
                 proto, fitted, secs, _, _ = self._timed_fit(
@@ -3170,8 +3259,8 @@ class Smoke:
                     rungs = [int(x) for x in res.codec_idx.cpu()[sent]]
                     plan = C.plan_for(
                         [cli.LEARNERS["logistic"](args) for _ in Xtr], 2,
-                        max_rounds=10, codec=transport.codec,
-                        privacy=transport.privacy,
+                        max_rounds=COMPILED_MIMIC_ROUNDS,
+                        codec=transport.codec, privacy=transport.privacy,
                         budget=getattr(transport, "budget", None),
                         controller=transport.controller,
                         serve_codec=transport.serve_codec,
@@ -3217,7 +3306,8 @@ class Smoke:
                        f"rounds={len(cf.history)} acc={acc:.4f} "
                        f"bits={ct.total_bits} eager {esec:.2f} s compiled "
                        f"{csec:.2f} s")
-        return (f"(b) mimic logistic({MIMIC_STEPS}) 10 rounds, compiled = "
+        return (f"(b) mimic logistic({MIMIC_STEPS}) "
+                f"{COMPILED_MIMIC_ROUNDS} rounds, compiled = "
                 "eager on the "
                 "card (ledgers, rungs, orders, stops, predictions, w "
                 "bit-equal): " + "; ".join(out))
@@ -3339,12 +3429,12 @@ class Smoke:
         return secs
 
     def _fleets(self) -> str:
-        """(c) a MIMIC int8 seed fleet of 32 and a Fashion-MLP fleet of 4 on
+        """(c) a MIMIC int8 seed fleet of 32 and a Fashion-MLP fleet of 2 on
         shared data; each against compiled_session calls and eager
-        sessions: all 4 Fashion sessions, and 4 of the 32 MIMIC ones (the
-        first 3 and the last; 32 of each took 150 s on the card, more
+        sessions: both Fashion sessions, and 2 of the 32 MIMIC ones (the
+        first and the last; 32 of each took 150 s on the card, more
         than phase 14's share of the script's time limit; 8 and 8 took 99
-        s).  The Fashion fleet runs 2 rounds of the session's 5
+        s, 4 and 4 60 s).  The Fashion fleet runs 2 rounds of the session's 5
         (FASHION_FLEET_ROUNDS), to leave phases 16 to 18 their share of
         the script's time."""
         torch = self.torch
@@ -3408,7 +3498,8 @@ class Smoke:
         Xtr, ctr, _, _ = self._mimic_data()
         plan = C.plan_for([LogisticRegression(steps=MIMIC_STEPS,
                                               device="cuda")] * 2,
-                          2, max_rounds=10, codec=QuantCodec(8))
+                          2, max_rounds=SYNC_CHECK_ROUNDS,
+                          codec=QuantCodec(8))
         shapes = tuple(tuple(x.shape[1:]) for x in Xtr)
         fn = C.make_session_fn(plan, shapes)
         single = C._draws_for(plan, E.key_data(0), int(ctr.shape[0]), shapes,
@@ -3539,12 +3630,12 @@ class Smoke:
                 f"{floor:.5f}, 8 lone launches {first['lone_launches_ms']:.5f}"
                 f" ms)")
 
-    def _serve_fit(self, backend, key, transport, data):
+    def _serve_fit(self, backend, key, transport, data, rounds=10):
         """One MIMIC logistic session fitted on the card, as phase 14(b)."""
         from repro_torch.core import engine as E
         from repro_torch.learners.logistic import LogisticRegression
         Xtr, ctr = data[:2]
-        proto = E.Protocol(E.SessionConfig(num_classes=2, max_rounds=10),
+        proto = E.Protocol(E.SessionConfig(num_classes=2, max_rounds=rounds),
                            transport=transport, backend=backend,
                            device="cuda")
         proto.fit(key, E.endpoints_for(
@@ -3719,7 +3810,8 @@ class Smoke:
         t0 = time.perf_counter()
         protos = {f"s{s}": self._serve_fit(
             "compiled", s, E.MeteredTransport(
-                serve_codec=codecs.QuantCodec(8)), data) for s in range(8)}
+                serve_codec=codecs.QuantCodec(8)), data,
+            rounds=ENGINE_FIT_ROUNDS) for s in range(8)}
         fit_s = time.perf_counter() - t0
         self.serve_protos = protos
         engine = ServeEngine(cache_capacity=4, max_batch=8, device="cuda")
@@ -3785,8 +3877,8 @@ class Smoke:
         mech = GaussianMechanism(epsilon=1.0)
         dp = {f"s{s}": self._serve_fit(
             "compiled", s, E.MeteredTransport(
-                serve_codec=codecs.QuantCodec(8), privacy=mech), data)
-            for s in range(4)}
+                serve_codec=codecs.QuantCodec(8), privacy=mech), data,
+            rounds=ENGINE_FIT_ROUNDS) for s in range(4)}
         full = codecs.QuantCodec(8).wire_bits((1024, 2))
         stream = self._serve_stream(64, 4, 4, n_te, seed=1)
         shown = []
@@ -4057,8 +4149,8 @@ class Smoke:
                  // 8)
 
     def _scenario_fedavg(self) -> str:
-        """(c) Fashion FedAvg at full width, logistic(300) and the paper's
-        MLP(128, 64) with 200 steps, FEDAVG_ROUNDS rounds, under fp32,
+        """(c) Fashion FedAvg at full width, logistic and the paper's
+        MLP(128, 64), FEDAVG_STEPS steps a round, FEDAVG_ROUNDS rounds, under fp32,
         int8, int4, DP epsilon 1 with subsampled-rdp under the subsample
         preset, and a byte budget: the card's one-program FedAvg = its
         eager FedAvg bit for bit (g, history, ledger, rungs, skips,
@@ -4076,9 +4168,9 @@ class Smoke:
         Xtr, ctr, Xte, cte = self._fashion_data()
         n = int(ctr.shape[0])
         learners = {
-            "logistic(300)": lambda: LogisticRegression(steps=300,
-                                                        device="cuda"),
-            "mlp(128,64)": lambda: MLP(hidden=(128, 64), steps=200,
+            f"logistic({FEDAVG_STEPS})": lambda: LogisticRegression(
+                steps=FEDAVG_STEPS, device="cuda"),
+            "mlp(128,64)": lambda: MLP(hidden=(128, 64), steps=FEDAVG_STEPS,
                                        device="cuda")}
         ascii_acc = (f"{self.fashion_fp32[4]:.4f}" if self.fashion_fp32
                      else "not run")
@@ -4621,7 +4713,8 @@ class Smoke:
         n_te = int(Xte[0].shape[0])
         protos = self.serve_protos or {
             f"s{s}": self._serve_fit("compiled", s, E.MeteredTransport(
-                serve_codec=codecs.QuantCodec(8)), data) for s in range(8)}
+                serve_codec=codecs.QuantCodec(8)), data,
+                rounds=ENGINE_FIT_ROUNDS) for s in range(8)}
         plan = protos["s0"]._compiled_ctx[1]
         stream = self._serve_stream(64, 8, 4, n_te)
         runs = []
@@ -4901,7 +4994,7 @@ class Smoke:
         from repro_torch.core import engine as E
         from repro_torch.learners.logistic import LogisticRegression
         Xtr, ctr, Xte, cte = self._mimic_data()
-        n, m, rounds = int(ctr.shape[0]), len(Xtr), 10
+        n, m, rounds = int(ctr.shape[0]), len(Xtr), ASYNC_ROUNDS
         n_te = int(cte.shape[0])
         cfg = E.SessionConfig(num_classes=2, max_rounds=rounds)
         out = []
@@ -5039,7 +5132,7 @@ class Smoke:
         from repro_torch.kernels import quantize as q
         from repro_torch.learners.logistic import LogisticRegression
         Xtr, ctr, Xte, cte = self._mimic_data()
-        n, m, rounds = int(ctr.shape[0]), len(Xtr), 10
+        n, m, rounds = int(ctr.shape[0]), len(Xtr), SWEEP_ROUNDS
         n_te, hops = int(cte.shape[0]), rounds * len(Xtr)
         qmaxes, bits_of = [127.0, 31.0, 7.0], {127.0: 8, 31.0: 6, 7.0: 4}
 
@@ -5154,7 +5247,7 @@ class Smoke:
         from repro_torch.telemetry import MetricsRegistry
         from repro_torch.telemetry.live import LiveSink, installed
         Xtr, ctr, _, _ = self._mimic_data()
-        n, m, rounds = int(ctr.shape[0]), len(Xtr), 10
+        n, m, rounds = int(ctr.shape[0]), len(Xtr), CONTROL_ROUNDS
         hops = rounds * m
 
         def learners():
@@ -5984,6 +6077,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels import ops
         from repro_torch.kernels import weighted_ce as wce
+        from repro_torch.kernels._launch import sm_count
         from repro_torch.sharding import tp
         t, v, parts = 2048, 151936, 16
         v_loc = v // parts
@@ -6038,7 +6132,11 @@ class Smoke:
         fwd_sum = _graph_ms(lambda: [ops.weighted_ce_shard_fwd(
             c, lab, r * v_loc) for r, c in enumerate(cols)])
         bwd_sum = _graph_ms(lambda: bwd(lse))
+        plan = wce.shard_fwd_plan(cols[1], sm_count(
+            torch.cuda.current_device()))
+        self.require(plan is not None, "21(a): no staged plan for a shard")
         row = {"T": t, "V": v, "shards": parts, "V_loc": v_loc,
+               "staged_plan": list(plan),
                "fwd_ms": _cuda_time_ms(lambda: ops.weighted_ce_shard_fwd(
                    cols[1], lab, v_loc), reps=50),
                "bwd_ms": _cuda_time_ms(lambda: ops.weighted_ce_shard_bwd(
@@ -6159,14 +6257,41 @@ class Smoke:
                          "max_abs_ref": ref_max, "chunk_lse_err": lse_err,
                          "chunk_o_err": o_err})
         pos = s - 1
+        blocks = b * h // fd.heads_per_block(h // kv)
+        sms = fd.sm_count(torch.cuda.current_device())
+        pass_rows = fd.rows_per_pass(k.dtype, d)
+        for pos_ in (s - 1, 20000, 2 * n):      # every chunk 21(b) launches
+            for r in range(parts):
+                lo, hi = fd.valid_range(pos_, n, None, r * n)
+                self.require(hi < lo or fd.decode_plan(
+                    lo, hi, blocks, sms, pass_rows)[0]
+                    == "flash_decode_cluster",
+                    f"21(b): chunk {r} at pos {pos_} takes the split kernel")
+        # one device kernel a chunk: the merge runs in the cluster
+        nodes, kinds = _device_kernels_per_call(
+            lambda: ops.flash_decode_shard(q, k[:, :, :n], v[:, :, :n], pos,
+                                           0))
+        self.require(kinds.get("kernel") == 1,
+                     f"21(b): a chunk enqueued {kinds}, not one kernel")
         shard_sum = _graph_ms(
             lambda: [ops.flash_decode_shard(
                 q, k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n],
                 pos, r * n) for r in range(parts)])
+        # a yardstick, not the same function: SDPA over each chunk gives o
+        # alone (no lse), in bf16
+        qs = q[:, :, None]
+        sdpa_sum = _graph_ms(
+            lambda: [torch.nn.functional.scaled_dot_product_attention(
+                qs, k[:, :, r * n:(r + 1) * n], v[:, :, r * n:(r + 1) * n],
+                enable_gqa=True) for r in range(parts)])
         b_shard, by = _bound_ms(2 * b * kv * n * d * 2 + b * h * d * 2
                                 + b * h * (d + 1) * 4, 4 * b * h * n * d,
                                 BF16_OPS_PER_S)
         row = {"B": b, "H": h, "KV": kv, "S": s, "D": d, "chunks": parts,
+               "cluster_plan": list(fd.cluster_plan(0, n - 1, blocks, sms,
+                                                    pass_rows)),
+               "device_ops_chunk": kinds,
+               "sdpa_yardstick_device_ms_chunk": sdpa_sum / parts,
                "checks": rows, "ms": _cuda_time_ms(
                    lambda: ops.flash_decode_shard(
                        q, k[:, :, :n], v[:, :, :n], pos, 0), reps=50),
@@ -6180,7 +6305,7 @@ class Smoke:
                "bound_ms_chunk": b_shard, "bound_by": by}
         table["b"] = row
         self.kernels["flash_decode_shard"] = {
-            "source": "src/repro_torch/csrc/flash_decode.cu",
+            "source": "src/repro_torch/csrc/flash_decode_cluster.cu",
             "replaces": "src/repro/kernels/flash_decode.py:96",
             "max_abs_err": max(r["plain"] for r in rows), "ms": row["ms"],
             "device_ms": row["device_ms_chunk"], "plain_ms": row["plain_ms"],
@@ -6194,7 +6319,9 @@ class Smoke:
                 f"within {max(r['chunk_lse_err'] for r in rows):.3g} of the "
                 f"plain version's), {launches} chunk launches; device ms "
                 f"a chunk {row['device_ms_chunk']:.4f} (bound "
-                f"{b_shard:.4f}), 16 chunks {shard_sum:.4f} against the "
+                f"{b_shard:.4f}; SDPA's o alone, a yardstick, "
+                f"{row['sdpa_yardstick_device_ms_chunk']:.4f}), one device "
+                f"kernel a chunk, 16 chunks {shard_sum:.4f} against the "
                 f"whole {row['whole_device_ms']:.4f}")
 
     def _tp_world1(self, table: dict) -> str:

@@ -20,31 +20,62 @@
 // the tensor-core rate.  So bytes bound it, and the design is about keeping
 // enough loads in flight on every SM and reading each byte once.
 //
-// Design: split-KV, `flash_decode_split`, grid (B * KV * head groups,
-// n_split), 128 threads, then a merge.
+// Two kernels share one pass's arithmetic (`attend`):
 //
 // * A block takes GT query heads that share one KV head (all G = H / KV of
 //   them unless G > 8), so each K and V row is read once for those heads,
 //   and one contiguous chunk of the valid positions [lo, hi] =
 //   [max(0, pos - W + 1), min(pos, S - 1)]: positions outside would only add
-//   exp(-1e30 - m) = 0, so they are never read.  The split plan (n_split <=
-//   64, chunk) comes from the wrapper, which sizes it for a few blocks per
-//   SM; no chunk is empty.
+//   exp(-1e30 - m) = 0, so they are never read.  No chunk is empty.
 // * L lanes take one row, each lane 16 bytes of it (8 bf16 or 4 float32;
 //   int8 rows in 8 bytes, 8 values, as a 120-dim int8 row is only 8-byte
 //   aligned), so a warp covers 32 / L rows and the block 4 * 32 / L
-//   "slots"; each slot takes 4 rows at a time, their K and V loads issued
-//   together.  The L partial dot products of a row (q pre-scaled by
-//   log2(e) / sqrt(D)) are butterfly-reduced, so every lane holds the same
-//   score, and each slot keeps its own running max m, sum l and accumulator
-//   for each head (exp2 domain).  int8 rows are converted and scaled in
-//   registers (never a float copy of the cache).
-// * The slots are merged in slot order through shared memory and the block
-//   writes its partial (m, l, acc[D]) per head in float32 to the wrapper's
-//   scratch.
+//   "slots"; each slot takes 4 rows a pass.  The L partial dot products of
+//   a row (q pre-scaled by log2(e) / sqrt(D)) are butterfly-reduced, so
+//   every lane holds the same score, and each slot keeps its own running
+//   max m, sum l and accumulator for each head (exp2 domain).  int8 rows
+//   are converted and scaled in registers (never a float copy of the
+//   cache).  The slots are merged in slot order through shared memory.
 //
-// A second launch, `flash_decode_merge`, merges each row's n_split
-// partials in a fixed order and writes out in q's dtype.
+// `flash_decode_split` (below), grid (B * KV *
+// head groups, n_split), 128 threads: the plan (n_split <= 64 chunks of at
+// most one pass each, unless 64 would not cover the range) comes from the
+// wrapper, sized for a few blocks per SM; each block loads a pass's rows
+// into registers, then writes its partial (m, l, acc[D]) per head in
+// float32 to the wrapper's scratch, and a second launch,
+// `flash_decode_merge`, merges each row's n_split partials in a fixed
+// order.
+//
+// `flash_decode_cluster` (flash_decode_cluster.cu) is one launch.  At a
+// tensor-parallel rank's chunk of a long cache (2048 positions of
+// decode_32k: 64 (batch, head-group) rows) the split kernel's one-pass
+// blocks and its scratch round trip cost more than the bytes: each of 4096
+// blocks read 16 KB, paid the slot merge and a partial write, and a second
+// launch of 64 blocks read the 4.3 MB of partials back serially.  Here
+// the n_split <= 8 blocks of one row are one thread-block cluster, each
+// block walks its chunk in several passes, and the merge runs through
+// distributed shared memory:
+//   - every thread streams the rows it will consume into its own slice of
+//     a ring of 2 passes in shared memory (3 left fewer blocks on an SM
+//     and ran 12 % slower) with 16-byte `cp.async` copies (8 bytes for
+//     int8, zero-filled past the chunk or past D), a pass's copies one
+//     commit group, waiting only for the oldest pass.  So a pass (16 KB
+//     for bf16 at D 128) stays in flight while one is consumed, and as no
+//     thread reads another's slice the loop needs no barrier;
+//   - after the slot merge each block holds its partial (m, l, acc[GT][D])
+//     in its own shared memory; after `cluster.sync()` block r takes every
+//     n_split-th group of 128 outputs, reads the cluster's partials through
+//     `map_shared_rank` and merges them in rank order; a second
+//     `cluster.sync()` keeps each block's memory alive until all have read.
+//   No scratch, no second launch.  The wrapper (`kernels/flash_decode.py`,
+//   `decode_plan`) takes it in both modes where its plan gives a block at
+//   most 512 positions (a rank's chunk, the serve step) or a block to half
+//   the SMs or more (decode_32k's whole cache); a long range on a small
+//   grid (batch 1: 64 blocks of 4096 positions on 132 SMs) keeps the
+//   split kernel's up to 64 splits, which keep more loads in flight.  On
+//   an H100 (700 W) a 2048-position chunk of decode_32k took 1.42x the
+//   bytes' bound (the split kernel 2.3x): what is left is a launch's ramp
+//   and tail, as the blocks all start, and merge, at once.
 //
 // Shard mode (the length-split cache of tensor parallelism,
 // src/repro_torch/sharding/tp.py): the cache is one rank's positions
@@ -63,87 +94,13 @@
 // bytes, 8 for int8) and D is a multiple of the vector's values; D <= 256;
 // pos a host integer.
 //
-// Plain C interface for ctypes: the function returns the cudaError_t of its
-// launches (0 on success).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// The split kernel is here, the cluster kernel in flash_decode_cluster.cu
+// (two sources, so that nvcc builds them side by side), what they share in
+// flash_decode_common.cuh.  Plain C interface for ctypes: each function
+// returns the cudaError_t of its launches (0 on success).
+#include "flash_decode_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsAtOnce = 4;  // rows a slot loads together
-constexpr int kMaxD = 256;
-constexpr int kMaxSplit = 64;
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct DecodeArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* ks;  // null unless the cache is int8
-  const float* vs;
-  void* o;
-  float* part_acc;  // [B * H, n_split, D]
-  float* part_ml;   // [B * H, n_split, 2]: m, l
-  float* lse;       // shard mode: [B, H] log-sum-exp (o float32); else null
-  int B, H, KV, S, D, lo, hi, chunk, n_split;
-  float scale_log2;  // log2(e) / sqrt(D)
-  int64_t sq[2], sk[3], sv[3], sks[3], svs[3], so[2];
-};
-
-// One load of a cache row: E values in one vector (`type`).
-template <typename C> struct Vec;
-template <> struct Vec<float> {
-  using type = uint4;
-  static constexpr int E = 4;
-  __device__ static void unpack(const uint4& x, float* f) {
-    f[0] = __uint_as_float(x.x);
-    f[1] = __uint_as_float(x.y);
-    f[2] = __uint_as_float(x.z);
-    f[3] = __uint_as_float(x.w);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  using type = uint4;
-  static constexpr int E = 8;
-  __device__ static void unpack(const uint4& x, float* f) {
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-template <> struct Vec<int8_t> {
-  using type = uint2;
-  static constexpr int E = 8;
-  __device__ static void unpack(const uint2& x, float* f) {
-    const uint32_t w[2] = {x.x, x.y};
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)  // sign-extend byte j
-        f[4 * i + j] = static_cast<float>(
-            static_cast<int32_t>(w[i] << (24 - 8 * j)) >> 24);
-  }
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
 
 // T: q and out; C: the cache (T, or int8_t with scales); L: lanes a row;
 // VPL: vectors a lane takes of a row; GT: query heads a block.
@@ -156,14 +113,11 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split(DecodeArgs a) {
   constexpr int kDP = L * DPL;          // padded D
   constexpr int kSlots = kWarps * (32 / L);
   constexpr bool kQuant = sizeof(C) == 1;
-  __shared__ float s_ml[kSlots][GT][2];
-  __shared__ float s_acc[kSlots][GT][kDP];
+  __shared__ float s_ml[kSlots * GT * 2];
+  __shared__ float s_acc[kSlots * GT * kDP];
 
-  const int groups = a.H / a.KV / GT;  // head groups of a KV head
-  const int bx = blockIdx.x;
-  const int b = bx / (a.KV * groups);
-  const int kvh = (bx / groups) % a.KV;
-  const int h0 = kvh * (a.H / a.KV) + (bx % groups) * GT;
+  int b, kvh, h0;
+  grid_row(a, GT, blockIdx.x, b, kvh, h0);
   const int split = blockIdx.y;
   const int c_lo = a.lo + split * a.chunk;
   const int c_hi = min(a.hi, c_lo + a.chunk - 1);
@@ -179,21 +133,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split(DecodeArgs a) {
   const float* vs = kQuant ? a.vs + b * a.svs[0] + kvh * a.svs[1] : nullptr;
 
   float qf[GT][DPL], acc[GT][DPL], m[GT], l[GT];
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-    const T* q =
-        static_cast<const T*>(a.q) + b * a.sq[0] + (h0 + g) * a.sq[1];
-#pragma unroll
-    for (int c = 0; c < VPL; ++c)
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int d = (c * L + lig) * E + e;
-        qf[g][c * E + e] = d < D ? to_f(q[d]) * a.scale_log2 : 0.0f;
-        acc[g][c * E + e] = 0.0f;
-      }
-    m[g] = kNegInf;
-    l[g] = 0.0f;
-  }
+  init_heads<T, L, DPL, E, GT>(a, b, h0, lig, qf, acc, m, l);
 
   for (int base = c_lo; base <= c_hi; base += kSlots * kRowsAtOnce) {
     VT kv[kRowsAtOnce][VPL], vv[kRowsAtOnce][VPL];
@@ -216,94 +156,18 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split(DecodeArgs a) {
       ksc[u] = kQuant && ok ? ks[t * a.sks[2]] : 1.0f;
       vsc[u] = kQuant && ok ? vs[t * a.svs[2]] : 1.0f;
     }
-    float s[kRowsAtOnce][GT];
-#pragma unroll
-    for (int u = 0; u < kRowsAtOnce; ++u) {
-#pragma unroll
-      for (int g = 0; g < GT; ++g) s[u][g] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < VPL; ++c) {
-        float kf[E];
-        V::unpack(kv[u][c], kf);
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-#pragma unroll
-          for (int g = 0; g < GT; ++g)
-            s[u][g] = fmaf(qf[g][c * E + e], kf[e], s[u][g]);
-      }
-    }
-#pragma unroll
-    for (int off = L / 2; off > 0; off >>= 1)
-#pragma unroll
-      for (int u = 0; u < kRowsAtOnce; ++u)
-#pragma unroll
-        for (int g = 0; g < GT; ++g)
-          s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-      float mx = m[g];
-#pragma unroll
-      for (int u = 0; u < kRowsAtOnce; ++u) {
-        s[u][g] *= ksc[u];
-        if (base + u * kSlots + slot <= c_hi) mx = fmaxf(mx, s[u][g]);
-      }
-      const float corr = exp2f(m[g] - mx);
-      l[g] *= corr;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] *= corr;
-      m[g] = mx;
-    }
-#pragma unroll
-    for (int u = 0; u < kRowsAtOnce; ++u) {
-      if (base + u * kSlots + slot > c_hi) continue;
-      float p[GT];
-#pragma unroll
-      for (int g = 0; g < GT; ++g) {
-        p[g] = exp2f(s[u][g] - m[g]);
-        l[g] += p[g];
-      }
-#pragma unroll
-      for (int c = 0; c < VPL; ++c) {
-        float vf[E];
-        V::unpack(vv[u][c], vf);
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const float x = kQuant ? vf[e] * vsc[u] : vf[e];
-#pragma unroll
-          for (int g = 0; g < GT; ++g)
-            acc[g][c * E + e] = fmaf(p[g], x, acc[g][c * E + e]);
-        }
-      }
-    }
+    attend<C, L, VPL, GT>(kv, vv, ksc, vsc, base + slot, kSlots, c_hi, qf,
+                          acc, m, l);
   }
 
   // Merge the slots in slot order, then write the block's partial.
-#pragma unroll
-  for (int g = 0; g < GT; ++g) {
-    if (lig == 0) {
-      s_ml[slot][g][0] = m[g];
-      s_ml[slot][g][1] = l[g];
-    }
-#pragma unroll
-    for (int c = 0; c < VPL; ++c)
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        s_acc[slot][g][(c * L + lig) * E + e] = acc[g][c * E + e];
-  }
+  store_slot<L, DPL, E, GT>(s_ml, s_acc, slot, lig, acc, m, l);
   __syncthreads();
   const int64_t row0 = (static_cast<int64_t>(b) * a.H + h0) * a.n_split;
   for (int idx = threadIdx.x; idx < GT * D; idx += kThreads) {
     const int g = idx / D, d = idx - g * D;
-    float big = kNegInf;
-#pragma unroll
-    for (int sl = 0; sl < kSlots; ++sl) big = fmaxf(big, s_ml[sl][g][0]);
-    float num = 0.0f, den = 0.0f;
-#pragma unroll
-    for (int sl = 0; sl < kSlots; ++sl) {
-      const float w = exp2f(s_ml[sl][g][0] - big);
-      den = fmaf(s_ml[sl][g][1], w, den);
-      num = fmaf(s_acc[sl][g][d], w, num);
-    }
+    float big, den, num;
+    merge_slots<kSlots, GT, kDP>(s_ml, s_acc, g, d, big, den, num);
     const int64_t part = row0 + g * a.n_split + split;
     a.part_acc[part * D + d] = num;
     if (d == 0) {
@@ -323,10 +187,8 @@ template <typename T, int GT>
 __global__ void __launch_bounds__(kThreads) flash_decode_merge(DecodeArgs a) {
   __shared__ float s_w[GT][kMaxSplit];
   __shared__ float s_inv_den[GT];
-  const int groups = a.H / a.KV / GT;  // head groups of a KV head
-  const int bx = blockIdx.x;
-  const int b = bx / (a.KV * groups);
-  const int h0 = (bx / groups) % a.KV * (a.H / a.KV) + (bx % groups) * GT;
+  int b, kvh, h0;
+  grid_row(a, GT, blockIdx.x, b, kvh, h0);
   const int64_t row0 = (static_cast<int64_t>(b) * a.H + h0) * a.n_split;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int g = warp; g < GT; g += kWarps) {
@@ -376,38 +238,18 @@ __global__ void __launch_bounds__(kThreads) flash_decode_merge(DecodeArgs a) {
   }
 }
 
+
 template <typename T, typename C, int L, int VPL, int GT>
-int launch(const DecodeArgs& a, cudaStream_t stream) {
-  const dim3 grid(a.B * a.H / GT, a.n_split);
-  flash_decode_split<T, C, L, VPL, GT><<<grid, kThreads, 0, stream>>>(a);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_merge<T, GT><<<grid.x, kThreads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, typename C, int L, int VPL>
-int launch_g(const DecodeArgs& a, int gt, cudaStream_t stream) {
-  switch (gt) {
-    case 1: return launch<T, C, L, VPL, 1>(a, stream);
-    case 2: return launch<T, C, L, VPL, 2>(a, stream);
-    case 4: return launch<T, C, L, VPL, 4>(a, stream);
-    default: return launch<T, C, L, VPL, 8>(a, stream);
+struct SplitKernel {
+  static int run(const DecodeArgs& a, cudaStream_t stream) {
+    const dim3 grid(a.B * a.H / GT, a.n_split);
+    flash_decode_split<T, C, L, VPL, GT><<<grid, kThreads, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_decode_merge<T, GT><<<grid.x, kThreads, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-}
-
-// Lanes a row: 16-byte vectors (8-byte for int8) of 8 values (4 float32);
-// D <= 128 in 16 lanes (32 for float32), D <= 256 in 32 lanes (two vectors
-// a lane for float32).
-template <typename T, typename C>
-int dispatch(const DecodeArgs& a, int gt, cudaStream_t stream) {
-  if constexpr (Vec<C>::E == 4)
-    return a.D <= 128 ? launch_g<T, C, 32, 1>(a, gt, stream)
-                      : launch_g<T, C, 32, 2>(a, gt, stream);
-  else
-    return a.D <= 128 ? launch_g<T, C, 16, 1>(a, gt, stream)
-                      : launch_g<T, C, 32, 1>(a, gt, stream);
-}
+};
 
 }  // namespace
 
@@ -430,33 +272,11 @@ int flash_decode(const void* q, const void* k, const void* v, const float* ks,
                  int dtype, int quant, int B, int H, int KV, int S, int D,
                  int lo, int hi, int chunk, int n_split, int gt, float scale,
                  const int64_t* strides, float* lse, cudaStream_t stream) {
-  const int vec_values = dtype == 0 && !quant ? 4 : 8;
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || D <= 0 ||
-      D > kMaxD || D % vec_values != 0 || lo < 0 || hi < lo || hi >= S ||
-      chunk <= 0 || n_split <= 0 || n_split > kMaxSplit ||
-      static_cast<int64_t>(n_split) * chunk < hi - lo + 1 ||
-      (gt != 1 && gt != 2 && gt != 4 && gt != 8) || (H / KV) % gt != 0 ||
-      (dtype != 0 && dtype != 1) ||
-      (quant && (ks == nullptr || vs == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  DecodeArgs a{q, k, v, ks, vs, o, part_acc, part_ml, lse, B, H, KV, S, D,
-               lo, hi, chunk, n_split, scale * kLog2e, {}, {}, {}, {}, {},
-               {}};
-  for (int i = 0; i < 2; ++i) {
-    a.sq[i] = strides[i];
-    a.so[i] = strides[14 + i];
-  }
-  for (int i = 0; i < 3; ++i) {
-    a.sk[i] = strides[2 + i];
-    a.sv[i] = strides[5 + i];
-    a.sks[i] = strides[8 + i];
-    a.svs[i] = strides[11 + i];
-  }
-  if (quant)
-    return dtype == 0 ? dispatch<float, int8_t>(a, gt, stream)
-                      : dispatch<__nv_bfloat16, int8_t>(a, gt, stream);
-  return dtype == 0 ? dispatch<float, float>(a, gt, stream)
-                    : dispatch<__nv_bfloat16, __nv_bfloat16>(a, gt, stream);
+  DecodeArgs a;
+  const int err = make_args(a, q, k, v, ks, vs, o, part_acc, part_ml, dtype,
+                            quant, B, H, KV, S, D, lo, hi, chunk, n_split, gt,
+                            scale, strides, lse, false);
+  return err != 0 ? err : dispatch<SplitKernel>(a, dtype, quant, gt, stream);
 }
 
 }  // extern "C"

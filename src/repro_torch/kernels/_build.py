@@ -39,9 +39,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, the headers
+    beside it (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(b"".join(
+        path.read_bytes() for path in [CSRC / f"{name}.cu",
+                                       *sorted(CSRC.glob("*.cuh"))])
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -8,6 +8,7 @@ the way its own launchers do and build no Python object on the way.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -27,6 +28,12 @@ def current(device: torch.device):
     if device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of card ``index`` (an input of the kernels' launch plans)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def raw_stream(device: torch.device) -> int:

@@ -13,14 +13,13 @@ and any strides with a unit stride on D, so the model hands it its
 [B, S, KV, D] cache and [B, S, KV] scales as permuted views; ``pos`` is a
 host integer in [0, S).
 
-The kernel splits the valid positions over blocks (split-KV): a block
+The kernels split the valid positions over blocks (split-KV): a block
 takes the query heads of one KV head (:func:`heads_per_block`) and one
-chunk of the positions (:func:`split_plan`), and a second launch merges
-each head's partial softmax states in a fixed order.  The plan is made
-here, in Python, from the valid range (:func:`valid_range`), the grid's
-other axis, the card's SM count and the rows a block loads at once
-(:func:`rows_per_pass`).  The cache's rows are read in vectors
-(:func:`check_cache_layout`).
+chunk of the positions, and the blocks' partial softmax states are merged
+in a fixed order.  The plan is made here, in Python, from the valid range
+(:func:`valid_range`), the grid's other axis, the card's SM count and the
+rows a block loads at once (:func:`rows_per_pass`).  The cache's rows are
+read in vectors (:func:`check_cache_layout`).
 
 Shard mode (``return_lse=True``, the length-split cache of tensor
 parallelism): the cache holds the positions [s0, s0 + S) of a longer one;
@@ -30,20 +29,33 @@ each head's log-sum-exp [B, H] of their scores, for the ranks' merge
 past ``pos``, or before the window) launches nothing and returns o = 0,
 lse = -inf.
 
+Both modes take one of two kernels by :func:`decode_plan`: where the
+cluster kernel's plan (:func:`cluster_plan`) gives each block at most
+:data:`CLUSTER_MAX_CHUNK` positions, or puts a block on half the SMs or
+more, the cluster kernel (one launch, the blocks of a row one
+thread-block cluster that each walk a chunk of several passes and merge
+through distributed shared memory); on a longer range over a grid too
+small to fill the card (a long cache at batch 1), the split kernel and
+its merge launch (:func:`split_plan`).  A tensor-parallel rank's chunk
+of a long cache, the serve step and decode_32k's whole cache take the
+first.
+
 :func:`flash_decode` launches the kernel for CUDA tensors and uses
 :func:`flash_decode_plain` (the semantics of ``repro/kernels/ref.py``'s
 ``flash_decode``) only for CPU tensors; it never falls back from one to
-the other.  It counts its launches in ``flash_decode.launches``.
+the other.  Each wrapper counts its launches, in ``flash_decode.launches``
+and ``flash_decode_shard.launches``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+import types
 
 import torch
 
-from repro_torch.kernels._launch import current, on_card, raw_stream
+from repro_torch.kernels._launch import current, on_card, raw_stream, sm_count
 from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
                                                  NEG_INF, check_head_dim_last)
 
@@ -85,6 +97,8 @@ BLOCKS_PER_SM = 4    # the split aims at this many blocks on each SM or more
 CHUNK_ALIGN = 8      # chunk lengths are multiples of this many positions
 MAX_SPLIT = 64       # the kernel's merge takes at most this many chunks
 MAX_HEADS_PER_BLOCK = 8
+CLUSTER_LIMIT = 8    # the cluster kernel's blocks a row: the portable size
+CLUSTER_MAX_CHUNK = 512  # its longest chunk; past it the split kernel runs
 
 
 def valid_range(pos: int, s: int, window: int | None,
@@ -143,10 +157,42 @@ def split_plan(lo: int, hi: int, blocks: int, sms: int,
     return -(-n // chunk), chunk
 
 
-@functools.cache
-def sm_count(index: int) -> int:
-    """The SMs of card ``index`` (the plan's other input)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def cluster_plan(lo: int, hi: int, blocks: int, sms: int,
+                 pass_rows: int) -> tuple[int, int]:
+    """(n_split, chunk) of the cluster kernel: block j of a row's cluster
+    of ``n_split`` <= CLUSTER_LIMIT takes positions [lo + j * chunk,
+    min(hi, lo + (j + 1) * chunk - 1)].  As many blocks as give
+    BLOCKS_PER_SM blocks on each of ``sms`` SMs over the ``blocks`` of the
+    grid's other axis, within the limit and no more than the range has
+    passes of ``pass_rows``; the chunk a whole number of passes, so a
+    block's passes are full but the last block's.  No chunk is empty."""
+    n = hi - lo + 1
+    if n < 1 or blocks < 1 or sms < 1 or pass_rows < 1:
+        raise ValueError(f"no plan for positions [{lo}, {hi}], {blocks} "
+                         f"blocks, {sms} SMs, {pass_rows} rows a pass")
+    n_split = max(1, min(CLUSTER_LIMIT, BLOCKS_PER_SM * sms // blocks,
+                         -(-n // pass_rows)))
+    chunk = -(-(-(-n // n_split)) // pass_rows) * pass_rows
+    return -(-n // chunk), chunk
+
+
+def decode_plan(lo: int, hi: int, blocks: int, sms: int,
+                pass_rows: int) -> tuple[str, int, int]:
+    """(kernel, n_split, chunk) for the valid positions [lo, hi] and a grid
+    of ``blocks`` rows: "flash_decode_cluster" on :func:`cluster_plan`
+    where its chunk is at most CLUSTER_MAX_CHUNK positions or its grid
+    puts a block on half the ``sms`` or more, else "flash_decode" (the
+    split kernel) on :func:`split_plan`, whose up to MAX_SPLIT chunks a
+    row keep more of the card's loads in flight on a small grid.  (On an
+    H100, bf16 at H 16, KV 8, D 128: the cluster kernel took 0.52-0.79 of
+    the split kernel's device time at batch 1-8 and caches 576-4096, and
+    0.71-1.01 of the split kernel's on the cluster plan; on longer caches
+    0.74-1.00 at batch 2-8, and 1.15-1.44 at batch 1, 64 blocks on 132
+    SMs: tools/tp_shard_times.py's ``whole_grid``.)"""
+    n_split, chunk = cluster_plan(lo, hi, blocks, sms, pass_rows)
+    if chunk <= CLUSTER_MAX_CHUNK or 2 * blocks * n_split >= sms:
+        return "flash_decode_cluster", n_split, chunk
+    return ("flash_decode", *split_plan(lo, hi, blocks, sms, pass_rows))
 
 
 def check_cache_layout(*named: tuple[str, torch.Tensor]) -> None:
@@ -170,15 +216,23 @@ def check_cache_layout(*named: tuple[str, torch.Tensor]) -> None:
 
 
 # -------------------------------------------------------------- the kernel
-def _lib() -> ctypes.CDLL:
+@functools.cache
+def _lib() -> types.SimpleNamespace:
+    """The two kernels' entry points: ``flash_decode`` (csrc/flash_decode.cu)
+    and ``flash_decode_cluster`` (csrc/flash_decode_cluster.cu), built
+    side by side at first use."""
     from repro_torch.kernels import _build
-    lib = _build.load("flash_decode")
-    if lib.flash_decode.argtypes is None:
-        p, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode.argtypes = [p] * 8 + [i32] * 12 + [
-            ctypes.c_float, ctypes.POINTER(ctypes.c_int64), p, p]
-        lib.flash_decode.restype = ctypes.c_int
-    return lib
+    _build.build("flash_decode", "flash_decode_cluster")
+    split = _build.load("flash_decode").flash_decode
+    cluster = _build.load("flash_decode_cluster").flash_decode_cluster
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    split.argtypes = [p] * 8 + [i32] * 12 + [
+        ctypes.c_float, ctypes.POINTER(ctypes.c_int64), p, p]
+    cluster.argtypes = [p] * 6 + [i32] * 12 + [
+        ctypes.c_float, ctypes.POINTER(ctypes.c_int64), p, p]
+    split.restype = cluster.restype = ctypes.c_int
+    return types.SimpleNamespace(flash_decode=split,
+                                 flash_decode_cluster=cluster)
 
 
 def _check(q, k, v, pos, k_scale, v_scale, window, s0=0,
@@ -258,7 +312,7 @@ flash_decode_shard.launches = 0
 
 def _decode(q, k, v, pos: int, k_scale, v_scale, window, s0: int,
             return_lse: bool):
-    """The two wrappers' checks and launch: (the result, whether the
+    """The two wrappers' checks, plan and launch: (the result, whether a
     kernel was launched); ``return_lse``: the result is (o, lse)
     float32."""
     _check(q, k, v, pos, k_scale, v_scale, window, s0, return_lse)
@@ -270,35 +324,53 @@ def _decode(q, k, v, pos: int, k_scale, v_scale, window, s0: int,
         check_head_dim_last(name, x)
     check_cache_layout(("k", k), ("v", v))
     b, h, d = q.shape
-    kv, s = k.shape[1], k.shape[2]
-    quant = k_scale is not None
-    lo, hi = valid_range(pos, s, window, s0)
+    lo, hi = valid_range(pos, k.shape[2], window, s0)
     if return_lse and hi < lo:                 # no valid position here
         return (q.new_zeros((b, h, d), dtype=torch.float32),
                 q.new_full((b, h), -math.inf, dtype=torch.float32)), False
-    gt = heads_per_block(h // kv)
-    n_split, chunk = split_plan(lo, hi, b * h // gt, sm_count(q.device.index),
-                                rows_per_pass(k.dtype, d))
+    gt = heads_per_block(h // k.shape[1])
+    kernel, n_split, chunk = decode_plan(lo, hi, b * h // gt,
+                                         sm_count(q.device.index),
+                                         rows_per_pass(k.dtype, d))
+    return _launch(kernel, q, k, v, k_scale, v_scale, lo, hi, n_split, chunk,
+                   gt, return_lse), True
+
+
+def _launch(kernel: str, q, k, v, k_scale, v_scale, lo: int, hi: int,
+            n_split: int, chunk: int, gt: int, return_lse: bool):
+    """One call of ``kernel`` ("flash_decode": the split kernel and its
+    merge, with scratch for the partials; "flash_decode_cluster") over the
+    valid positions [lo, hi] on the given plan: the output, or (o, lse)
+    float32 with ``return_lse``."""
+    b, h, d = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    quant = k_scale is not None
     out = q.new_empty((b, h, d),
                       dtype=torch.float32 if return_lse else q.dtype)
     lse = q.new_empty((b, h), dtype=torch.float32) if return_lse else None
-    # the blocks' partials: acc [B * H, n_split, D], then (m, l) pairs
-    scratch = q.new_empty(b * h * n_split * (d + 2), dtype=torch.float32)
-    part_ml = scratch.data_ptr() + 4 * b * h * n_split * d
     ks, vs = (k_scale, v_scale) if quant else (k, v)  # strides unused
     strides = (ctypes.c_int64 * 16)(
         *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *ks.stride()[:3],
         *vs.stride()[:3], *out.stride()[:2])
-    with current(q.device):
-        status = _lib().flash_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None, out.data_ptr(),
-            scratch.data_ptr(), part_ml, DTYPES[q.dtype], int(quant), b, h,
-            kv, s, d, lo, hi, chunk, n_split, gt, 1.0 / math.sqrt(d),
-            strides, lse.data_ptr() if return_lse else None,
-            raw_stream(q.device))
+            v_scale.data_ptr() if quant else None, out.data_ptr())
+    shape = (DTYPES[q.dtype], int(quant), b, h, kv, s, d, lo, hi, chunk,
+             n_split, gt, 1.0 / math.sqrt(d), strides,
+             lse.data_ptr() if return_lse else None)
+    with current(q.device):
+        if kernel == "flash_decode_cluster":
+            status = _lib().flash_decode_cluster(
+                *head, *shape, raw_stream(q.device))
+        else:
+            # the blocks' partials: acc [B * H, n_split, D], then (m, l)
+            scratch = q.new_empty(b * h * n_split * (d + 2),
+                                  dtype=torch.float32)
+            status = _lib().flash_decode(
+                *head, scratch.data_ptr(),
+                scratch.data_ptr() + 4 * b * h * n_split * d, *shape,
+                raw_stream(q.device))
     if status != 0:
-        raise RuntimeError(f"flash_decode launch failed with cudaError_t "
+        raise RuntimeError(f"{kernel} launch failed with cudaError_t "
                            f"{status}")
-    return ((out, lse) if return_lse else out), True
+    return (out, lse) if return_lse else out

@@ -24,7 +24,11 @@ the columns [v0, v0 + V) of a vocab and the labels global.
 :func:`weighted_ce_shard_fwd` gives the shard's ``(lse [T], gold [T])``
 (gold 0 where the label lies elsewhere) for the ranks' combine;
 :func:`weighted_ce_bwd` with ``v0`` writes ``softmax - onehot`` on the
-shard's columns from the combined lse.  The same two kernels run it.
+shard's columns from the combined lse.  A shard whose rows fit a stage of
+shared memory and a bulk copy's 16-byte rule (:func:`shard_fwd_plan`)
+takes the staged forward kernel (a persistent grid, each row one TMA copy,
+a two-pass reduction in shared memory); any other takes the streaming
+forward kernel's shard mode.  The backward kernel runs both.
 
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 version only for CPU tensors; it never falls back from one to the other.
@@ -37,9 +41,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._launch import on_card
+from repro_torch.kernels._launch import on_card, sm_count
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+STAGE_BYTES_MAX = 48 * 1024  # the staged kernel's widest row
+STAGED_BLOCKS_PER_SM = 2
+IN_FLIGHT_BYTES = 64 * 1024  # rows in flight an SM the stages aim at
+MAX_STAGES = 4
 
 
 def _math_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -97,7 +105,32 @@ def _lib() -> ctypes.CDLL:
         lib.weighted_ce_shard_fwd.argtypes = [p, i32, p, p, p, i64, i64, i64,
                                               i64, p]
         lib.weighted_ce_shard_fwd.restype = ctypes.c_int
+        lib.weighted_ce_shard_fwd_staged.argtypes = [
+            p, i32, p, p, p, i64, i64, i64, i64, i32, i32, i32, p]
+        lib.weighted_ce_shard_fwd_staged.restype = ctypes.c_int
     return lib
+
+
+def shard_fwd_plan(logits: torch.Tensor,
+                   sms: int) -> tuple[int, int, int] | None:
+    """The staged kernel's launch for the shard forward of ``logits`` [T,
+    V] on a card of ``sms`` SMs: (grid, stages, stage bytes), a persistent
+    grid of STAGED_BLOCKS_PER_SM blocks an SM (at most one a row), each
+    with a ring of stages of a row rounded up to 128 bytes, as many as put
+    IN_FLIGHT_BYTES in flight on an SM (2 to MAX_STAGES: 2 for a 19 KB
+    shard row, where 4 ran 7 % slower on an H100).  None where the row does
+    not fit a stage or a bulk copy's rule (its bytes, its base and its row
+    stride multiples of 16): there the streaming kernel runs."""
+    t, v = logits.shape
+    size = logits.element_size()
+    row = v * size
+    if (row % 16 or row > STAGE_BYTES_MAX or logits.data_ptr() % 16
+            or (t > 1 and logits.stride(0) * size % 16)):
+        return None
+    stage = -(-row // 128) * 128
+    stages = IN_FLIGHT_BYTES // (STAGED_BLOCKS_PER_SM * stage)
+    return (min(t, STAGED_BLOCKS_PER_SM * sms),
+            max(2, min(MAX_STAGES, stages)), stage)
 
 
 def _check(logits: torch.Tensor, labels: torch.Tensor,
@@ -167,8 +200,9 @@ weighted_ce_fwd.launches = 0
 def weighted_ce_shard_fwd(logits: torch.Tensor, labels: torch.Tensor,
                           v0: int):
     """``(lse [T], gold [T])`` float32 of the vocab columns [v0, v0 + V)
-    ``logits`` [T, V]: the forward kernel's shard mode for CUDA tensors,
-    the plain version for CPU tensors."""
+    ``logits`` [T, V]: the staged kernel, or the forward kernel's shard mode
+    where :func:`shard_fwd_plan` gives none, for CUDA tensors; the plain
+    version for CPU tensors."""
     _check(logits, labels, None)
     if not on_card(logits, "weighted_ce_shard_fwd"):
         return weighted_ce_shard_fwd_plain(logits, labels, v0)
@@ -177,11 +211,16 @@ def weighted_ce_shard_fwd(logits: torch.Tensor, labels: torch.Tensor,
     t, v = logits.shape
     gold = torch.empty(t, dtype=torch.float32, device=logits.device)
     lse = torch.empty(t, dtype=torch.float32, device=logits.device)
+    plan = shard_fwd_plan(logits, sm_count(logits.device.index))
+    args = (logits.data_ptr(), code, labels.data_ptr(), gold.data_ptr(),
+            lse.data_ptr(), t, v, logits.stride(0), int(v0))
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     with torch.cuda.device(logits.device):
-        status = _lib().weighted_ce_shard_fwd(
-            logits.data_ptr(), code, labels.data_ptr(), gold.data_ptr(),
-            lse.data_ptr(), t, v, logits.stride(0), int(v0), stream)
+        if plan is None:
+            status = _lib().weighted_ce_shard_fwd(*args, stream)
+        else:
+            status = _lib().weighted_ce_shard_fwd_staged(*args, *plan,
+                                                         stream)
     if status != 0:
         raise RuntimeError(f"weighted_ce_shard_fwd launch failed with "
                            f"cudaError_t {status}")

@@ -5,12 +5,15 @@ The CUDA kernels run only on a card (``chip_smoke.py`` phase 8 and the
 versions there).  Here the parts a CPU can reach are held:
 
 * flash decode's split plan (``split_plan``, ``valid_range``,
-  ``heads_per_block``) covers every valid position once, with no empty
-  chunk;
-* the split-then-merge arithmetic the decode kernel runs (per-chunk
-  partial (m, l, acc) in the exp2 domain, merged in chunk order) equals
-  ``flash_decode_plain`` and the Pallas kernel in interpret mode, and an
-  empty partial merges to weight 0;
+  ``heads_per_block``) and the cluster kernel's (``cluster_plan``: at most
+  ``CLUSTER_LIMIT`` chunks a row, each a whole number of passes) cover
+  every valid position once, with no empty chunk, at the serve shapes and
+  at decode_32k's chunk of a tensor-parallel rank;
+* the split-then-merge arithmetic the decode kernels run (per-chunk
+  partial (m, l, acc) in the exp2 domain, merged in chunk order: the split
+  kernel's merge launch, or the cluster's ranks in order) equals
+  ``flash_decode_plain`` and the Pallas kernel in interpret mode on either
+  plan, and an empty partial merges to weight 0;
 * the bf16 attention kernel's numerics (P rounded to bf16 for the PV
   product, l summed from the float32 p, tiles of 64 x 64, live tiles only)
   stay within 2^-7 max|v| of ``flash_attention_plain`` at qwen3-0.6b's
@@ -74,6 +77,82 @@ def test_split_plan_covers_each_valid_position_once(g, pos, window, dtype,
     assert all(c_lo <= c_hi for c_lo, c_hi in chunks)   # none empty
     assert chunk % tfd.CHUNK_ALIGN == 0 and 1 <= n_split <= tfd.MAX_SPLIT
     assert chunk <= tfd.rows_per_pass(dtype, d) or n_split == tfd.MAX_SPLIT
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("pos,window", [(0, None), (5, None), (31, None),
+                                        (511, None), (575, None),
+                                        (575, 128), (575, 100), (300, 37),
+                                        (40, 128)])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 120),
+                                     (torch.bfloat16, 256),
+                                     (torch.int8, 128),
+                                     (torch.float32, 128)])
+def test_cluster_plan_covers_each_valid_position_once(g, pos, window, dtype,
+                                                      d):
+    """The split plan's cases on the cluster kernel's plan: one cluster of
+    at most CLUSTER_LIMIT blocks a row, each chunk whole passes."""
+    b, kv, s = 4, 8, 576
+    lo, hi = tfd.valid_range(pos, s, window)
+    want = [t for t in range(s) if t <= pos
+            and (window is None or t > pos - window)]
+    gt = tfd.heads_per_block(g)
+    pass_rows = tfd.rows_per_pass(dtype, d)
+    n_split, chunk = tfd.cluster_plan(lo, hi, b * kv * (g // gt), SERVE_SMS,
+                                      pass_rows)
+    chunks = _chunks(lo, hi, n_split, chunk)
+    covered = [t for c_lo, c_hi in chunks for t in range(c_lo, c_hi + 1)]
+    assert covered == want                      # each once, in order
+    assert all(c_lo <= c_hi for c_lo, c_hi in chunks)   # none empty
+    assert 1 <= n_split <= tfd.CLUSTER_LIMIT and chunk % pass_rows == 0
+
+
+@pytest.mark.parametrize("pos,s0,want", [
+    (32767, 0, (8, 256)),        # a whole chunk: 8 blocks of 8 passes
+    (20000, 18432, (8, 224)),    # 1569 positions: 7 passes, the last one
+    (4096, 4096, (1, 32)),       # one position
+])
+def test_cluster_plan_at_decode_32ks_chunk(pos, s0, want):
+    """decode_32k on a rank of 16 (B 8, H 16, KV 8, D 128 bf16, chunks of
+    2048): 64 rows, so 8 blocks a row give ~4 blocks on each of 132 SMs,
+    one cluster a row; the cluster route."""
+    b, h, kv, d, n = 8, 16, 8, 128, 2048
+    blocks = b * h // tfd.heads_per_block(h // kv)
+    assert blocks == 64
+    lo, hi = tfd.valid_range(pos, n, None, s0)
+    plan = tfd.cluster_plan(lo, hi, blocks, SERVE_SMS,
+                            tfd.rows_per_pass(torch.bfloat16, d))
+    assert plan == want
+    assert tfd.decode_plan(lo, hi, blocks, SERVE_SMS, 32) == (
+        "flash_decode_cluster", *want)
+    chunks = _chunks(lo, hi, *plan)
+    assert [t for c_lo, c_hi in chunks for t in range(c_lo, c_hi + 1)] \
+        == list(range(lo, hi + 1))
+    with pytest.raises(ValueError):
+        tfd.cluster_plan(5, 4, blocks, SERVE_SMS, 32)   # no valid position
+
+
+@pytest.mark.parametrize("n,blocks,kernel", [
+    (2048, 64, "flash_decode_cluster"),   # a rank's chunk of decode_32k
+    (576, 32, "flash_decode_cluster"),    # qwen3-0.6b's serve step
+    (4096, 8, "flash_decode_cluster"),    # batch 1: chunks of 512
+    (8192, 8, "flash_decode"),            # batch 1: 64 blocks of 1024
+    (32768, 8, "flash_decode"),           # batch 1: 64 blocks of 4096
+    (8192, 16, "flash_decode_cluster"),   # batch 2: 128 blocks of 1024
+    (32768, 64, "flash_decode_cluster")])  # decode_32k's whole cache
+def test_decode_plan_picks_the_kernel_by_chunk_and_grid(n, blocks, kernel):
+    """The cluster kernel where its plan gives a block at most
+    CLUSTER_MAX_CHUNK positions or puts a block on half the SMs or more,
+    else the split kernel on its own plan."""
+    got = tfd.decode_plan(0, n - 1, blocks, SERVE_SMS, 32)
+    plan = (tfd.cluster_plan if kernel == "flash_decode_cluster"
+            else tfd.split_plan)(0, n - 1, blocks, SERVE_SMS, 32)
+    assert got == (kernel, *plan)
+    n_split, chunk = tfd.cluster_plan(0, n - 1, blocks, SERVE_SMS, 32)
+    assert (chunk <= tfd.CLUSTER_MAX_CHUNK
+            or 2 * blocks * n_split >= SERVE_SMS) \
+        == (kernel == "flash_decode_cluster")
 
 
 @pytest.mark.parametrize("n,blocks,sms", [(1, 1, 1), (576, 32, 132),
@@ -190,6 +269,48 @@ def test_split_merge_matches_plain_and_pallas(quant, h, kv, pos, window):
     assert float((got - plain).abs().max()) <= bound
     assert float((got - torch.from_numpy(np.array(pallas))).abs().max()) \
         <= bound
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("pos,window", [(255, None), (150, 100)])
+def test_cluster_plan_merge_matches_plain_and_pallas(quant, pos, window):
+    """The cluster kernel's plan and rank-order merge, fp and int8, G = 2,
+    against ``flash_decode_plain`` and the Pallas kernel in interpret
+    mode."""
+    b, h, kv, s, d = 2, 8, 4, 256, 64
+    q = torch.from_numpy(np.random.default_rng(pos).standard_normal(
+        (b, h, d)).astype(np.float32))
+    k, v, ks, vs = _cache(pos + 7, b, kv, s, d, quant)
+    lo, hi = tfd.valid_range(pos, s, window)
+    n_split, chunk = tfd.cluster_plan(lo, hi, b * h // 2, SERVE_SMS,
+                                      tfd.rows_per_pass(k.dtype, d))
+    assert n_split > 1
+    got = _split_merge(q, k, v, pos, window, ks, vs, n_split, chunk)
+    kw = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    plain = tfd.flash_decode_plain(q, k, v, pos, window=window, **kw)
+    jkw = {} if ks is None else dict(k_scale=jnp.asarray(ks.numpy()),
+                                     v_scale=jnp.asarray(vs.numpy()))
+    pallas = jops.flash_decode(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                               jnp.asarray(v.numpy()),
+                               jnp.asarray(pos, jnp.int32), window=window,
+                               interpret=True, **jkw)
+    bound = 2e-5 * _vmax(v, vs)
+    assert float((got - plain).abs().max()) <= bound
+    assert float((got - torch.from_numpy(np.array(pallas))).abs().max()) \
+        <= bound
+
+
+def test_cluster_plan_merge_at_decode_32ks_chunk():
+    """A 2048-position chunk in 8 chunks of 256 (the cluster plan at
+    decode_32k's geometry) merges to the plain version, narrow heads."""
+    b, h, kv, s, d = 1, 2, 1, 2048, 16
+    q = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (b, h, d)).astype(np.float32))
+    k, v, _, _ = _cache(12, b, kv, s, d, False)
+    got = _split_merge(q, k, v, s - 1, None, None, None,
+                       *tfd.cluster_plan(0, s - 1, 64, SERVE_SMS, 32))
+    plain = tfd.flash_decode_plain(q, k, v, s - 1)
+    assert float((got - plain).abs().max()) <= 2e-5 * _vmax(v, None)
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -387,8 +508,10 @@ def test_flash_attention_raises_where_tma_cannot_read(fake_card):
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_flash_decode_passes_its_plan(fake_card, quant):
-    """One launch per call with the split plan and the heads per block;
-    scratch for every partial."""
+    """One launch per call with ``decode_plan``'s kernel, plan and heads
+    per block: the serve step's window on the cluster kernel (no scratch),
+    a 32k cache at batch 1 on the split kernel with scratch for every
+    partial."""
     b, h, kv, s, d = 4, 16, 8, 576, 128
     q = torch.zeros(b, h, d, dtype=torch.bfloat16)
     dt = torch.int8 if quant else torch.bfloat16
@@ -400,14 +523,30 @@ def test_flash_decode_passes_its_plan(fake_card, quant):
     before = tfd.flash_decode.launches
     tfd.flash_decode(q, k, k, 575, window=100, **kw)
     (name, args), = fake_card.calls
-    assert name == "flash_decode" and tfd.flash_decode.launches == before + 1
+    assert tfd.flash_decode.launches == before + 1
     lo, hi = tfd.valid_range(575, s, 100)
-    n_split, chunk = tfd.split_plan(lo, hi, b * h // 2, SERVE_SMS,
-                                    tfd.rows_per_pass(dt, d))
-    assert args[8:20] == (1, int(quant), b, h, kv, s, d, lo, hi, chunk,
+    kernel, n_split, chunk = tfd.decode_plan(lo, hi, b * h // 2, SERVE_SMS,
+                                             tfd.rows_per_pass(dt, d))
+    assert name == kernel == "flash_decode_cluster"
+    assert args[6:18] == (1, int(quant), b, h, kv, s, d, lo, hi, chunk,
                           n_split, 2)
     assert (args[3] is None) == (not quant) and args[-1] == 7
-    assert args[7] - args[6] == 4 * b * h * n_split * d   # acc, then (m, l)
+    assert args[-2] is None                                    # no lse
+
+    s = 32768
+    k = torch.zeros(1, s, kv, d, dtype=dt).transpose(1, 2)
+    if quant:
+        sc = torch.ones(1, s, kv).transpose(1, 2)
+        kw = dict(k_scale=sc, v_scale=sc)
+    tfd.flash_decode(q[:1], k, k, s - 1, **kw)
+    name, args = fake_card.calls[-1]
+    kernel, n_split, chunk = tfd.decode_plan(0, s - 1, h // 2, SERVE_SMS,
+                                             tfd.rows_per_pass(dt, d))
+    assert name == kernel == "flash_decode"
+    assert args[8:20] == (1, int(quant), 1, h, kv, s, d, 0, s - 1, chunk,
+                          n_split, 2)
+    assert args[7] - args[6] == 4 * h * n_split * d  # acc, then (m, l)
+    assert tfd.flash_decode.launches == before + 2
 
 
 def test_flash_decode_raises_where_vectors_cannot_read(fake_card):
