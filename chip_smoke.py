@@ -99,8 +99,10 @@
    and a ``train_profile`` line (torch.profiler over two steps).  On the
    trained weights and a fresh batch, the kernel loss and its gradients
    against the plain loss's on the same logits (loss rtol 1e-5, global
-   gradient norm rtol 1e-2).  Then ``--preset 100m --steps 300`` (float32,
-   the reference example's run): its loss falls.
+   gradient norm rtol 1e-2).  Then the 100m preset through the port's
+   example, ``examples_torch/train_lm_100m.py`` with ``--steps`` cut to
+   ``PRESET_STEPS`` (it hands the CLI ``--preset 100m``; float32): its
+   loss falls.
 12. The paper's other learners, on the card, through the session:
    (a) the Fashion halves at full width with the paper's 3-layer network
    (MLP(128, 64), 200 full-batch steps, 5 rounds): ASCII beats the single
@@ -340,11 +342,14 @@
    rounds = ``fleet_run``, every leaf bit for bit.  (d) One MoE layer of
    granite-moe-1b-a400m and of qwen3-moe-235b-a22b at batch 4 x 512
    tokens: ``ep_a2a`` at D = 1 (no token dropped, asserted) against the
-   grouped path, float32 within 1e-5 of max|y| and aux equal; bf16 no
-   further from the float32 grouped y than 1.25 x the bf16 grouped path
-   (19(a)'s bf16 rule).  (e) ``Trainer(mesh=)`` on qwen3-0.6b at full
-   width, batch 8, seq 256, 2 AdamW steps = the mesh-less Trainer's
-   losses and parameters bit for bit, under
+   grouped path, float32 within 1e-5 of max|y| and aux equal; the same
+   ``moe_apply(..., "ep_a2a")`` with a one-rank ``tp.TP`` on the phase's
+   group, ``seq_parallel`` off and on (plumbing: the TP program across
+   ranks runs in tests/test_torch_tp.py's gloo world), = that y and aux
+   bit for bit; bf16 no further from the float32 grouped y than 1.25 x
+   the bf16 grouped path (19(a)'s bf16 rule).  (e) ``Trainer(mesh=)`` on
+   qwen3-0.6b at full width, batch 8, seq 256, 2 AdamW steps = the
+   mesh-less Trainer's losses and parameters bit for bit, under
    ``torch.use_deterministic_algorithms`` (the mesh-less run twice, to
    show it repeats its bits).  Prints ``dist_table`` (the NCCL version,
    each check's error, launches and seconds).
@@ -383,6 +388,14 @@
    ms: the 16 shards' launches, and the whole kernel's, each a CUDA graph
    replayed between CUDA events, and a shard's share of the 16; the
    bound a shard; errors; seconds).
+22. The port's examples (examples_torch/) on the card: quickstart,
+   multi_agent_wine, heterogeneous_agents and fashion_halves_nn, each
+   through its ``main()``; prints each one's lines and seconds
+   (``examples_table``, with phase 11's train_lm_100m run).  Every session
+   an example starts or resumes is recorded: the ignorance launches equal
+   their hops (an async round's merges on the unnormalized mode), and each
+   metered session's ledger equals the Fig.-4 formula, as phase 3 checks
+   it.
 
 Every phase prints one line; a failed phase makes the run exit 1, and then
 the last line is not printed.  Before the last line it prints the card's
@@ -863,6 +876,7 @@ class Smoke:
         self.serve_protos = None       # phase 15(b)'s fitted sessions
         self.tele_dark = {}            # phase 17(a)'s dark runs
         self.card = ""                 # the card's name and power limit
+        self.lm100m = None             # phase 11's 100m example: lines, s
 
     def phase(self, num: int, fn) -> None:
         t0 = time.perf_counter()
@@ -2294,12 +2308,18 @@ class Smoke:
         print("train_profile " + json.dumps(self._train_profile(run)),
               flush=True)
         out += "; " + self._kernel_vs_plain_step(run)
+        # the reference example's run, through the port's example (it
+        # hands the CLI ``--preset 100m`` after these)
         self.reset_counts()
-        pre = cli.run(cli.parser().parse_args(
-            ["--preset", "100m", "--steps", str(PRESET_STEPS), "--device",
-             "cuda", "--seed", "0"]))
+        t0 = time.perf_counter()
+        pre = _example("train_lm_100m").main(
+            ["--steps", str(PRESET_STEPS), "--device", "cuda", "--seed",
+             "0"])
+        self.lm100m = (pre.lines, time.perf_counter() - t0)
         self.read_counts(0, "train 100m", weighted_ce_fwd=PRESET_STEPS,
                          weighted_ce_bwd=PRESET_STEPS)
+        self.require(pre.cfg.name == "lm-100m",
+                     f"the example trained {pre.cfg.name}, not the preset")
         first, last = pre.history[0]["loss"], pre.history[-1]["loss"]
         self.require(all(math.isfinite(h["loss"]) for h in pre.history)
                      and last < first,
@@ -5949,12 +5969,15 @@ class Smoke:
     def _dist_ep(self, table: dict) -> str:
         """(d) One MoE layer of granite-moe and of qwen3-moe, batch 4 x
         512 tokens: ep_a2a at D = 1 against the grouped path, float32
-        within 1e-5 of max|y| and no token dropped; bf16 within 1.25 x the
-        grouped path's distance from float32 (19(a)'s bf16 rule)."""
+        within 1e-5 of max|y| and no token dropped; under a one-rank
+        ``tp.TP`` on the phase's group, seq_parallel off and on, ep_a2a's
+        y and aux bit for bit; bf16 within 1.25 x the grouped path's
+        distance from float32 (19(a)'s bf16 rule)."""
         torch = self.torch
         from repro_torch.configs.registry import ARCHS
         from repro_torch.models import moe
         from repro_torch.sharding import ep
+        from repro_torch.sharding import tp as tp_lib
         from repro_torch.sharding.context import make_mesh, mesh_context
         t0 = time.perf_counter()
         mesh = make_mesh((1, 1), ("data", "model"), "cuda")
@@ -5983,6 +6006,23 @@ class Smoke:
                 err = float((epy - gmm).abs().max()) / scale
                 self.require(err <= 1e-5 and torch.equal(aux_e, aux_g),
                              f"{arch}: ep_a2a {err} of max|y| from grouped")
+                # plumbing: the tensor-parallel entry on a one-rank model
+                # group (NCCL places no two ranks on one card), the
+                # stream whole and split over S
+                tp_s = {}
+                for sp in (False, True):
+                    tp = tp_lib.TP(mesh.group("model"), 1, 0, sp)
+                    with mesh_context(mesh):
+                        t1 = time.perf_counter()
+                        tpy, aux_t = moe.moe_apply(
+                            p, x, cfg, "ep_a2a", tp=tp,
+                            split=tp_lib.seq_split(tp, x.shape[1]))
+                        torch.cuda.synchronize()
+                        tp_s[f"sp{int(sp)}"] = time.perf_counter() - t1
+                    self.require(torch.equal(tpy, epy)
+                                 and torch.equal(aux_t, aux_e),
+                                 f"{arch}: ep_a2a under a one-rank TP "
+                                 f"(seq_parallel {sp}) != without")
                 pb = {k: v.to(torch.bfloat16) for k, v in p.items()}
                 xb = x.to(torch.bfloat16)
                 gb, _ = moe.moe_apply(pb, xb, cfg, "gmm")
@@ -5994,9 +6034,11 @@ class Smoke:
                              f"{arch}: bf16 ep_a2a {d_e} from float32 "
                              f"against grouped's {d_g}")
             rows.append({"arch": arch, "cap": cap, "f32_err": err,
-                         "bf16_ep": d_e, "bf16_gmm": d_g, "ep_s": ep_s})
+                         "bf16_ep": d_e, "bf16_gmm": d_g, "ep_s": ep_s,
+                         "tp_s": tp_s})
             out.append(f"{arch} f32 {err:.3g}, bf16 {d_e:.3g} vs grouped "
-                       f"{d_g:.3g} of max|y|")
+                       f"{d_g:.3g} of max|y|, one-rank TP (sp off, on) = "
+                       f"ep_a2a bit for bit")
             del p, pb, gmm, epy, gb, eb
             torch.cuda.empty_cache()
         table["d"] = {"rows": rows, "s": time.perf_counter() - t0}
@@ -6455,6 +6497,94 @@ class Smoke:
             f"{r['memory_s']:.3e} s, collective {r['collective_s']:.3e} s "
             f"-> {r['bottleneck']}" for k, r in rows.items())
 
+    def examples(self) -> str:
+        """22. The port's examples (examples_torch/) on the card: the four
+        session examples, each run through its ``main()`` with its lines
+        and seconds; every session it starts (or resumes) recorded, the
+        ignorance launches = those sessions' hops, and each metered
+        session's ledger = the Fig.-4 formula (phase 3's check).  The
+        fifth, train_lm_100m.py, is phase 11's 100m run: its lines and
+        seconds are printed from there."""
+        from repro_torch.core import engine
+        out, table = [], {"card": self.card}
+        start, resume = engine.Protocol.start, engine.Protocol.resume
+        for name in ("quickstart", "multi_agent_wine",
+                     "heterogeneous_agents", "fashion_halves_nn"):
+            module = _example(name)
+            runs = []               # (session, components it began with)
+
+            def started(proto, *args, **kw):
+                session = start(proto, *args, **kw)
+                runs.append((session, 0))
+                return session
+
+            def resumed(proto, *args, **kw):
+                session = resume(proto, *args, **kw)
+                runs.append((session, len(session.state.components)))
+                return session
+            self.reset_counts()
+            t0 = time.perf_counter()
+            with mock.patch.object(engine.Protocol, "start", started), \
+                    mock.patch.object(engine.Protocol, "resume", resumed), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                lines = module.main([])
+            self.torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            # a sequential hop is one update launch, an async round's
+            # positive alpha one unnormalized launch (phase 13)
+            hops, merges = 0, 0
+            for session, base in runs:
+                done = len(session.state.components) - base
+                if getattr(session.scheduler, "stale", False):
+                    merges += done
+                else:
+                    hops += done
+            self.read_counts(hops, f"example {name}",
+                             ignorance_update_unnormalized=merges)
+            metered = 0
+            for session, _ in runs:
+                transport = session.transport
+                if not isinstance(transport, engine.MeteredTransport) or \
+                        any(s.transport is transport for s, _ in runs
+                            if s is not session and len(s.state.components)
+                            > len(session.state.components)):
+                    continue        # unmetered, or a paused session's
+                st = session.state
+                n, m = st.w.shape[0], len(session.endpoints)
+                done = len(st.components)
+                kinds = transport.bits_by_kind()
+                self.require(kinds["ignorance"] == done * n * 32
+                             and kinds["model_weight"] == done * 32
+                             and kinds["labels"] + kinds["sample_ids"]
+                             == (m - 1) * 2 * n * 32
+                             and transport.total_bits
+                             - kinds.get("score_block", 0)
+                             == (m - 1) * 2 * n * 32 + done * (n + 1) * 32,
+                             f"example {name}: ledger {kinds} != Fig.-4 "
+                             f"formula")
+                metered += 1
+            table[name] = {"seconds": secs, "sessions": len(runs),
+                           "hops": hops, "async_merges": merges,
+                           "metered_ledgers": metered, "lines": lines}
+            print(f"example {name} ({secs:.1f} s):", flush=True)
+            print("\n".join("  " + line for line in lines), flush=True)
+            out.append(f"{name} {secs:.1f} s, {len(runs)} sessions, "
+                       f"launches = hops = {hops} (+ {merges} async "
+                       f"merges), {metered} metered ledger(s) = Fig. 4")
+        if self.lm100m is not None:
+            lines, secs = self.lm100m
+            table["train_lm_100m"] = {"seconds": secs, "phase": 11,
+                                      "lines": lines}
+            print(f"example train_lm_100m ({secs:.1f} s, phase 11):",
+                  flush=True)
+            print("\n".join("  " + line for line in lines), flush=True)
+            out.append(f"train_lm_100m {secs:.1f} s (phase 11)")
+        else:
+            out.append("train_lm_100m: phase 11 did not run")
+        print("examples_table " + json.dumps(table), flush=True)
+        return "; ".join(out)
+
+
 def _zoo_cfg(arch: str, layers):
     """An arch's full config, ``layers`` deep (None: its own depth;
     "reduced": ``reduced()``)."""
@@ -6474,6 +6604,16 @@ def _zoo_attention(cfg) -> tuple[int, int]:
     n = (transformer._block_kinds(cfg).count("attn")
          * transformer._num_units(cfg))
     return n, n
+
+
+def _example(name: str):
+    """``examples_torch/<name>.py`` of this checkout, imported by path."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _upcast_in_place(tree: dict) -> None:
@@ -6558,7 +6698,7 @@ def main(argv: list[str]) -> int:
               11: s.train, 12: s.learners, 13: s.control,
               14: s.compiled, 15: s.serve_path, 16: s.scenarios,
               17: s.telemetry, 18: s.compiled_rest, 19: s.zoo,
-              20: s.distributed, 21: s.tensor_parallel}
+              20: s.distributed, 21: s.tensor_parallel, 22: s.examples}
     chosen = sorted(phases) if phases_arg is None else phases_arg
     for num in chosen:
         s.phase(num, phases[num])

@@ -56,10 +56,12 @@ class ASCIIConfig:
 def fit(key, Xs: Sequence[torch.Tensor], classes: torch.Tensor,
         learners: Sequence[Learner], cfg: ASCIIConfig,
         transport: TransportLog | Transport | None = None,
-        device: str | torch.device = "cuda") -> FittedASCII:
+        device: str | torch.device = "cuda", draws=None) -> FittedASCII:
     """Run the ASCII training protocol (Algorithm 1 / Section IV) on
     ``device``.  Accepts a raw ``TransportLog`` (wrapped into a
-    MeteredTransport) or any engine ``Transport``."""
+    MeteredTransport) or any engine ``Transport``; ``draws`` is the
+    session's draw source (``Protocol(draws=)``; default
+    ``ChannelDraws``)."""
     if len(learners) != len(Xs):
         raise ValueError(f"{len(learners)} learners for {len(Xs)} blocks")
     validation = None
@@ -75,18 +77,18 @@ def fit(key, Xs: Sequence[torch.Tensor], classes: torch.Tensor,
     else:
         engine_transport = transport
     engine = Protocol(cfg.session_config(upstream), scheduler=scheduler,
-                      transport=engine_transport, device=device)
+                      transport=engine_transport, device=device, draws=draws)
     return engine.fit(key, endpoints_for(learners, Xs), classes,
                       validation=validation)
 
 
 def fit_single_agent_adaboost(key, X: torch.Tensor, classes: torch.Tensor,
                               learner: Learner, cfg: ASCIIConfig,
-                              device: str | torch.device = "cuda"
-                              ) -> FittedASCII:
+                              device: str | torch.device = "cuda",
+                              draws=None) -> FittedASCII:
     """SAMME on one agent's data: ASCII degenerates to multi-class AdaBoost
     when M = 1 (the paper's 'Single' baseline in Fig. 3)."""
-    return fit(key, [X], classes, [learner], cfg, device=device)
+    return fit(key, [X], classes, [learner], cfg, device=device, draws=draws)
 
 
 def fit_ensemble_adaboost(key, Xs: Sequence[torch.Tensor],

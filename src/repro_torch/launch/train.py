@@ -166,8 +166,8 @@ def run(args: argparse.Namespace) -> TrainRun:
     return TrainRun(cfg, params, history, step_s, peak, lines)
 
 
-def main(argv: list | None = None) -> None:
-    run(parser().parse_args(argv))
+def main(argv: list | None = None) -> TrainRun:
+    return run(parser().parse_args(argv))
 
 
 if __name__ == "__main__":

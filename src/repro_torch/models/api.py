@@ -84,11 +84,13 @@ def init_cache(cfg: ArchConfig, batch: int, s_cache: int,
                device: torch.device | str = DEFAULT_DEVICE) -> dict:
     """The zero decode cache; under a mesh this rank's shard of the cache
     of the global ``batch`` (``rules.cache_specs``), a split along the
-    positions registered (``tp.register_split``)."""
+    positions registered (``tp.register_split``).  Under ``ep_a2a`` a
+    batch the data axes do not divide raises (``ep.check_batch``)."""
     mesh = _world_mesh()
     if mesh is None:
         return _model(cfg).init_cache(cfg, batch, s_cache, dtype, device)
-    from repro_torch.sharding import rules
+    from repro_torch.sharding import ep, rules
+    ep.check_batch(cfg, mesh, batch)
     whole = _model(cfg).init_cache(cfg, batch, s_cache, dtype, "meta")
     specs = rules.cache_specs(cfg, mesh, batch, s_cache)(whole)
 
@@ -155,7 +157,8 @@ def pad_prefill_cache(caches: dict, cfg: ArchConfig, s_cache: int,
     through.  Under a mesh a leaf that ``rules.cache_specs`` splits along
     its positions is cut to this rank's chunk (and registered); ``batch``
     is the global batch (default: the local one times the data axes'
-    size)."""
+    size), which under ``ep_a2a`` the data axes must divide
+    (``ep.check_batch``)."""
     def pad_axis2(a: torch.Tensor) -> torch.Tensor:
         if a.shape[2] >= s_cache:
             return a
@@ -170,10 +173,11 @@ def pad_prefill_cache(caches: dict, cfg: ArchConfig, s_cache: int,
     mesh = _world_mesh()
     if mesh is None:
         return padded
-    from repro_torch.sharding import rules
+    from repro_torch.sharding import ep, rules
     if batch is None:
         b = next(iter(padded.values()))[0].shape[1]
         batch = b * math.prod(mesh.shape[a] for a in rules.data_axes(mesh))
+    ep.check_batch(cfg, mesh, batch)
     specs = rules.cache_specs(cfg, mesh, batch, s_cache)(padded)
 
     def cut(node, spec):

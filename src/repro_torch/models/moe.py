@@ -37,8 +37,11 @@ and then summed over ``model``; the probabilities enter the region by
 Under sequence parallelism (``split``) each rank routes its chunk of S
 (the router's statistics summed over ``model`` as well) and the tokens
 and probabilities are all-gathered for the experts.  ``ep_a2a`` under
-tensor parallelism raises.  On the meta device (the dry run) the grouped
-path takes balanced segments: the routing is data.
+tensor parallelism routes the whole S on every rank of a model group
+(gathered first under ``split``), each rank holding its slice of the
+banks' ff, the partials summed over ``model`` before the return hop
+(``sharding/ep.py``).  On the meta device (the dry run) the grouped path
+takes balanced segments: the routing is data.
 
 The grouped combine writes each copy's weighted output back to its
 (token, slot) place by index (no two copies share one) and adds a token's
@@ -165,13 +168,9 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     from repro_torch.sharding.context import current_mesh
     impl = impl or cfg.moe_impl
     if impl == "ep_a2a":
-        if tp is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: moe_impl='ep_a2a' under tensor parallelism "
-                f"over model (ROADMAP Queue 1, item 5): use 'gmm'")
         # routing happens on each data shard (sharding/ep.py)
         from repro_torch.sharding.ep import moe_apply_ep_a2a
-        return moe_apply_ep_a2a(params, x, cfg)
+        return moe_apply_ep_a2a(params, x, cfg, tp, split)
     if impl not in ("dense", "gmm"):
         raise ValueError(f"unknown moe_impl {impl!r}")
     group = rules.data_group(current_mesh())

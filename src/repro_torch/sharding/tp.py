@@ -319,8 +319,8 @@ def leave(y: torch.Tensor, tp: TP | None, split: bool,
     output cut to this rank's chunk."""
     if tp is None:
         return y
-    if whole:
-        return split(y, tp) if split else y
+    if whole:       # the argument ``split`` hides the function split
+        return _Split.apply(y, tp, 1) if split else y
     return scatter_seq(y, tp) if split else reduce_from_model(y, tp)
 
 

@@ -34,7 +34,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import api
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.sharding import rules
+from repro_torch.sharding import ep, rules
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.sharding.context import SubMesh, mesh_context
 from repro_torch.train import checkpoint as ckpt_lib
@@ -106,9 +106,7 @@ class Trainer:
                              f"are not the batch's specs {spec}")
         axes = rules.data_axes(self.mesh)
         if spec["tokens"][0] is None:
-            if self.cfg.is_moe and self.cfg.moe_impl == "ep_a2a":
-                raise ValueError(f"ep_a2a needs the batch of "
-                                 f"{tokens.shape[0]} split over {axes}")
+            ep.check_batch(self.cfg, self.mesh, int(tokens.shape[0]))
             return batch, False
         m = max(self.cfg.microbatches, 1)
         bsz = tokens.shape[0]

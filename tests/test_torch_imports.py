@@ -1,9 +1,10 @@
-"""The port's import rule: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``.
+"""The port's import rule: no module of ``repro_torch``, not
+``chip_smoke.py`` and no example of ``examples_torch/`` imports ``jax`` or
+the JAX package ``repro``.
 
 One subprocess, whose ``sys.meta_path`` refuses those names, imports every
-module of ``repro_torch`` (walked with ``pkgutil``, which imports nothing)
-and then ``chip_smoke``, and reports per module whether the import
+module of ``repro_torch`` (walked with ``pkgutil``, which imports nothing),
+then ``chip_smoke`` and the examples, and reports per module whether the import
 succeeded and which refused names it asked for.  A subprocess a module
 would import torch for each of them; the assertions are one case a module.
 """
@@ -21,7 +22,9 @@ SRC = ROOT / "src"
 
 
 def _modules() -> list[str]:
-    """Every module and package of ``repro_torch``, then ``chip_smoke``."""
+    """Every module and package of ``repro_torch``, then ``chip_smoke``
+    and the examples (``examples_torch.<name>``: the folder imports as a
+    namespace package from the root)."""
     out = ["repro_torch"]
 
     def walk(path: Path, prefix: str) -> None:
@@ -30,7 +33,9 @@ def _modules() -> list[str]:
             if info.ispkg:
                 walk(path / info.name, f"{prefix}{info.name}.")
     walk(SRC / "repro_torch", "repro_torch.")
-    return sorted(out) + ["chip_smoke"]
+    examples = sorted(f"examples_torch.{f.stem}"
+                      for f in (ROOT / "examples_torch").glob("*.py"))
+    return sorted(out) + ["chip_smoke"] + examples
 
 
 MODULES = _modules()
@@ -88,6 +93,7 @@ def test_the_walk_finds_the_port():
                  "repro_torch.control.scheduler"):
         assert name in MODULES
     assert not any(m.startswith("repro.") for m in MODULES)
+    assert len([m for m in MODULES if m.startswith("examples_torch.")]) == 5
 
 
 @pytest.mark.parametrize("module", MODULES)

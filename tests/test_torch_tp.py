@@ -8,15 +8,18 @@ The configs keep ``rules.use_tp`` (d_model 1024) and are cut to 2 layers,
 d_ff 2048, vocab 4096, float32, B 4, S 16, H 8: dense GQA with KV 4 (the
 KV projections and the decode cache split over heads) and KV 2 (both
 whole, the cache split along its positions), granite's MoE (4 experts, ff
-split), jamba's SSM + attention pair (MoE every second layer),
+split) on the grouped path and expert parallel (``moe_impl="ep_a2a"``:
+the banks split over data and their ff over model, against the
+reference's ep_a2a), jamba's SSM + attention pair (MoE every second layer),
 minicpm3's MLA over whole heads, and at H 6 (which 4 does not divide)
 with ``mla_rank_shard`` (the b-matrices split on their rank dim), each
 with ``seq_parallel`` off and on, against the reference's program
 without it (its ``seq_parallel`` only constrains GSPMD's shardings: the
 same arithmetic).  Each rank:
 
-  * holds every leaf ``param_specs`` splits over ``model`` split (its
-    local shape is the rule's shard);
+  * holds every leaf ``param_specs`` splits over ``model`` split, and
+    under ep_a2a the expert banks over ``data`` too (its local shape is
+    the rule's shard);
   * prefill: the last position's logits within atol 1e-5 + rtol 1e-5;
   * 4 decode steps (teacher-forced tokens) from the prefill's cache,
     padded to 24 and laid out by ``rules.cache_specs``: logits as above;
@@ -42,6 +45,7 @@ The tolerances are the data-parallel tests': float32 sums in another
 order (GSPMD's partial sums against the port's all-reduces) part at ~1e-6
 of a logit.
 """
+import math
 import time
 from pathlib import Path
 
@@ -64,6 +68,12 @@ CONFIGS = {
     "kv4": ("qwen3-0.6b", dict(num_kv_heads=4)),
     "kv2": ("qwen3-0.6b", dict(num_kv_heads=2)),
     "moe": ("granite-moe-1b-a400m", dict(num_kv_heads=4)),
+    # expert parallel: 2 experts a data rank, each bank's ff split over
+    # model; a shard's 32 tokens (the prefill's whole S) make 64 copies,
+    # under the capacity of 128 a destination, so no token drops
+    "moe_ep": ("granite-moe-1b-a400m", dict(num_kv_heads=4,
+                                            moe_impl="ep_a2a",
+                                            capacity_factor=2.0)),
     "jamba": ("jamba-v0.1-52b", dict(num_kv_heads=4,
                                      layer_pattern=("ssm", "attn"),
                                      moe_every=2)),
@@ -312,6 +322,28 @@ def tp_rank(rank, world, data, grads_dir, params_dir):
         out[tag + "errors"] = _compare(
             Path(grads_dir), ref_tag(name, sp), mesh, full, _flat(specs),
             _flat(grads), _flat(trainer.gather_params(new)))
+        if (name, sp) == ("moe_ep", False):
+            # a batch of 3 that data 2 does not divide: ep_a2a refuses it
+            # in the decode cache, the prefill's padding and the trainer
+            b3 = {"tokens": tokens[:3], "sample_weight": weight[:3]}
+            calls = {
+                "init_cache": lambda: api.init_cache(cfg, 3, S_CACHE,
+                                                     device="cpu"),
+                "pad_prefill_cache": lambda: api.pad_prefill_cache(
+                    caches, cfg, S_CACHE, batch=3),
+                "trainer": lambda: Trainer(cfg, topt.sgd(LR),
+                                           TrainerConfig(steps=1),
+                                           mesh=mesh).run(
+                    None, iter([b3]), params=params,
+                    opt_state=topt.sgd(LR).init(params))}
+            out["ep_b3"] = {}
+            for what, call in calls.items():
+                try:
+                    with torch.no_grad(), mesh_context(mesh):
+                        call()
+                    out["ep_b3"][what] = None
+                except ValueError as e:
+                    out["ep_b3"][what] = str(e)
         if (name, sp) == ("kv4", False):
             # a batch of 3 that data 2 does not divide: every data rank
             # steps on all of it (the model group's ranks still split)
@@ -435,8 +467,11 @@ def test_each_rank_holds_its_model_splits(runs, name, sp):
         got = out[f"{name}_{int(sp)}/shapes"]
         assert set(got) == set(full)
         for k, shape in full.items():
-            want = tuple(n // MODEL if e == "model" else n
-                         for n, e in zip(shape, specs[k]))
+            # the model splits; under ep_a2a the banks' data split too
+            want = tuple(n // math.prod(
+                mesh.shape[a] for a in rules.spec_axes((e,))
+                if a == "model" or cfg.moe_impl == "ep_a2a")
+                for n, e in zip(shape, specs[k]))
             assert got[k] == want, k
             split += want != shape
     assert split > 0
@@ -474,6 +509,17 @@ def test_a_quantized_cache_split_along_positions_matches_the_mesh_less_port(
     the same cache."""
     for out in runs[1]:
         assert out[f"quant_b{batch}"] <= TOL["atol"]
+
+
+@pytest.mark.parametrize("what", ["init_cache", "pad_prefill_cache",
+                                  "trainer"])
+def test_ep_a2a_refuses_a_batch_the_data_axis_does_not_divide(runs, what):
+    """ep_a2a routes each data shard's rows: a global batch of 3 over data
+    2 raises a ValueError that names the batch, in the decode cache, the
+    prefill cache's padding and the trainer's step."""
+    for out in runs[1]:
+        msg = out["ep_b3"][what]
+        assert msg is not None and "ep_a2a" in msg and "batch of 3" in msg
 
 
 def test_a_batch_the_data_axis_does_not_divide_steps_whole(runs):
